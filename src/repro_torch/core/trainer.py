@@ -15,11 +15,7 @@ import torch
 
 from repro_torch.configs.base import MAvgConfig, TrainConfig
 from repro_torch.core.meta import init_state, make_meta_step
-
-
-def _generator(device: torch.device, *entropy: int) -> torch.Generator:
-    seed = int(np.random.SeedSequence(list(entropy)).generate_state(1)[0])
-    return torch.Generator(device=device).manual_seed(seed)
+from repro_torch.utils.rng import seeded_generator
 
 
 class Trainer:
@@ -42,7 +38,8 @@ class Trainer:
         self.device = torch.device(device)
         # the init and data streams: seeded generators, one per purpose
         # (init) and per meta step (data), reproducible run to run
-        params = init_params_fn(_generator(self.device, train_cfg.seed, 0))
+        params = init_params_fn(
+            seeded_generator(self.device, train_cfg.seed, 0))
         self._topology = make_topology(self.mcfg)
         self.state = init_state(params, self.mcfg, topology=self._topology)
         del params  # the state holds its own copy
@@ -84,7 +81,7 @@ class Trainer:
         for i in range(n):
             step = start + i
             batches = self.batch_fn(
-                _generator(self.device, self.cfg.seed, 1, step), step
+                seeded_generator(self.device, self.cfg.seed, 1, step), step
             )
             lr = (self.lr_schedule(step) if self.lr_schedule
                   else np.float32(self.mcfg.learner_lr))

@@ -42,11 +42,11 @@ def state_from_jax(state, device="cpu") -> MetaState:
     """A JAX ``MetaState`` with numpy leaves -> the port's MetaState.
 
     Reads the fields by name; a packed state's layout comes from its
-    spec's ``layout_dict()``. Only the flat, dense state is carried
-    (``comm_residual`` and ``topo`` must be None).
+    spec's ``layout_dict()``. The flat topology's state is carried, with
+    its error-feedback residual (``comm_residual``); ``topo`` must be None.
     """
-    if state.comm_residual is not None or state.topo is not None:
-        raise NotImplementedError("only flat dense states carry over")
+    if state.topo is not None:
+        raise NotImplementedError("only flat-topology states carry over")
     spec = getattr(state, "spec", None)
     return MetaState(
         global_params=_tree(state.global_params, device),
@@ -54,6 +54,26 @@ def state_from_jax(state, device="cpu") -> MetaState:
         learners=_tree(state.learners, device),
         local_momentum=_tree(state.local_momentum, device),
         step=int(np.asarray(state.step)),
+        comm_residual=_tree(state.comm_residual, device),
         spec=None if spec is None else PackSpec.from_layout(
             spec.layout_dict()),
     )
+
+
+def dither_from_numpy(fn):
+    """A dither source for ``comm.QuantReducer`` from
+    ``fn(leaf_index, step, shape) -> numpy array`` of uniforms in [0, 1):
+    for example the JAX reducer's own, which a caller that imports JAX
+    makes with ``jax.random.uniform(QuantReducer(seed=s)._leaf_key(i,
+    step), shape)``. Each call returns a new float32 tensor on the
+    requested device, which the reducer may write over."""
+
+    def dither(leaf_index, step, shape, device):
+        a = np.array(fn(int(leaf_index), int(step), tuple(shape)),
+                     dtype=np.float32)
+        if a.shape != tuple(shape):
+            raise ValueError(f"dither of shape {a.shape}, expected "
+                             f"{tuple(shape)}")
+        return torch.from_numpy(a).to(device)
+
+    return dither

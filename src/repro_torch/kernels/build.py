@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-At first use on a machine with the CUDA toolkit, ``nvcc`` compiles
-``csrc/meta_kernels.cu`` for ``sm_90a`` into a shared library with a plain
-C interface, which is loaded with ``ctypes``. The library lands in
+At first use on a machine with the CUDA toolkit, ``nvcc`` compiles each
+source in ``SOURCES`` for ``sm_90a`` (one ``nvcc`` per source, all started
+together) and links the objects into one shared library with a plain C
+interface, which is loaded with ``ctypes``. The library lands in
 ``<checkout>/build/repro_torch/<hash>/`` (listed in .gitignore), keyed on a
 hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is loaded from the previous build.
@@ -21,15 +22,15 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "meta_kernels.cu",)
+SOURCES = (CSRC / "meta_kernels.cu", CSRC / "comm_kernels.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-LIB_NAME = "libmeta_kernels.so"
+LIB_NAME = "librepro_kernels.so"
 # --fmad=false: no multiply-add contraction anywhere, so the kernels round
 # exactly where their plain versions do (the sources also use the _rn
 # intrinsics, which are never contracted)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
@@ -39,6 +40,10 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _F32, _F32, _I32, _P),
     "repro_block_momentum": (_P, _P, _P, _P, _P, _I64, _F32, _F32, _I32, _P),
     "repro_sgd_apply": (_P, _P, _P, _I64, _I32, _F32, _P),
+    "repro_quantize": (_P, _P, _P, _P, _I64, _I32, _I32, _P),
+    "repro_dequantize": (_P, _P, _P, _I64, _I32, _P),
+    "repro_pack_update": (
+        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P),
 }
 
 
@@ -84,6 +89,20 @@ def source_digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands concurrently; their joined output, or raise with
+    it if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    failed = [p.returncode for p in procs if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
+    return log
+
+
 def build() -> tuple[Path, str, float]:
     """Compile the sources unless this hash was built already.
 
@@ -97,17 +116,21 @@ def build() -> tuple[Path, str, float]:
     if lib.exists():
         return lib, "", 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    tag = f"{os.getpid()}.tmp"
+    objs = [out_dir / f".{src.stem}.{tag}.o" for src in SOURCES]
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, lib)
-    return lib, log, seconds
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                        for src, obj in zip(SOURCES, objs)])
+        log += _run_all([[nvcc, "-shared", "-o", str(tmp),
+                          *map(str, objs)]])
+        os.replace(tmp, lib)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    return lib, log, time.perf_counter() - t0
 
 
 _LIBRARY: KernelLibrary | None = None

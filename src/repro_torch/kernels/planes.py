@@ -39,9 +39,10 @@ def from_2d(x2: torch.Tensor, shape, n: int) -> torch.Tensor:
 
 
 def check_cuda(name: str, x: torch.Tensor, dtype=None, shape=None,
-               device=None) -> None:
+               device=None, allowed=KERNEL_DTYPES) -> None:
     """Raise unless ``x`` is what the CUDA kernel takes: a contiguous,
-    16-byte aligned CUDA tensor of the given dtype, shape and device."""
+    16-byte aligned CUDA tensor of the given dtype (one of ``allowed``),
+    shape and device."""
     if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got "
                          f"{getattr(x, 'device', type(x))}")
@@ -49,9 +50,9 @@ def check_cuda(name: str, x: torch.Tensor, dtype=None, shape=None,
         raise ValueError(f"{name}: on {x.device}, expected {device}")
     if dtype is not None and x.dtype != dtype:
         raise ValueError(f"{name}: dtype {x.dtype}, expected {dtype}")
-    if x.dtype not in KERNEL_DTYPES:
+    if x.dtype not in allowed:
         raise ValueError(f"{name}: dtype {x.dtype} is not one of "
-                         f"{KERNEL_DTYPES}")
+                         f"{allowed}")
     if shape is not None and tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(x.shape)}, expected "
                          f"{tuple(shape)}")
@@ -61,8 +62,9 @@ def check_cuda(name: str, x: torch.Tensor, dtype=None, shape=None,
         raise ValueError(f"{name}: data pointer is not 16-byte aligned")
 
 
-def check_plane_cuda(name: str, x: torch.Tensor, dtype=None) -> None:
-    check_cuda(name, x, dtype=dtype)
+def check_plane_cuda(name: str, x: torch.Tensor, dtype=None,
+                     allowed=KERNEL_DTYPES) -> None:
+    check_cuda(name, x, dtype=dtype, allowed=allowed)
     if not is_packed_plane(x):
         raise ValueError(f"{name}: shape {tuple(x.shape)} is not a "
                          f"(rows, 128) plane with rows % 8 == 0")

@@ -9,9 +9,12 @@ Usage:
 
 The reduced config trains on the bigram-teacher stream and ends with an
 eval loss. ``--full`` uses uniform random tokens instead: the bigram table
-at the full vocabulary would take 92 GB (ROADMAP). The JAX launcher's
-other flags (comm, topology, obs, chaos, robust, checkpoints) are not
-ported yet.
+at the full vocabulary would take 92 GB (ROADMAP). ``--comm`` compresses
+the meta average (``repro_torch.comm``), with error feedback unless
+``--no-error-feedback``; at full width with f32 learners the EF residual
+adds L planes, so ``--full --comm int8`` fits one 80 GB card at
+``--learners 2``. The JAX launcher's other flags (topology, obs, chaos,
+robust, checkpoints) are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ import torch
 
 from repro_torch.configs.base import (
     AVERAGING_ALGOS,
+    COMM_SCHEMES,
+    CommConfig,
     MAvgConfig,
     TrainConfig,
     get_config,
@@ -45,6 +50,12 @@ def main(argv=None) -> None:
     ap.add_argument("--momentum", type=float, default=0.7)
     ap.add_argument("--full", action="store_true",
                     help="full-scale config (one 80 GB card)")
+    ap.add_argument("--comm", default="dense", choices=COMM_SCHEMES,
+                    help="meta-communication compression scheme")
+    ap.add_argument("--comm-k-frac", type=float, default=0.1,
+                    help="kept fraction for the top-k comm schemes")
+    ap.add_argument("--no-error-feedback", action="store_true",
+                    help="disable the comm error-feedback residual")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -55,7 +66,10 @@ def main(argv=None) -> None:
     device = torch.device(args.device)
     mcfg = MAvgConfig(algorithm=args.algorithm, num_learners=args.learners,
                       k_steps=args.k, learner_lr=args.lr,
-                      momentum=args.momentum)
+                      momentum=args.momentum,
+                      comm=CommConfig(
+                          scheme=args.comm, k_frac=args.comm_k_frac,
+                          error_feedback=not args.no_error_feedback))
     tcfg = TrainConfig(model=cfg, mavg=mcfg, batch_per_learner=args.batch,
                        seq_len=args.seq, meta_steps=args.steps)
     shape = (cfg, args.learners, args.k, args.batch, args.seq)
@@ -75,6 +89,9 @@ def main(argv=None) -> None:
     history = trainer.run()
     line = (f"\nfinal train loss {history[-1]['loss']:.4f}  "
             f"samples {history[-1]['samples']}")
+    if args.comm != "dense":
+        line += (f"  comm_compression {history[-1]['comm_compression']:.2f}"
+                 f"  comm_error_norm {history[-1]['comm_error_norm']:.3e}")
     if not args.full:
         eval_batch = lm_eval_set(cfg, n=32, seq_len=args.seq, device=device)
         with torch.no_grad():

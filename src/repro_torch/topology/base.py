@@ -3,11 +3,13 @@
     mix(learners, gp, v, comm_residual, topo, step=n)
         -> (gp', v', learners', comm_residual', topo', metrics)
 
-Only the flat all-reduce is ported: the mean over all L learners, then
-the block-momentum update and the reset of every learner to the new meta
-params. On the packed plane that update is ONE launch of the fused
-momentum-broadcast kernel, in place: w~ and v are overwritten, and the
-learner plane (already consumed by the mean) receives the reset.
+Only the flat all-reduce is ported: the reducer's average over all L
+learners (the dense mean, or a compressed one with its error-feedback
+residual, ``repro_torch.comm``), then the block-momentum update and the
+reset of every learner to the new meta params. On the packed plane that
+update is ONE launch of the fused momentum-broadcast kernel, in place:
+w~ and v are overwritten, and the learner plane (already consumed by the
+reducer) receives the reset.
 """
 from __future__ import annotations
 

@@ -47,6 +47,14 @@ def tree_unflatten(paths, leaves) -> dict:
     return out
 
 
+def tree_add(a, b):
+    return tree_map(lambda x, y: x + y, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(lambda x, y: x - y, a, b)
+
+
 def tree_cast(tree, dtype):
     return tree_map(lambda x: x.to(dtype), tree)
 

@@ -211,10 +211,10 @@ def test_packed_matches_per_leaf_bitwise(algorithm, nesterov):
 
 
 def test_unported_configs_raise():
-    from repro_torch.configs.base import CommConfig, TopologyConfig
+    from repro_torch.configs.base import TopologyConfig
 
     for cfg in (MAvgConfig(algorithm="downpour"),
-                MAvgConfig(comm=CommConfig(scheme="int8")),
+                MAvgConfig(finite_guard=True),
                 MAvgConfig(topology=TopologyConfig(kind="gossip"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_state(_params(), cfg)

@@ -106,3 +106,12 @@ def test_launcher_runs_on_cpu(capsys):
                        "--steps", "2", "--batch", "2", "--seq", "16"])
     out = capsys.readouterr().out
     assert "meta_step=1" in out and "eval loss" in out
+
+
+def test_launcher_runs_compressed_on_cpu(capsys):
+    """One reduced meta step with int8 + error feedback on the CPU."""
+    launch_train.main(["--device", "cpu", "--learners", "2", "--k", "2",
+                       "--steps", "1", "--batch", "2", "--seq", "16",
+                       "--comm", "int8"])
+    out = capsys.readouterr().out
+    assert "meta_step=0" in out and "comm_compression 3.9" in out
