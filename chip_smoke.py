@@ -12,14 +12,20 @@ Phases (any failure raises and the script exits non-zero):
 3. each kernel against its plain PyTorch version at the main paths'
    shapes, the full Qwen3-1.7B packed plane (13,441,992 x 128): the meta
    kernels with L=4, the wire-compression kernels (quantize, dequantize at
-   qmax 127 and 7; pack_update with L=2, with and without the residual,
-   in place and out of place) at the chunk height b=8 the plane gets, and
-   once at b=64 on its first 13,441,984 rows. Bitwise equality over the
-   whole plane (in windows of rows, so the plain version's temporaries
-   fit), then CUDA-event times of the kernel, the plain version and,
-   where one exists, a single PyTorch library call, beside the least time
-   the card could take (bytes over 3.35 TB/s or flops over 67 TFLOP/s,
-   whichever is larger);
+   qmax 127 and 7; pack_update and pack_compress with L=2, with and
+   without the residual or err plane, in place and out of place) at the
+   chunk height b=8 the plane gets, and once at b=64 on its first
+   13,441,984 rows; pack_compress again at the topology runs' own shape,
+   the (4, 4,790,496, 128) stack of the 6-layer plane at the b=32 that
+   choose_block gives it (four chunks to a block of threads); neighbor_mix
+   with L=4 in f32 and bf16, in place and out of place, and its stepped
+   entry with the (2, 4, 4) one_peer_exponential stack. Bitwise equality
+   over the whole plane (in
+   windows of rows, so the plain version's temporaries fit), then
+   CUDA-event times of the kernel, the plain version and, where one
+   exists, a single PyTorch library call, beside the least time the card
+   could take (bytes over 3.35 TB/s or flops over 67 TFLOP/s, whichever is
+   larger);
 4. the dense main path: the port's Trainer on the full-width, full-depth
    Qwen3-1.7B, M-AVG with L=4, K=4, B=8, S=64, 3 meta steps from random
    weights on uniform random tokens, with the kernel launch counters
@@ -31,9 +37,22 @@ Phases (any failure raises and the script exits non-zero):
    L planes, and L=4 would not fit), K=4, B=8, S=64, 3 meta steps, counted
    and profiled the same way;
 6. the card against the CPU on ``qwen3-1.7b.reduced()`` in float32, 2 meta
-   steps: dense per-leaf (``packed=False``, the block-momentum path) and
-   packed, then int8+EF packed, int8+EF per-leaf and int8_topk+EF packed,
-   with the same dither on both devices (drawn on the CPU).
+   steps: flat dense per-leaf (``packed=False``, the block-momentum path)
+   and packed, then int8+EF packed, int8+EF per-leaf and int8_topk+EF
+   packed; gossip ring dense per-leaf and packed, gossip exponential int8
+   without EF, gossip one_peer_exponential int8+EF with elastic
+   membership, and hierarchical elastic with an int8+EF inner level (L=4
+   for the topologies), with the same dither on both devices (drawn on
+   the CPU);
+7. gossip at full width: Qwen3-1.7B with every width unchanged and the
+   depth cut to 6 of 28 layers (four learners' private meta, momentum and
+   residual planes do not fit one card at full depth), L=4, K=4, B=8,
+   S=64, one_peer_exponential with momentum tracking, int8+EF, 3 meta
+   steps, counted, split by memory part and profiled as in phase 5;
+8. hierarchical at the same cut: G=2, H=2, mu_out=0.3, elastic
+   membership (period 4, drop 0.25: one learner of four absent a step),
+   an int8+EF inner level and a dense outer one, 4 meta steps (the outer
+   level fires twice).
 
 The second-to-last line is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every phase
@@ -62,6 +81,11 @@ WINDOW_ROWS = 1 << 19  # rows per window of the bitwise comparison
 BLOCK = 8  # the scale-chunk height choose_block gives the full plane
 SOURCE = "src/repro_torch/kernels/csrc/meta_kernels.cu"
 COMM_SOURCE = "src/repro_torch/kernels/csrc/comm_kernels.cu"
+TOPOLOGY_SOURCE = "src/repro_torch/kernels/csrc/topology_kernels.cu"
+NM_REPLACES = "src/repro/kernels/neighbor_mix.py:39"
+NM_STEPPED_REPLACES = "src/repro/kernels/neighbor_mix.py:85"
+PC_REPLACES = "src/repro/kernels/pack_update.py:126"
+DEPTH = 6  # layers of the full-width topology runs (of 28)
 # card vs CPU after compressed meta steps: values beyond rtol 1e-5 /
 # atol 1e-6 are rounding decisions that flipped because the two devices'
 # gradients differ in the last bits; at most this share of them, each
@@ -404,8 +428,233 @@ def check_pack_update(torch, pu, rows) -> dict:
                 bound_by=b_by, library_ms=None)
 
 
+def check_neighbor_mix(torch, nm, rows) -> list[dict]:
+    """neighbor_mix over the (4, rows, 128) stack with the ring's matrix
+    (weights 1/3, inexact in f32), bf16 then f32, out of place and in
+    place; the stepped entry with the (2, 4, 4) one_peer_exponential stack
+    at steps 0 and 1. Times of the f32 cases, the plain versions summed
+    over row windows, and ``torch.einsum`` (the library's product) beside
+    them."""
+    from repro_torch.topology import mixing_matrix, mixing_matrix_stack
+
+    n = rows * 128
+    W = mixing_matrix("ring", L)
+    stack = mixing_matrix_stack("one_peer_exponential", L)
+    assert stack.shape == (2, L, L)
+    err = 0.0
+
+    def check(got, x, w, step=None):
+        nonlocal err
+        for sl in windows(rows):
+            want = (nm.neighbor_mix_plain(x[:, sl], w) if step is None else
+                    nm.neighbor_mix_stepped_plain(x[:, sl], w, step))
+            err = max(err, max_err(torch, got[:, sl], want))
+
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.empty(L, rows, 128, dtype=dt, device="cuda")
+        for j in range(L):
+            filled(torch, 40 + j, rows, out=x[j])
+        out = torch.empty_like(x)
+        nm.neighbor_mix_cuda(x, W, out=out)
+        torch.cuda.synchronize()
+        check(out, x, W)
+        print(f"  neighbor_mix dtype={dt}: bitwise equal over {L} x {rows} "
+              f"rows")
+        if dt == torch.float32:
+            for step in (0, 1):
+                nm.neighbor_mix_stepped_cuda(x, stack, step, out=out)
+                torch.cuda.synchronize()
+                check(out, x, stack, step)
+            print("  neighbor_mix_stepped steps 0, 1: bitwise equal")
+            ms = cuda_ms(torch, lambda: nm.neighbor_mix_cuda(x, W, out=out))
+            stepped_ms = cuda_ms(torch, lambda: nm.neighbor_mix_stepped_cuda(
+                x, stack, 1, out=out))
+            plain_ms = sum(cuda_ms(
+                torch, lambda sl=sl: nm.neighbor_mix_plain(x[:, sl], W),
+                warmup=1, iters=3) for sl in windows(rows))
+            stepped_plain_ms = sum(cuda_ms(
+                torch, lambda sl=sl: nm.neighbor_mix_stepped_plain(
+                    x[:, sl], stack, 1), warmup=1, iters=3)
+                for sl in windows(rows))
+            nm.neighbor_mix_cuda(x, W, out=out)
+        # in place, as the gossip step runs it
+        nm.neighbor_mix_cuda(x, W, out=x)
+        for sl in windows(rows):
+            err = max(err, max_err(torch, x[:, sl], out[:, sl]))
+        print(f"  neighbor_mix dtype={dt} in place: equal to out of place")
+        del out
+        if dt == torch.bfloat16:
+            del x
+        free(torch)
+    # the yardstick, never called by the port: one product (L, L) x (L, n)
+    Wd = torch.from_numpy(W).cuda()
+    library_ms = cuda_ms(torch, lambda: torch.einsum("jk,kn->jn", Wd,
+                                                     x.view(L, -1)))
+    del x
+    free(torch)
+    b_ms, b_by = bound(2 * L * n * 4, 2 * L * L * n)
+    return [dict(name="neighbor_mix", replaces=NM_REPLACES,
+                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=library_ms),
+            dict(name="neighbor_mix_stepped", replaces=NM_STEPPED_REPLACES,
+                 max_abs_err=err, ms=stepped_ms, plain_ms=stepped_plain_ms,
+                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)]
+
+
+def check_pack_compress_main(torch, pu, rows) -> float:
+    """pack_compress at the shape the gossip and hierarchical runs give it:
+    the (4, rows, 128) stack of the DEPTH-layer plane at the chunk height
+    ``choose_block`` gives that plane (b=32: four chunks to a block of
+    threads, each chunk's max reduced across its warps through shared
+    memory). Without and with err, out of place against the plain version
+    in row windows, then in place (c over u; err over d) against the
+    out-of-place results; then CUDA-event times beside the bounds.
+    Returns the largest difference (0.0)."""
+    from repro_torch.kernels.quantize import choose_block
+
+    b = choose_block(rows, None)
+    n = L * rows * 128
+    d, u = (torch.empty(L, rows, 128, device="cuda") for _ in range(2))
+
+    def fill():
+        for j in range(L):
+            filled(torch, 70 + j, rows, out=d[j], scale=0.05)
+            filled(torch, 80 + j, rows, out=u[j], uniform=True)
+
+    fill()
+    c0, e0, s0 = pu.pack_compress_cuda(d, u, 127, b, with_err=False)
+    c1, e1, s1 = pu.pack_compress_cuda(d, u, 127, b)
+    assert e0 is None
+    torch.cuda.synchronize()
+    err = 0.0
+    for sl in windows(rows):
+        cs = chunks(sl, b)
+        pc, _, ps = pu.pack_compress_plain(d[:, sl], u[:, sl], 127, b,
+                                           with_err=False)
+        err = max(err, max_err(torch, c0[:, sl], pc),
+                  max_err(torch, s0[:, cs], ps))
+        pc, pe, ps = pu.pack_compress_plain(d[:, sl], u[:, sl], 127, b)
+        err = max(err, max_err(torch, c1[:, sl], pc),
+                  max_err(torch, e1[:, sl], pe),
+                  max_err(torch, s1[:, cs], ps))
+    print(f"  pack_compress ({L}, {rows}, 128), b={b}, err=False and True: "
+          f"bitwise equal to the plain version")
+    uu = u.clone()
+    _, _, s2 = pu.pack_compress_cuda(d, uu, 127, b, with_err=False,
+                                     c_out=uu)
+    err = max(err, max_err(torch, s2, s0))
+    for sl in windows(rows):
+        err = max(err, max_err(torch, uu[:, sl], c0[:, sl]))
+    del uu
+    _, _, s2 = pu.pack_compress_cuda(d, u, 127, b, c_out=u, err_out=d)
+    err = max(err, max_err(torch, s2, s1))
+    for sl in windows(rows):
+        err = max(err, max_err(torch, u[:, sl], c1[:, sl]),
+                  max_err(torch, d[:, sl], e1[:, sl]))
+    print(f"  pack_compress ({L}, {rows}, 128), b={b}, in place (c over u, "
+          f"err over d; and c over u without err): equal to out of place")
+    fill()  # fresh inputs for the timing
+    ms = cuda_ms(torch, lambda: pu.pack_compress_cuda(
+        d, u, 127, b, c_out=c1, err_out=e1))
+    no_err_ms = cuda_ms(torch, lambda: pu.pack_compress_cuda(
+        d, u, 127, b, with_err=False, c_out=c0))
+    del d, u, c0, c1, e1, s0, s1, s2
+    free(torch)
+    nchunks = L * rows // b
+    b_ms, _ = bound(16 * n + 4 * nchunks, 9 * n)
+    nb_ms, _ = bound(12 * n + 4 * nchunks, 8 * n)
+    print(f"  pack_compress ({L}, {rows}, 128), b={b}: {ms:.3f} ms with err "
+          f"(bound {b_ms:.3f} ms), {no_err_ms:.3f} ms without (bound "
+          f"{nb_ms:.3f} ms)")
+    return err
+
+
+def check_pack_compress(torch, pu, rows) -> dict:
+    """pack_compress over the (2, rows, 128) f32 displacement stack: out of
+    place on learner 0 with and without err at b=8, with err at b=64,
+    equal to pack_update with a zero meta plane; in place on both
+    learners (c over u, err over d) as the gossip step runs it; times of
+    the error-feedback case."""
+    n = rows * 128
+    d, u = (torch.empty(L_COMM, rows, 128, device="cuda") for _ in range(2))
+    for j in range(L_COMM):
+        filled(torch, 50 + j, rows, out=d[j], scale=0.05)
+        filled(torch, 60 + j, rows, out=u[j], uniform=True)
+    rows64 = rows - rows % 64
+    err = 0.0
+    for block, nrows, with_err in ((BLOCK, rows, False), (64, rows64, True),
+                                   (BLOCK, rows, True)):
+        c, er, sc = pu.pack_compress_cuda(d[:1, :nrows], u[:1, :nrows], 127,
+                                          block, with_err=with_err)
+        assert (er is None) == (not with_err)
+        torch.cuda.synchronize()
+        for sl in windows(nrows):
+            pc, pe, ps = pu.pack_compress_plain(d[:1, sl], u[:1, sl], 127,
+                                                block, with_err=with_err)
+            err = max(err, max_err(torch, c[:, sl], pc),
+                      max_err(torch, sc[:, chunks(sl, block)], ps))
+            if with_err:
+                err = max(err, max_err(torch, er[:, sl], pe))
+        print(f"  pack_compress learner 0, err={with_err}, b={block}: "
+              f"bitwise equal over {nrows} rows")
+        if block == 64 or not with_err:
+            del c, er, sc
+            free(torch)
+    # the compress-only kernel is pack_update with a zero meta plane
+    zeros = torch.zeros(rows, 128, device="cuda")
+    pc, pe, ps = pu.pack_update_cuda(d[:1], zeros, None, u[:1], 127, BLOCK)
+    err = max(err, max_err(torch, c, pc), max_err(torch, er, pe),
+              max_err(torch, sc, ps))
+    print("  pack_compress == pack_update(d, 0, None, u): bitwise")
+    del zeros, pc, pe, ps
+    free(torch)
+    # in place on both learners: learner 0 against the out-of-place
+    # result, learner 1 against the plain version on its inputs made again
+    _, _, sc2 = pu.pack_compress_cuda(d, u, 127, BLOCK, c_out=u, err_out=d)
+    for sl in windows(rows):
+        err = max(err, max_err(torch, u[:1, sl], c[:, sl]),
+                  max_err(torch, d[:1, sl], er[:, sl]))
+    err = max(err, max_err(torch, sc2[:1], sc))
+    del c, er, sc
+    free(torch)
+    for k, sl in enumerate(windows(rows)):
+        nr = sl.stop - sl.start
+        d1 = window_values(torch, 51, k, nr, scale=0.05)
+        u1 = window_values(torch, 61, k, nr, uniform=True)
+        pc, pe, ps = pu.pack_compress_plain(d1[None], u1[None], 127, BLOCK)
+        err = max(err, max_err(torch, u[1:, sl], pc),
+                  max_err(torch, d[1:, sl], pe),
+                  max_err(torch, sc2[1:, chunks(sl)], ps))
+    print(f"  pack_compress in place, {L_COMM} learners: equal to out of "
+          f"place and to the plain version")
+    for j in range(L_COMM):  # fresh inputs for the timing
+        filled(torch, 50 + j, rows, out=d[j], scale=0.05)
+        filled(torch, 60 + j, rows, out=u[j], uniform=True)
+    c, e_out = torch.empty_like(u), torch.empty_like(d)
+    ms = cuda_ms(torch, lambda: pu.pack_compress_cuda(
+        d, u, 127, BLOCK, c_out=c, err_out=e_out))
+    no_err_ms = cuda_ms(torch, lambda: pu.pack_compress_cuda(
+        d, u, 127, BLOCK, with_err=False, c_out=c))
+    del c, e_out
+    free(torch)
+    plain_ms = sum(
+        cuda_ms(torch, lambda sl=sl: pu.pack_compress_plain(
+            d[:, sl], u[:, sl], 127, BLOCK), warmup=1, iters=3)
+        for sl in windows(rows))
+    del d, u
+    free(torch)
+    nchunks = L_COMM * rows // BLOCK
+    b_ms, b_by = bound(16 * L_COMM * n + 4 * nchunks, 9 * L_COMM * n)
+    nb_ms, _ = bound(12 * L_COMM * n + 4 * nchunks, 8 * L_COMM * n)
+    print(f"  pack_compress without err: {no_err_ms:.3f} ms (bound "
+          f"{nb_ms:.3f} ms)")
+    return dict(name="pack_compress", replaces=PC_REPLACES, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
 # ---------------------------------------------------------------------------
-# phases 4 to 6: the trainer
+# phases 4 to 8: the trainer
 # ---------------------------------------------------------------------------
 
 
@@ -465,7 +714,8 @@ def full_width_training(torch, ops) -> dict:
 
 
 NO_LAUNCHES = dict(fused_momentum_broadcast=0, block_momentum=0,
-                   sgd_apply=0, pack_update=0, quantize=0, dequantize=0)
+                   sgd_apply=0, pack_update=0, quantize=0, dequantize=0,
+                   pack_compress=0, neighbor_mix=0, neighbor_mix_stepped=0)
 
 
 def compressed_full_width(torch, ops) -> dict:
@@ -540,6 +790,85 @@ def compressed_full_width(torch, ops) -> dict:
     return counts
 
 
+def topology_full_width(torch, ops, label, mcfg, steps, expect) -> dict:
+    """Phases 7-8: Qwen3-1.7B at full width, depth cut to DEPTH layers,
+    through the Trainer with a non-flat topology (``mcfg``), counted,
+    checked, split by memory part and profiled. ``expect(steps)`` gives
+    the launches the run must make."""
+    from repro_torch.configs.base import TrainConfig, get_config
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data import uniform_batch_fn
+    from repro_torch.models import api
+    from repro_torch.optim import warmup_cosine
+
+    full = get_config("qwen3-1.7b")
+    cfg = dataclasses.replace(full, num_layers=DEPTH)
+    print(f"  config: {full.name} widths unchanged (d {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, V {cfg.vocab_size}, tied embeddings); depth cut "
+          f"{full.num_layers} -> {cfg.num_layers} layers")
+    L_, k, batch, seq = mcfg.num_learners, mcfg.k_steps, 8, 64
+    tcfg = TrainConfig(model=cfg, mavg=mcfg, batch_per_learner=batch,
+                       seq_len=seq, meta_steps=steps)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(
+        tcfg, lambda p, b: api.loss_fn(p, cfg, b),
+        init_params_fn=lambda gen: api.init_params(gen, cfg, "cuda"),
+        batch_fn=uniform_batch_fn(cfg, L_, k, batch, seq),
+        lr_schedule=warmup_cosine(LR, 5, steps), device="cuda",
+    )
+    state = trainer.state
+    spec = state.spec
+    planes = sum(x.numel() for x in [state.global_params, state.momentum,
+                                     state.learners] + [
+        v for v in state.topo.values()
+        if v is not None and v.is_cuda]) // spec.total
+    print(f"  state: {spec.rows} rows x 128 ({spec.plane_bytes() / 1e9:.2f} "
+          f"GB a plane), {planes} planes, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    peaks = PhasePeaks(torch, trainer)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = trainer.run(log=lambda s: print("  " + s))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = peaks.stop()
+    print(f"  launches: {counts}")
+    want = dict(NO_LAUNCHES, **expect(steps))
+    assert counts == want, (label, counts, want)
+    losses = [h["loss"] for h in history]
+    assert all(math.isfinite(x) for x in losses), losses
+    ln_v = math.log(cfg.vocab_size)
+    assert abs(losses[0] - ln_v) <= 1.5, (losses[0], ln_v)
+    state = trainer.state
+    tail = spec.offsets[-1] + spec.sizes[-1]
+    assert not state.global_params.view(-1)[tail:].any()
+    assert bool(torch.isfinite(state.global_params).all())
+    last = history[-1]
+    print(f"  losses {[round(x, 4) for x in losses]} (ln V = {ln_v:.4f}); "
+          f"padding tail zero, meta params finite")
+    for key in ("comm_compression", "mixing_spectral_gap",
+                "consensus_dist", "displacement_norm", "present_count"):
+        if key in last:
+            print(f"  {key} " + ", ".join(f"{h[key]:.6g}" for h in history))
+    if "outer_fired" in last:
+        print("  outer_fired " + ", ".join(f"{h['outer_fired']:.0f}"
+                                           for h in history))
+    print(f"  peak device memory {peak / 1e9:.2f} GB "
+          f"({peak / 2**30:.2f} GiB); {steps} meta steps in {seconds:.2f} s "
+          f"({steps / seconds:.3f} meta steps/s; last step alone "
+          f"{last['meta_steps_per_sec']:.3f} meta steps/s, "
+          f"{last['samples_per_sec']:.1f} samples/s)")
+    print("  peak device memory by part: " + ", ".join(
+        f"{name} {v / 1e9:.2f} GB" for name, v in peaks.parts))
+    assert peak < 80e9, peak
+    profile_meta_step(torch, trainer, 1e3 / last["meta_steps_per_sec"])
+    del trainer, state
+    free(torch)
+    return counts
+
+
 class PhasePeaks:
     """The peak device memory of a trainer's run taken apart: set-up, then
     for every meta step its local phase and its meta mix. The peak
@@ -573,7 +902,7 @@ class PhasePeaks:
 # kernel-name fragments -> the class a kernel's device time is booked to
 KERNEL_CLASSES = (
     ("port kernels", ("momentum_kernel", "sgd_kernel", "chunk_quant_kernel",
-                      "dequant_kernel")),
+                      "dequant_kernel", "neighbor_mix_kernel")),
     ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
     ("copy/cast", ("copy", "Cat")),
 )
@@ -628,34 +957,60 @@ def profile_meta_step(torch, trainer, step_ms: float) -> None:
               f"{e.count:6d}x  {e.key[:90]}")
 
 
-class MaxDisplacement:
-    """A reducer wrapper that records the largest |w_j - gp (+ e_j)| its
-    reduces saw: 1/127 of it is the largest scale quantum."""
+class Spread:
+    """Records the largest |displacement| the port's quantizers see while
+    it is on (``ops.pack_update``, ``pack_compress`` and ``quant_dequant``
+    wrapped): 1/127 of it is the largest int8 scale quantum."""
 
-    def __init__(self, inner):
-        self.inner, self.value = inner, 0.0
+    NAMES = ("pack_update", "pack_compress", "quant_dequant")
 
-    def init_residual(self, gp, num_learners):
-        return self.inner.init_residual(gp, num_learners)
+    def __init__(self, ops):
+        self.ops, self.value = ops, 0.0
+        self.real = {n: getattr(ops, n) for n in self.NAMES}
 
-    def reduce(self, learners, gp, residual, *, step):
-        from repro_torch.utils.tree import tree_leaves, tree_map
+    def _see(self, x):
+        self.value = max(self.value, float(x.abs().max()))
 
-        d = tree_map(lambda w, g: (w.float() - g.float()[None]), learners,
-                     gp)
-        if residual is not None:
-            d = tree_map(lambda x, e: x + e, d, residual)
-        self.value = max([self.value] + [float(x.abs().max())
-                                         for x in tree_leaves(d)])
-        return self.inner.reduce(learners, gp, residual, step=step)
+    def __enter__(self):
+        real = self.real
+
+        def pack_update(w, g, e, u, **kw):
+            d = w.float() - g.float()[None]
+            self._see(d if e is None else d + e)
+            return real["pack_update"](w, g, e, u, **kw)
+
+        def pack_compress(d, u, **kw):
+            self._see(d)
+            return real["pack_compress"](d, u, **kw)
+
+        def quant_dequant(x, dither, **kw):
+            self._see(x)
+            return real["quant_dequant"](x, dither, **kw)
+
+        for name, fn in zip(self.NAMES, (pack_update, pack_compress,
+                                         quant_dequant)):
+            setattr(self.ops, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.ops, name, fn)
 
 
-def card_vs_cpu(torch, ops) -> dict:
-    """Phase 6. Returns the launch counts of the per-leaf runs."""
-    from repro_torch.comm import make_reducer, seeded_dither
-    from repro_torch.configs.base import CommConfig, MAvgConfig, get_config
+def card_vs_cpu(torch, ops) -> tuple[dict, dict]:
+    """Phase 6. Returns the card's launch counts of the per-leaf flat runs,
+    and their sums over the topology runs."""
+    from repro_torch.comm import seeded_dither
+    from repro_torch.configs.base import (
+        CommConfig,
+        ElasticConfig,
+        MAvgConfig,
+        TopologyConfig,
+        get_config,
+    )
     from repro_torch.core.meta import init_state, make_meta_step
     from repro_torch.models import api
+    from repro_torch.topology import make_topology
     from repro_torch.utils.tree import tree_leaves, tree_map
 
     # full float32 matmuls on the card, as on the CPU
@@ -665,9 +1020,9 @@ def card_vs_cpu(torch, ops) -> dict:
                               dtype="float32")
     gen = torch.Generator().manual_seed(0)
     params = api.init_params(gen, cfg, "cpu")
-    batches = [{"tokens": t, "labels": t} for t in (
-        torch.randint(0, cfg.vocab_size, (2, 2, 2, 16), generator=gen)
-        for _ in range(2))]
+    batches = {n: [{"tokens": t, "labels": t} for t in (
+        torch.randint(0, cfg.vocab_size, (n, 2, 2, 16), generator=gen)
+        for _ in range(2))] for n in (2, 4)}
     loss_fn = lambda p, b: api.loss_fn(p, cfg, b)  # noqa: E731
     n_leaves = len(tree_leaves(params))
     cpu_dither = seeded_dither(7)
@@ -676,48 +1031,82 @@ def card_vs_cpu(torch, ops) -> dict:
         # drawn on the CPU, so both devices round on the same uniforms
         return cpu_dither(i, step, shape, "cpu").to(device)
 
-    per_leaf = {}
-    runs = (  # (label, packed, comm scheme, launches per device)
-        ("dense per-leaf", False, "dense",
+    int8_ef = CommConfig(scheme="int8")
+    churn = ElasticConfig(period=4, drop_frac=0.25, seed=1)
+    per_leaf, topo_sum = {}, dict(NO_LAUNCHES)
+    runs = (  # (label, packed, comm, topology, learners, launches a device)
+        ("dense per-leaf", False, "dense", None, 2,
          dict(block_momentum=2 * n_leaves, sgd_apply=8 * n_leaves)),
-        ("dense packed", True, "dense",
+        ("dense packed", True, "dense", None, 2,
          dict(fused_momentum_broadcast=2, sgd_apply=8)),
-        ("int8+EF packed", True, "int8",
+        ("int8+EF packed", True, "int8", None, 2,
          dict(fused_momentum_broadcast=2, sgd_apply=8, pack_update=2)),
-        ("int8+EF per-leaf", False, "int8",
+        ("int8+EF per-leaf", False, "int8", None, 2,
          dict(block_momentum=2 * n_leaves, sgd_apply=8 * n_leaves,
               quantize=2 * n_leaves, dequantize=2 * n_leaves)),
-        ("int8_topk+EF packed", True, "int8_topk",
+        ("int8_topk+EF packed", True, "int8_topk", None, 2,
          dict(fused_momentum_broadcast=2, sgd_apply=8, quantize=2,
               dequantize=2)),
+        ("gossip ring dense per-leaf", False, "dense",
+         TopologyConfig(kind="gossip", graph="ring"), 4,
+         dict(block_momentum=2 * n_leaves, sgd_apply=16 * n_leaves,
+              neighbor_mix=2 * n_leaves)),
+        ("gossip ring dense packed", True, "dense",
+         TopologyConfig(kind="gossip", graph="ring"), 4,
+         dict(block_momentum=2, sgd_apply=16, neighbor_mix=2)),
+        ("gossip exponential int8 packed", True,
+         CommConfig(scheme="int8", error_feedback=False),
+         TopologyConfig(kind="gossip", graph="exponential"), 4,
+         dict(block_momentum=2, sgd_apply=16, neighbor_mix=2,
+              pack_compress=2)),
+        # one of four learners absent per step: 3 x K local steps
+        ("gossip one_peer int8+EF elastic packed", True, int8_ef,
+         TopologyConfig(kind="gossip", graph="one_peer_exponential",
+                        momentum_tracking=True, elastic=churn), 4,
+         dict(block_momentum=2, sgd_apply=12, neighbor_mix=4,
+              pack_compress=2)),
+        ("hierarchical elastic int8+EF inner packed", True, "dense",
+         TopologyConfig(kind="hierarchical", groups=2, outer_every=2,
+                        outer_momentum=0.3, inner_comm=int8_ef,
+                        elastic=churn), 4,
+         dict(block_momentum=2, sgd_apply=12, pack_compress=4,
+              fused_momentum_broadcast=1)),
     )
-    for label, packed, scheme, launches in runs:
-        mcfg = MAvgConfig(algorithm="mavg", num_learners=2, k_steps=2,
+    for label, packed, comm, topo, n, launches in runs:
+        comm = CommConfig(scheme=comm) if isinstance(comm, str) else comm
+        mcfg = MAvgConfig(algorithm="mavg", num_learners=n, k_steps=2,
                           learner_lr=0.1, momentum=0.7, packed=packed,
-                          comm=CommConfig(scheme=scheme))
-        finals, spread = {}, 0.0
-        for device in ("cpu", "cuda"):
-            red = MaxDisplacement(make_reducer(mcfg,
-                                               dither=shared_dither))
-            state = init_state(tree_map(lambda x: x.to(device), params),
-                               mcfg, reducer=red)
-            step = make_meta_step(loss_fn, mcfg, reducer=red)
-            ops.reset_launch_counts()
-            for b in batches:
-                state, _ = step(state, tree_map(lambda x: x.to(device), b))
-            counts = ops.launch_counts()
-            finals[device] = [
-                x.cpu() for field in ("global_params", "comm_residual")
-                for x in tree_leaves(getattr(state, field))
-                if getattr(state, field) is not None]
-            spread = max(spread, red.value)
+                          comm=comm,
+                          topology=topo or TopologyConfig(kind="flat"))
+        schemes = {c.scheme for c in (comm, mcfg.topology.inner_comm,
+                                      mcfg.topology.outer_comm) if c}
+        compressed = schemes != {"dense"}
+        finals = {}
+        with Spread(ops) as spread:
+            for device in ("cpu", "cuda"):
+                topology = make_topology(mcfg, dither=shared_dither)
+                state = init_state(tree_map(lambda x: x.to(device), params),
+                                   mcfg, topology=topology)
+                step = make_meta_step(loss_fn, mcfg, topology=topology)
+                ops.reset_launch_counts()
+                for b in batches[n]:
+                    state, _ = step(state,
+                                    tree_map(lambda x: x.to(device), b))
+                counts = ops.launch_counts()
+                planes = [state.global_params, state.comm_residual] + [
+                    v for k, v in sorted((state.topo or {}).items())
+                    if k != "membership"]
+                finals[device] = [x.cpu() for t in planes if t is not None
+                                  for x in tree_leaves(t)]
         want = dict(NO_LAUNCHES, **launches)
         assert counts == want, (label, counts, want)
-        if not packed:
+        if not packed and topo is None:
             per_leaf = dict(per_leaf, **{k: v for k, v in counts.items()
                                          if v})
+        if topo is not None:
+            topo_sum = {k: v + counts[k] for k, v in topo_sum.items()}
         pairs = list(zip(finals["cpu"], finals["cuda"]))
-        if scheme == "dense":
+        if not compressed:
             worst = 0.0
             for c, g in pairs:
                 torch.testing.assert_close(g, c, rtol=1e-5, atol=1e-6)
@@ -725,10 +1114,11 @@ def card_vs_cpu(torch, ops) -> dict:
             print(f"  {label}: card == CPU to rtol=1e-5, atol=1e-6 (max "
                   f"|diff| {worst:.3e}); launches {counts}")
             continue
-        quantum = spread / 127
+        quantum = spread.value / 127
         # a top-k selection flip moves one kept value (at most the
         # largest displacement) between the wire and the residual
-        limit = FLIP_QUANTA * quantum + (spread if "topk" in scheme else 0)
+        limit = FLIP_QUANTA * quantum + (
+            spread.value if any("topk" in x for x in schemes) else 0)
         total = differ = off = 0
         worst = 0.0
         for c, g in pairs:
@@ -740,16 +1130,17 @@ def card_vs_cpu(torch, ops) -> dict:
             worst = max(worst, float(diff.max()))
         assert worst <= limit, (label, worst, limit)
         assert off <= FLIP_SHARE * total, (label, off, total)
-        print(f"  {label}: card vs CPU over {total} values (meta params and "
-              f"residual): {differ / total:.4%} not bitwise equal, "
-              f"{off / total:.4%} beyond rtol=1e-5/atol=1e-6 (limit "
-              f"{FLIP_SHARE:.1%}); max |diff| {worst:.3e} = "
+        print(f"  {label}: card vs CPU over {total} values (meta params, "
+              f"topology planes, residual): {differ / total:.4%} not "
+              f"bitwise equal, {off / total:.4%} beyond rtol=1e-5/atol=1e-6 "
+              f"(limit {FLIP_SHARE:.1%}); max |diff| {worst:.3e} = "
               f"{worst / quantum:.3f} quanta (quantum {quantum:.3e}, limit "
               f"{limit / quantum:.1f}); launches {counts}")
-    return per_leaf
+    return per_leaf, topo_sum
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -760,6 +1151,7 @@ def main() -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import fused_meta as fm
     from repro_torch.kernels import local_sgd as sgd
+    from repro_torch.kernels import neighbor_mix as nm
     from repro_torch.kernels import pack_update as pu
     from repro_torch.kernels import quantize as qk
     from repro_torch.models import api
@@ -791,10 +1183,19 @@ def main() -> int:
     for r in records:
         r["source"] = SOURCE
     comm_records = (check_quantize(torch, qk, rows)
-                    + [check_pack_update(torch, pu, rows)])
+                    + [check_pack_update(torch, pu, rows),
+                       check_pack_compress(torch, pu, rows)])
+    rows_cut = make_pack_spec(api.init_params(None, dataclasses.replace(
+        get_config("qwen3-1.7b"), num_layers=DEPTH), "meta")).rows
+    main_err = check_pack_compress_main(torch, pu, rows_cut)
+    comm_records[-1]["max_abs_err"] = max(comm_records[-1]["max_abs_err"],
+                                          main_err)
     for r in comm_records:
         r["source"] = COMM_SOURCE
-    records += comm_records
+    topo_records = check_neighbor_mix(torch, nm, rows)
+    for r in topo_records:
+        r["source"] = TOPOLOGY_SOURCE
+    records += comm_records + topo_records
     for r in records:
         print(f"  {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
               f"ms by {r['bound_by']}), plain {r['plain_ms']:.3f} ms, "
@@ -808,23 +1209,67 @@ def main() -> int:
     comm_counts = compressed_full_width(torch, ops)
 
     print("phase 6: card vs CPU, qwen3-1.7b.reduced() float32")
-    leaf_counts = card_vs_cpu(torch, ops)
+    leaf_counts, topo_counts = card_vs_cpu(torch, ops)
+
+    from repro_torch.configs.base import (
+        CommConfig,
+        ElasticConfig,
+        MAvgConfig,
+        TopologyConfig,
+    )
+
+    print(f"phase 7: gossip at full width ({DEPTH} layers), "
+          f"one_peer_exponential, momentum tracking, int8 + EF, L={L}")
+    gossip_counts = topology_full_width(
+        torch, ops, "gossip",
+        MAvgConfig(algorithm="mavg", num_learners=L, k_steps=4,
+                   comm=CommConfig(scheme="int8"),
+                   topology=TopologyConfig(kind="gossip",
+                                           graph="one_peer_exponential",
+                                           momentum_tracking=True)),
+        3, lambda steps: dict(
+            sgd_apply=steps * 4 * L, pack_compress=steps,
+            neighbor_mix_stepped=2 * steps, block_momentum=steps))
+
+    print(f"phase 8: hierarchical at full width ({DEPTH} layers), G=2, "
+          f"H=2, mu_out=0.3, elastic (period 4, drop 0.25), inner int8 + "
+          f"EF, outer dense, L={L}")
+    # one learner of four absent per step; the outer level fires on
+    # steps 1 and 3
+    hier_counts = topology_full_width(
+        torch, ops, "hierarchical",
+        MAvgConfig(algorithm="mavg", num_learners=L, k_steps=4,
+                   topology=TopologyConfig(
+                       kind="hierarchical", groups=2, outer_every=2,
+                       outer_momentum=0.3,
+                       inner_comm=CommConfig(scheme="int8"),
+                       elastic=ElasticConfig(period=4, drop_frac=0.25))),
+        4, lambda steps: dict(
+            sgd_apply=steps * 4 * (L - 1), pack_compress=2 * steps,
+            block_momentum=steps, fused_momentum_broadcast=steps // 2))
+    assert hier_counts["pack_compress"] == 8
 
     # each kernel's launches in the run of the path it serves: the dense
-    # and compressed full-width runs, and the reduced per-leaf runs
+    # and compressed full-width runs, the reduced per-leaf runs, the gossip
+    # run (whose time-varying graph takes the stepped entry) and the
+    # reduced gossip runs on static or elastic-masked matrices
     launches = dict(
         fused_momentum_broadcast=dense_counts["fused_momentum_broadcast"],
         sgd_apply=dense_counts["sgd_apply"],
         pack_update=comm_counts["pack_update"],
         block_momentum=leaf_counts["block_momentum"],
         quantize=leaf_counts["quantize"],
-        dequantize=leaf_counts["dequantize"])
+        dequantize=leaf_counts["dequantize"],
+        pack_compress=gossip_counts["pack_compress"],
+        neighbor_mix=topo_counts["neighbor_mix"],
+        neighbor_mix_stepped=gossip_counts["neighbor_mix_stepped"])
     for r in records:
         r.update(route="cuda", launches=launches[r["name"]])
         assert r["launches"] > 0, r
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,9 +30,13 @@ source draws from a ``torch.Generator`` on the plane's device seeded from
 their rounding noise, not by their math; the parity tests pass JAX's own
 uniforms through ``interop.dither_from_numpy`` instead.
 
-Not ported: ``_compress_packed``, the compress-only route of the gossip
-and masked hierarchical topologies (it needs the ``pack_compress`` kernel,
-ROADMAP Queue 2).
+The compress-only route of the gossip and masked hierarchical
+topologies (``topology.gossip.compress_stack``) hands the reducer a packed
+displacement plane it formed itself: ``_compress_packed`` quantizes it
+through the ``pack_compress`` kernel, with the dither drawn as
+``_reduce_packed`` draws it (leaf 0, this step, the delta's shape), c
+written over the dither and, under error feedback, err over the delta.
+Without error feedback (``_compress``) no err plane exists at all.
 """
 from __future__ import annotations
 
@@ -98,11 +102,36 @@ class QuantReducer(CompressedReducer):
         }
         return avg, (err if residual is not None else None), metrics
 
+    def _compress_packed(self, delta, step, with_err=True):
+        """(c, err, wire) of the packed (L, rows, 128) f32 displacement
+        plane in one ``pack_compress`` launch. c lands in the dither's
+        buffer and err (None unless ``with_err``) in ``delta``'s: the
+        caller's delta is consumed."""
+        delta = delta.to(torch.float32)
+        u = self.dither(0, step, tuple(delta.shape), delta.device)
+        c, err, scales = kops.pack_compress(
+            delta, u, qmax=QMAX[self.dtype], block=self.chunk_rows,
+            with_err=with_err, c_out=u, err_out=delta if with_err else None,
+        )
+        wire = (delta.numel() * VALUE_BYTES[self.dtype]
+                + scales.numel() * SCALE_BYTES)
+        return c, err, wire
+
+    def _compress_residual(self, delta, step):
+        # the kernel forms err = delta - c in the same pass
+        if self._is_packed(delta):
+            return self._compress_packed(delta, step)
+        return super()._compress_residual(delta, step)
+
     def leaf_dither(self, leaf_index, step, device):
         """The dither of one leaf: ``shape -> uniforms`` for the ops."""
         return lambda shape: self.dither(leaf_index, step, shape, device)
 
     def _compress(self, delta, step):
+        if self._is_packed(delta):
+            c, _err, wire = self._compress_packed(delta, step,
+                                                  with_err=False)
+            return c, wire
         out, wire = [], 0.0
         for i, leaf in enumerate(tree_leaves(delta)):
             dq, nchunks = kops.quant_dequant(

@@ -182,8 +182,8 @@ def make_reducer_for(c, meta_dtype: str = "float32",
 def uses_error_feedback(cfg) -> bool:
     """Does ``cfg`` (an MAvgConfig) carry an EF residual in
     ``MetaState.comm_residual``? Only the flat topology keeps its residual
-    there (hierarchical and gossip, not ported yet, carry theirs in
-    ``MetaState.topo``)."""
+    there; hierarchical and gossip carry theirs in ``MetaState.topo``
+    (``inner_residual``/``outer_residual``, ``residual``)."""
     from repro_torch.configs.base import AVERAGING_ALGOS
 
     return (cfg.algorithm in AVERAGING_ALGOS

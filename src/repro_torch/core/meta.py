@@ -13,7 +13,11 @@ mavg_mlocal  learner-level momentum inside the K-step loop, block
 How the port differs from JAX in execution, not in math:
 
 * JAX vmaps the L learners; the port loops over them in turn, so one
-  gradient plane is alive at a time.
+  gradient plane is alive at a time. Where the topology masks trailing
+  local steps (per-group K_g, elastic membership), JAX computes and
+  discards them inside its static scan; the port skips them, which gives
+  the same learners, and averages loss and grad-norm over the active
+  steps as JAX does.
 * Under ``cfg.packed`` (the default) each learner's parameters are views
   of its slice of the (L, rows, 128) learner plane. Autograd accumulates
   each local step's gradient into one (rows, 128) gradient plane whose
@@ -155,12 +159,17 @@ def _sgd_update(w, mom, g, cfg: MAvgConfig, lr: float):
 
 
 def _local_phase(loss_fn: LossFn, learners, local_mom, batches,
-                 cfg: MAvgConfig, lr: float, spec: Optional[PackSpec] = None):
-    """batches: dict of (L, K, B_local, ...) tensors.
+                 cfg: MAvgConfig, lr: float, spec: Optional[PackSpec] = None,
+                 steps=None):
+    """batches: dict of (L, K, B_local, ...) tensors. ``steps``: None, or
+    the L active local-step counts: learner j runs only its first
+    ``steps[j]`` of the K steps (an absent learner runs none).
 
     Updates ``learners`` (and ``local_mom``) in place and returns
     (learners, local_mom, mean loss, mean grad-norm, per-learner mean
-    loss (L,)).
+    loss (L,), active learners (L,) bool or None). Under ``steps`` the
+    means are over the active steps, and an inactive learner's mean loss
+    is 0.
     """
     L, K = cfg.num_learners, cfg.k_steps
     if spec is not None:
@@ -181,20 +190,43 @@ def _local_phase(loss_fn: LossFn, learners, local_mom, batches,
                  else tree_map(lambda x: x[j], local_mom))
             return w, w, m, grads
 
+    counts = [K] * L if steps is None else [int(s) for s in steps]
     losses, gnorms = [], []
     for j in range(L):
         w_tree, w_upd, mom, g_upd = learner(j)
         if mom is None and cfg.local_momentum > 0.0:
             mom = tree_map(torch.zeros_like, w_upd)  # not carried over
-        for k in range(K):
+        for k in range(counts[j]):
             batch = {key: val[j, k] for key, val in batches.items()}
             loss, gnorm = _grad_into(loss_fn, w_tree, batch, grads)
             _sgd_update(w_upd, mom, g_upd, cfg, lr)
             losses.append(loss)
             gnorms.append(gnorm)
-    loss_l = torch.stack(losses).view(L, K).mean(dim=1)
-    gnorm = torch.stack(gnorms).view(L, K).mean(dim=1).mean()
-    return learners, local_mom, loss_l.mean(), gnorm, loss_l
+    if steps is None:
+        loss_l = torch.stack(losses).view(L, K).mean(dim=1)
+        gnorm = torch.stack(gnorms).view(L, K).mean(dim=1).mean()
+        return learners, local_mom, loss_l.mean(), gnorm, loss_l, None
+    # sums over the active steps over their count (JAX
+    # core/meta.py:268-273); an inactive learner reports loss 0
+    losses, gnorms = torch.stack(losses), torch.stack(gnorms)
+    active = max(sum(counts), 1)
+    per = torch.split(losses, counts)
+    loss_l = torch.stack([x.sum() / max(n, 1) for x, n in zip(per, counts)])
+    return (learners, local_mom, losses.sum() / active,
+            gnorms.sum() / active, loss_l,
+            torch.tensor([n > 0 for n in counts]))
+
+
+def _loss_spread(loss_l, active):
+    """max - min of the per-learner mean losses over the active learners
+    (0 when none is active)."""
+    if active is None:
+        return loss_l.max() - loss_l.min()
+    if not bool(active.any()):  # the mask lies on the host
+        return torch.zeros((), dtype=loss_l.dtype, device=loss_l.device)
+    on = active.to(loss_l.device)
+    return (torch.where(on, loss_l, float("-inf")).max()
+            - torch.where(on, loss_l, float("inf")).min())
 
 
 # ---------------------------------------------------------------------------
@@ -216,16 +248,19 @@ def meta_step(state: MetaState, batches, *, loss_fn: LossFn,
         from repro_torch.topology import make_topology
 
         topology = make_topology(cfg, reducer)
+    # the topology may mask trailing local steps per learner (per-group
+    # K_g, elastic membership)
+    steps = topology.local_steps(state.topo, state.step)
     # profiler ranges named as the JAX step's named scopes
     with torch.profiler.record_function("obs.local_phase"):
-        learners, local_mom, loss, gnorm, loss_l = _local_phase(
+        learners, local_mom, loss, gnorm, loss_l, active = _local_phase(
             loss_fn, state.learners, state.local_momentum, batches, cfg, lr,
-            spec=state.spec,
+            spec=state.spec, steps=steps,
         )
     metrics = {
         "loss": loss,
         "grad_norm": gnorm,
-        "loss_spread": loss_l.max() - loss_l.min(),
+        "loss_spread": _loss_spread(loss_l, active),
     }
     with torch.no_grad(), torch.profiler.record_function("obs.meta_mix"):
         gp, v, learners, comm_res, topo, topo_metrics = topology.mix(

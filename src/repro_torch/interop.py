@@ -38,15 +38,31 @@ def params_from_jax(tree, device="cpu") -> dict:
     return _tree(tree, device)
 
 
+# the MetaState.topo keys of the hierarchical and gossip topologies
+TOPO_KEYS = frozenset({
+    "params", "momentum", "residual", "membership", "group_params",
+    "group_momentum", "inner_residual", "outer_residual",
+})
+
+
 def state_from_jax(state, device="cpu") -> MetaState:
     """A JAX ``MetaState`` with numpy leaves -> the port's MetaState.
 
     Reads the fields by name; a packed state's layout comes from its
-    spec's ``layout_dict()``. The flat topology's state is carried, with
-    its error-feedback residual (``comm_residual``); ``topo`` must be None.
+    spec's ``layout_dict()``. The flat topology's error-feedback residual
+    (``comm_residual``) is carried, and so are the hierarchical and gossip
+    buffers of ``topo``; the elastic ``membership`` schedule stays on the
+    host, where the port's topologies read it.
     """
-    if state.topo is not None:
-        raise NotImplementedError("only flat-topology states carry over")
+    topo = state.topo
+    if topo is not None:
+        unknown = set(topo) - TOPO_KEYS
+        if unknown:
+            raise NotImplementedError(
+                f"topology buffers {sorted(unknown)} belong to a topology "
+                f"that is not ported (ROADMAP Queue 1, items 6-7)")
+        topo = {k: _tree(v, "cpu" if k == "membership" else device)
+                for k, v in topo.items()}
     spec = getattr(state, "spec", None)
     return MetaState(
         global_params=_tree(state.global_params, device),
@@ -55,6 +71,7 @@ def state_from_jax(state, device="cpu") -> MetaState:
         local_momentum=_tree(state.local_momentum, device),
         step=int(np.asarray(state.step)),
         comm_residual=_tree(state.comm_residual, device),
+        topo=topo,
         spec=None if spec is None else PackSpec.from_layout(
             spec.layout_dict()),
     )

@@ -5,8 +5,9 @@
 //   repro_quantize     <- src/repro/kernels/quantize.py     quantize_2d
 //   repro_dequantize   <- src/repro/kernels/quantize.py     dequantize_2d
 //   repro_pack_update  <- src/repro/kernels/pack_update.py  pack_update_3d
+//   repro_pack_compress <- src/repro/kernels/pack_update.py pack_compress_3d
 //
-// All three walk a (rows, 128) layout in chunks of `block` rows
+// All four walk a (rows, 128) layout in chunks of `block` rows
 // (8 <= block <= 64, block % 8 == 0, block divides rows). A chunk of
 // block * 128 values shares one f32 scale s = max(max|x|, 1e-12) / qmax,
 // and each value is rounded stochastically onto the grid:
@@ -15,8 +16,15 @@
 //
 // Bound: device-memory bytes. quantize moves 9 bytes per value (x, u in;
 // int8 q out), dequantize 5, pack_update with error feedback 20 per value
-// of the (L, rows, 128) stack plus one read of the meta plane; each does a
-// handful of flops per value.
+// of the (L, rows, 128) stack plus one read of the meta plane, pack_compress
+// 16 with its err plane and 12 without; each does a handful of flops per
+// value.
+//
+// pack_compress is pack_update's chunk kernel with the meta-plane read and
+// the residual add compiled out (template flags, one quantizer for both):
+// it quantizes a displacement the caller formed itself, and writes the err
+// plane only when asked. d - 0 is exact, so pack_compress(d, u) is bitwise
+// pack_update(d, zeros, no residual, u).
 //
 // Design. The Pallas kernels walk one chunk per grid step in order; here
 // chunks are independent and run in parallel. One chunk is owned by
@@ -36,7 +44,7 @@
 // passes NaN through as torch.clamp does. An int8 q of a NaN value is 0.
 //
 // Aliasing: outputs may alias inputs of the same type and shape (c over u
-// or over an f32 w, err over e). Each thread stores only the elements it
+// or over an f32 w, err over e or over pack_compress's d). Each thread stores only the elements it
 // loaded itself, after loading them, so an in-place update is safe; no
 // pointer is __restrict__.
 //
@@ -130,9 +138,12 @@ __device__ __forceinline__ float chunk_scale(float amax, float qmax) {
 }
 
 // quantize (kPack == false): x = w, int8 q out.
-// pack_update (kPack == true): x = w - g (+ e) over the (L, rows, 128)
-// stack, g indexed by chunk % g_chunks; c = q s and err = x - c out.
-template <typename WT, bool kPack, bool kHasE>
+// pack_update (kPack, kSubG): x = w - g (+ e if kHasE) over the
+// (L, rows, 128) stack, g indexed by chunk % g_chunks; c = q s and
+// err = x - c out.
+// pack_compress (kPack, !kSubG, !kHasE): x = w, an f32 displacement;
+// c out, and err = x - c out only if kErr.
+template <typename WT, bool kPack, bool kSubG, bool kHasE, bool kErr>
 __global__ void __launch_bounds__(kBlockThreads, 2)
     chunk_quant_kernel(const WT* w, const float* g, const float* e,
                        const float* u, int8_t* q_out, float* c_out,
@@ -141,7 +152,7 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
   const Slot sl = slot_of(chunk_threads, nchunks);
   const int64_t vecs = static_cast<int64_t>(chunk_threads) * kVecs;
   const int64_t base = sl.chunk * vecs + sl.lane;
-  const int64_t g_base = kPack ? (sl.chunk % g_chunks) * vecs + sl.lane : 0;
+  const int64_t g_base = kSubG ? (sl.chunk % g_chunks) * vecs + sl.lane : 0;
   float4 x[kVecs], uv[kVecs];
   float m = 0.0f;
   if (sl.live) {
@@ -149,20 +160,20 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
     for (int k = 0; k < kVecs; ++k) {
       const int64_t i = base + static_cast<int64_t>(k) * chunk_threads;
       float4 v = load4(w, i);
-      if (kPack) {
+      if (kSubG) {
         const float4 gv =
             load4(g, g_base + static_cast<int64_t>(k) * chunk_threads);
         v.x = __fsub_rn(v.x, gv.x);
         v.y = __fsub_rn(v.y, gv.y);
         v.z = __fsub_rn(v.z, gv.z);
         v.w = __fsub_rn(v.w, gv.w);
-        if (kHasE) {
-          const float4 ev = load4(e, i);
-          v.x = __fadd_rn(v.x, ev.x);
-          v.y = __fadd_rn(v.y, ev.y);
-          v.z = __fadd_rn(v.z, ev.z);
-          v.w = __fadd_rn(v.w, ev.w);
-        }
+      }
+      if (kHasE) {
+        const float4 ev = load4(e, i);
+        v.x = __fadd_rn(v.x, ev.x);
+        v.y = __fadd_rn(v.y, ev.y);
+        v.z = __fadd_rn(v.z, ev.z);
+        v.w = __fadd_rn(v.w, ev.w);
       }
       x[k] = v;
       uv[k] = load4(u, i);
@@ -181,17 +192,20 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
     q.z = quant(x[k].z, s, uv[k].z, qmax);
     q.w = quant(x[k].w, s, uv[k].w, qmax);
     if (kPack) {
-      float4 c, err;
+      float4 c;
       c.x = __fmul_rn(q.x, s);
       c.y = __fmul_rn(q.y, s);
       c.z = __fmul_rn(q.z, s);
       c.w = __fmul_rn(q.w, s);
-      err.x = __fsub_rn(x[k].x, c.x);
-      err.y = __fsub_rn(x[k].y, c.y);
-      err.z = __fsub_rn(x[k].z, c.z);
-      err.w = __fsub_rn(x[k].w, c.w);
       reinterpret_cast<float4*>(c_out)[i] = c;
-      reinterpret_cast<float4*>(err_out)[i] = err;
+      if (kErr) {
+        float4 err;
+        err.x = __fsub_rn(x[k].x, c.x);
+        err.y = __fsub_rn(x[k].y, c.y);
+        err.z = __fsub_rn(x[k].z, c.z);
+        err.w = __fsub_rn(x[k].w, c.w);
+        reinterpret_cast<float4*>(err_out)[i] = err;
+      }
     } else {
       reinterpret_cast<char4*>(q_out)[i] = make_char4(
           static_cast<signed char>(__float2int_rz(q.x)),
@@ -251,12 +265,12 @@ int launch_pack_update(const WT* w, const float* g, const float* e,
                        int64_t nchunks, int64_t g_chunks, const Geometry& geo,
                        float qmax, cudaStream_t stream) {
   if (e != nullptr) {
-    chunk_quant_kernel<WT, true, true>
+    chunk_quant_kernel<WT, true, true, true, true>
         <<<geo.blocks, geo.threads, 0, stream>>>(
             w, g, e, u, nullptr, c, err, scales, nchunks, g_chunks,
             geo.chunk_threads, qmax);
   } else {
-    chunk_quant_kernel<WT, true, false>
+    chunk_quant_kernel<WT, true, true, false, true>
         <<<geo.blocks, geo.threads, 0, stream>>>(
             w, g, nullptr, u, nullptr, c, err, scales, nchunks, g_chunks,
             geo.chunk_threads, qmax);
@@ -275,7 +289,7 @@ int repro_quantize(const void* x, const void* u, void* q, void* scales,
   if (rows % block != 0 || !geometry(rows / block, block, &geo)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  chunk_quant_kernel<float, false, false>
+  chunk_quant_kernel<float, false, false, false, false>
       <<<geo.blocks, geo.threads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const float*>(x), nullptr, nullptr,
           static_cast<const float*>(u), static_cast<int8_t*>(q), nullptr,
@@ -327,6 +341,39 @@ int repro_pack_update(const void* w, const void* g, const void* e,
   }
   return launch_pack_update(static_cast<const float*>(w), gf, ef, uf, cf,
                             errf, sf, nchunks, g_chunks, geo, qm, s);
+}
+
+// d, u, c: (L, rows, 128) f32; err: (L, rows, 128) f32, or NULL to write
+// no err plane; scales: L * rows / block f32, learner-major. c may alias u
+// or d, err may alias d.
+int repro_pack_compress(const void* d, const void* u, void* c, void* err,
+                        void* scales, int64_t num_learners, int64_t rows,
+                        int block, int qmax, void* stream) {
+  Geometry geo;
+  if (num_learners < 1 || rows % block != 0 ||
+      !geometry(num_learners * (rows / block), block, &geo)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t nchunks = num_learners * (rows / block);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* df = static_cast<const float*>(d);
+  const float* uf = static_cast<const float*>(u);
+  float* cf = static_cast<float*>(c);
+  float* errf = static_cast<float*>(err);
+  float* sf = static_cast<float*>(scales);
+  const float qm = static_cast<float>(qmax);
+  if (errf != nullptr) {
+    chunk_quant_kernel<float, true, false, false, true>
+        <<<geo.blocks, geo.threads, 0, s>>>(
+            df, nullptr, nullptr, uf, nullptr, cf, errf, sf, nchunks, 1,
+            geo.chunk_threads, qm);
+  } else {
+    chunk_quant_kernel<float, true, false, false, false>
+        <<<geo.blocks, geo.threads, 0, s>>>(
+            df, nullptr, nullptr, uf, nullptr, cf, nullptr, sf, nchunks, 1,
+            geo.chunk_threads, qm);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -8,27 +8,32 @@ parity with the JAX package only).
 
 Per-leaf callers (``packed=False``) go through the same kernels after the
 (rows, 128) pad/reshape of the JAX package's ``kernels/ops.py:37-56``;
-packed planes are fed to the kernels as they are. The wire compression
-(``quantize``, ``dequantize``, ``quant_dequant``, ``pack_update``) takes
-its stochastic-rounding dither from the caller, as JAX's
-``kernels/ops.py:183-249`` draws it from a key the caller gives.
+packed planes are fed to the kernels as they are, and a stack of packed
+planes (L, rows, 128) as one (L * rows, 128) plane. The wire compression
+(``quantize``, ``dequantize``, ``quant_dequant``, ``pack_update``,
+``pack_compress``) takes its stochastic-rounding dither from the caller,
+as JAX's ``kernels/ops.py:183-249`` draws it from a key the caller gives.
+The gossip mix (``neighbor_mix``) takes its (L, L) matrix on the host.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import block_momentum as _bm
 from repro_torch.kernels import fused_meta as _fm
 from repro_torch.kernels import local_sgd as _sgd
+from repro_torch.kernels import neighbor_mix as _nm
 from repro_torch.kernels import pack_update as _pu
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels.planes import (
+    LANES,
     from_2d,
     is_packed_plane,
     layout,
     to_2d,
 )
-from repro_torch.utils.tree import tree_leaves, tree_paths, tree_unflatten
+from repro_torch.utils.tree import tree_map
 
 
 def _route(x: torch.Tensor, plain, cuda):
@@ -44,15 +49,29 @@ def _route(x: torch.Tensor, plain, cuda):
 # ---------------------------------------------------------------------------
 
 
+def is_plane_stack(x) -> bool:
+    """Is ``x`` a contiguous stack (..., rows, 128) of packed planes, as
+    the (L, rows, 128) learner planes and (G, rows, 128) group planes?"""
+    return (isinstance(x, torch.Tensor) and x.dim() >= 3
+            and x.shape[-1] == LANES and x.shape[-2] % 8 == 0
+            and x.is_contiguous())
+
+
 def block_momentum(w, v, a, *, mu, eta=1.0, nesterov=False, w_out=None,
                    v_out=None):
     """The momentum update on one array. Returns (w', v').
 
     A packed plane goes to the kernel as it is (outputs may alias the
-    inputs); any other shape is padded into a (rows, 128) copy, updated,
-    and returned as new tensors of the original shape.
+    inputs). A stack of packed planes is updated IN PLACE as one
+    (L * rows, 128) plane (the same arithmetic, no copy of the stack).
+    Any other shape is padded into a (rows, 128) copy, updated, and
+    returned as new tensors of the original shape.
     """
     fn = _route(w, _bm.block_momentum_plain, _bm.block_momentum_cuda)
+    if is_plane_stack(w) and is_plane_stack(v) and is_plane_stack(a):
+        w2, v2, a2 = (t.view(-1, LANES) for t in (w, v, a))
+        fn(w2, v2, a2, mu, eta, nesterov=nesterov, w_out=w2, v_out=v2)
+        return w, v
     if is_packed_plane(w):
         return fn(w, v, a, mu, eta, nesterov=nesterov, w_out=w_out,
                   v_out=v_out)
@@ -64,15 +83,63 @@ def block_momentum(w, v, a, *, mu, eta=1.0, nesterov=False, w_out=None,
 
 
 def block_momentum_tree(gp, v, avg, *, mu, eta=1.0, nesterov=False):
-    """The momentum update leaf by leaf over a parameter tree."""
-    new_w, new_v = [], []
-    for wi, vi, ai in zip(tree_leaves(gp), tree_leaves(v), tree_leaves(avg)):
-        wn, vn = block_momentum(wi, vi, ai, mu=mu, eta=eta,
-                                nesterov=nesterov)
-        new_w.append(wn)
-        new_v.append(vn)
-    paths = tree_paths(gp)
-    return tree_unflatten(paths, new_w), tree_unflatten(paths, new_v)
+    """The momentum update leaf by leaf over a parameter tree (or one
+    array). Returns (w', v') trees."""
+    pairs = tree_map(
+        lambda wi, vi, ai: block_momentum(wi, vi, ai, mu=mu, eta=eta,
+                                          nesterov=nesterov),
+        gp, v, avg)
+    return tree_map(lambda p: p[0], pairs), tree_map(lambda p: p[1], pairs)
+
+
+# ---------------------------------------------------------------------------
+# gossip neighbor mix (repro_torch.topology)
+# ---------------------------------------------------------------------------
+
+
+mixing_matrix_at = _nm.mixing_matrix_at
+
+
+def neighbor_mix(x, w, *, step=None, out=None):
+    """Mix one (L, ...) learner stack with the (L, L) matrix ``w``, or
+    with entry ``step % T`` of a (T, L, L) stack (the time-varying
+    graphs; the stepped kernel entry). ``w`` lies on the host. Returns
+    sum_k w_jk x_k in x's dtype, written into ``out`` when given (it may
+    be ``x``: a packed stack is then mixed in place).
+
+    A contiguous (L, rows, 128) stack goes to the kernel as it is; any
+    other leaf is padded into a new f32 (L, rows, 128) stack, as JAX's
+    ``kernels/ops.py:139-149``.
+    """
+    if w.ndim == 3:
+        if step is None:
+            raise ValueError(
+                "got a (T, L, L) mixing-matrix stack but no step= — the "
+                "time-varying graphs are step-indexed; pass the meta step "
+                "(silently using step 0 would freeze the graph)")
+        fn = _route(x, _nm.neighbor_mix_stepped_plain,
+                    _nm.neighbor_mix_stepped_cuda)
+        mix = lambda x3, o: fn(x3, w, step, out=o)  # noqa: E731
+    else:
+        fn = _route(x, _nm.neighbor_mix_plain, _nm.neighbor_mix_cuda)
+        mix = lambda x3, o: fn(x3, w, out=o)  # noqa: E731
+    if x.dim() == 3 and is_plane_stack(x):
+        return mix(x, out)
+    L = x.shape[0]
+    flat = x.to(torch.float32).reshape(L, -1)
+    n = flat.shape[1]
+    rows, pad = layout(n)
+    x3 = F.pad(flat, (0, pad)).view(L, rows, LANES)
+    mixed = mix(x3, x3).reshape(L, -1)[:, :n].reshape(x.shape).to(x.dtype)
+    return mixed if out is None else out.copy_(mixed)
+
+
+def neighbor_mix_tree(tree, w, *, step=None, in_place=False):
+    """The gossip mix leaf by leaf over a stacked (L, ...) tree; with
+    ``in_place`` every leaf receives its mixed values."""
+    return tree_map(
+        lambda x: neighbor_mix(x, w, step=step, out=x if in_place else None),
+        tree)
 
 
 # ---------------------------------------------------------------------------
@@ -167,8 +234,22 @@ def pack_update(w, g, e, u, *, qmax=127, block=None, c_out=None,
     return fn(w, g, e, u, qmax, b, c_out=c_out, err_out=err_out)
 
 
+def pack_compress(d, u, *, qmax=127, block=None, with_err=True, c_out=None,
+                  err_out=None):
+    """Stochastic-rounding quantize of an already-formed (L, rows, 128) f32
+    displacement plane ``d`` (the gossip and masked hierarchical compress
+    routes). Returns (c, err, scales (L, rows / b)); ``with_err=False``
+    allocates and writes no err plane and returns err None."""
+    b = _q.choose_block(d.shape[1], block)
+    fn = _route(d, _pu.pack_compress_plain, _pu.pack_compress_cuda)
+    return fn(d, u, qmax, b, with_err=with_err, c_out=c_out,
+              err_out=err_out)
+
+
 def launch_counts() -> dict[str, int]:
-    """Kernel launches so far, by kernel."""
+    """Kernel launches so far, by kernel entry. The neighbor-mix kernel
+    counts each launch once, under ``neighbor_mix`` or, when it came
+    through the stepped entry, under ``neighbor_mix_stepped``."""
     return {
         "fused_momentum_broadcast": _fm.LAUNCHES,
         "block_momentum": _bm.LAUNCHES,
@@ -176,9 +257,13 @@ def launch_counts() -> dict[str, int]:
         "pack_update": _pu.LAUNCHES,
         "quantize": _q.QUANTIZE_LAUNCHES,
         "dequantize": _q.DEQUANTIZE_LAUNCHES,
+        "pack_compress": _pu.COMPRESS_LAUNCHES,
+        "neighbor_mix": _nm.LAUNCHES,
+        "neighbor_mix_stepped": _nm.STEPPED_LAUNCHES,
     }
 
 
 def reset_launch_counts() -> None:
     _fm.LAUNCHES = _bm.LAUNCHES = _sgd.LAUNCHES = _pu.LAUNCHES = 0
     _q.QUANTIZE_LAUNCHES = _q.DEQUANTIZE_LAUNCHES = 0
+    _pu.COMPRESS_LAUNCHES = _nm.LAUNCHES = _nm.STEPPED_LAUNCHES = 0

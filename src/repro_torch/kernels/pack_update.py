@@ -24,9 +24,19 @@ never broadcast in memory. Outputs may alias inputs: the meta step writes
 ``err_out=e``), since a fresh (L, rows, 128) plane each would take the
 full-width run past 80 GB.
 
-``pack_update_plain`` is the same function in PyTorch ops, in the op
-order of ``kernels/ref.py::pack_update_ref``. CPU tensors take it;
-``chip_smoke.py`` holds the kernel to it bitwise on the card.
+``pack_compress`` replaces ``pack_compress_3d`` of the same JAX module:
+the quantize stage alone, on a displacement plane d the caller formed
+(the gossip exchange and the masked hierarchical inner average), with no
+meta-plane read and, under ``with_err=False``, no err plane: 16 bytes per
+value with err, 12 without. It is the same CUDA chunk kernel with the
+g read and the residual add compiled out, so ``pack_compress(d, u)`` is
+bitwise ``pack_update(d, zeros, None, u)`` (d - 0 is exact). ``c_out``
+may be ``u`` and ``err_out`` may be ``d``.
+
+``pack_update_plain`` and ``pack_compress_plain`` are the same functions
+in PyTorch ops, in the op order of ``kernels/ref.py::pack_update_ref`` and
+``pack_compress_ref``. CPU tensors take them; ``chip_smoke.py`` holds the
+kernels to them bitwise on the card.
 """
 from __future__ import annotations
 
@@ -36,27 +46,39 @@ from repro_torch.kernels import build
 from repro_torch.kernels.planes import LANES, check_cuda, stream_of
 from repro_torch.kernels.quantize import check_block, chunk_scales
 
-LAUNCHES = 0  # kernel launches; ``pack_update_cuda`` adds one per launch
+# kernel launches; ``pack_update_cuda`` and ``pack_compress_cuda`` add
+# one each per launch
+LAUNCHES = 0
+COMPRESS_LAUNCHES = 0
 
 
 def pack_update_plain(w, g, e, u, qmax: int, block: int, *, c_out=None,
                       err_out=None):
     """Returns (c, err, scales); c and err written into ``c_out`` and
     ``err_out`` when given (they may be ``u`` and ``e``)."""
-    L, rows, lanes = w.shape
     d = w.to(torch.float32) - g.to(torch.float32)[None]
     if e is not None:
         d = d + e.to(torch.float32)
-    db = d.reshape(L, rows // block, block * lanes)
+    return pack_compress_plain(d, u, qmax, block, c_out=c_out,
+                               err_out=err_out)
+
+
+def pack_compress_plain(d, u, qmax: int, block: int, *, with_err=True,
+                        c_out=None, err_out=None):
+    """Quantize the displacement plane ``d``. Returns (c, err, scales),
+    err None unless ``with_err``; c and err written into ``c_out`` and
+    ``err_out`` when given (they may be ``u`` and ``d``)."""
+    L, rows, lanes = d.shape
+    db = d.to(torch.float32).reshape(L, rows // block, block * lanes)
     scales = chunk_scales(db, qmax)  # (L, nchunks)
     s = scales[..., None]
     q = torch.clamp(torch.floor(db / s + u.reshape(db.shape)), -qmax, qmax)
     c = q * s
-    err = (db - c).reshape(w.shape)
-    c = c.reshape(w.shape)
+    err = (db - c).reshape(d.shape) if with_err else None
+    c = c.reshape(d.shape)
     if c_out is not None:
         c = c_out.copy_(c)
-    if err_out is not None:
+    if err is not None and err_out is not None:
         err = err_out.copy_(err)
     return c, err, scales
 
@@ -93,4 +115,36 @@ def pack_update_cuda(w, g, e, u, qmax: int, block: int, *, c_out=None,
                  block, int(w.dtype == torch.bfloat16), int(qmax),
                  stream_of(w))
     LAUNCHES += 1
+    return c, err, scales
+
+
+def pack_compress_cuda(d, u, qmax: int, block: int, *, with_err=True,
+                       c_out=None, err_out=None):
+    """The CUDA kernel on f32 (L, rows, 128) planes ``d`` and ``u``.
+    ``c_out`` may alias ``u`` or ``d``, ``err_out`` ``d``. Returns
+    (c, err or None, scales (L, rows / block))."""
+    global COMPRESS_LAUNCHES
+    if d.dim() != 3 or d.shape[2] != LANES:
+        raise ValueError(f"d: shape {tuple(d.shape)} is not (L, rows, 128)")
+    L, rows, _ = d.shape
+    check_cuda("d", d, torch.float32)
+    for name, x in (("u", u), ("c_out", c_out), ("err_out", err_out)):
+        if x is not None:
+            check_cuda(name, x, torch.float32, shape=d.shape,
+                       device=d.device)
+    if err_out is not None and not with_err:
+        raise ValueError("err_out given with with_err=False")
+    check_block(rows, block)
+    c = torch.empty_like(d) if c_out is None else c_out
+    err = None
+    if with_err:
+        err = torch.empty_like(d) if err_out is None else err_out
+    scales = torch.empty((L, rows // block), dtype=torch.float32,
+                         device=d.device)
+    lib = build.library()
+    with torch.cuda.device(d.device):
+        lib.call("repro_pack_compress", d.data_ptr(), u.data_ptr(),
+                 c.data_ptr(), 0 if err is None else err.data_ptr(),
+                 scales.data_ptr(), L, rows, block, int(qmax), stream_of(d))
+    COMPRESS_LAUNCHES += 1
     return c, err, scales

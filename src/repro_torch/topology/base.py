@@ -3,13 +3,17 @@
     mix(learners, gp, v, comm_residual, topo, step=n)
         -> (gp', v', learners', comm_residual', topo', metrics)
 
-Only the flat all-reduce is ported: the reducer's average over all L
-learners (the dense mean, or a compressed one with its error-feedback
-residual, ``repro_torch.comm``), then the block-momentum update and the
-reset of every learner to the new meta params. On the packed plane that
-update is ONE launch of the fused momentum-broadcast kernel, in place:
-w~ and v are overwritten, and the learner plane (already consumed by the
-reducer) receives the reset.
+``topo`` is the topology's own buffers in ``MetaState.topo`` (None for
+flat). This module holds the protocol and the flat all-reduce: the
+reducer's average over all L learners (the dense mean, or a compressed
+one with its error-feedback residual, ``repro_torch.comm``), then the
+block-momentum update and the reset of every learner to the new meta
+params. On the packed plane that update is ONE launch of the fused
+momentum-broadcast kernel, in place: w~ and v are overwritten, and the
+learner plane (already consumed by the reducer) receives the reset. The
+hierarchical and gossip topologies live beside it (``hierarchical.py``,
+``gossip.py``, ``elastic.py``); the async server, robust aggregation and
+the finite guard are not ported (ROADMAP Queue 1, items 6-7).
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ import torch
 
 from repro_torch.configs.base import MAvgConfig
 from repro_torch.kernels import ops as kops
+# the packed-plane predicate lives with the kernels it routes to; the
+# topologies import it from here, as in the JAX package
 from repro_torch.kernels.planes import is_packed_plane
 from repro_torch.utils.tree import (
     tree_cast,
@@ -33,9 +39,15 @@ def effective_momentum(cfg: MAvgConfig) -> float:
     return 0.0 if cfg.algorithm == "kavg" else cfg.momentum
 
 
+def learner_dtype(learners) -> torch.dtype:
+    return tree_leaves(learners)[0].dtype
+
+
 def block_momentum_update(gp, v, avg, *, mu, eta=1.0, nesterov=False):
     """v <- mu v + eta d ; w~ <- w~ + v (+ Nesterov lookahead), leaf by
-    leaf through the block-momentum kernel (its plain version on CPU)."""
+    leaf through the block-momentum kernel (its plain version on CPU).
+    Packed planes and stacks of them, as the (G, rows, 128) group and
+    (L, rows, 128) gossip planes, are updated in place."""
     return kops.block_momentum_tree(gp, v, avg, mu=mu, eta=eta,
                                     nesterov=nesterov)
 
@@ -52,15 +64,20 @@ def fused_momentum_broadcast_update(gp, v, avg, learners, *, mu, eta,
     )
 
 
+def stack_dist(a, b) -> torch.Tensor:
+    """||a - b|| over two (lead, ...) trees, one entry of the leading axis
+    at a time, so the (f32) temporary is one plane and never a stack."""
+    sq = [torch.linalg.vector_norm(x[j] - y[j]) ** 2
+          for x, y in zip(tree_leaves(a), tree_leaves(b))
+          for j in range(x.shape[0])]
+    return torch.sqrt(torch.stack(sq).sum())
+
+
 def consensus_dist(learners, avg) -> torch.Tensor:
     """||w_j - a|| over all learners: how far the K local steps drove
-    them apart. One learner at a time, so the f32 temporary is one plane."""
-    sq = [
-        torch.linalg.vector_norm(w[j].to(torch.float32) - a) ** 2
-        for w, a in zip(tree_leaves(learners), tree_leaves(avg))
-        for j in range(w.shape[0])
-    ]
-    return torch.sqrt(torch.stack(sq).sum())
+    them apart."""
+    return stack_dist(learners, tree_map(
+        lambda w, a: a.unsqueeze(0).expand(w.shape), learners, avg))
 
 
 def displacement_norm(avg, gp) -> torch.Tensor:
@@ -83,6 +100,13 @@ class Topology:
         """Cumulative K-step blocks completed through meta step ``step``."""
         return (int(step) + 1) * self.cfg.num_learners
 
+    def local_steps(self, topo, step):
+        """Per-learner active local-step counts (L ints) for this meta
+        step, or None when every learner runs the full cfg.k_steps.
+        Per-group K_g (hierarchical ``group_k``) and elastic membership
+        (absent learners run zero steps) hook in here."""
+        return None
+
     def mix(self, learners, gp, v, comm_residual, topo, *, step):
         raise NotImplementedError
 
@@ -92,12 +116,13 @@ class FlatAllReduce(Topology):
 
     name = "flat"
 
-    def __init__(self, cfg: MAvgConfig, reducer=None):
+    def __init__(self, cfg: MAvgConfig, reducer=None, dither=None):
         from repro_torch.comm import make_reducer
 
         self.cfg = cfg
         self.mu = effective_momentum(cfg)
-        self.reducer = make_reducer(cfg) if reducer is None else reducer
+        self.reducer = (make_reducer(cfg, dither=dither) if reducer is None
+                        else reducer)
 
     def init_buffers(self, gp, cfg: MAvgConfig):
         return self.reducer.init_residual(gp, cfg.num_learners), None
@@ -124,7 +149,7 @@ class FlatAllReduce(Topology):
                 gp, v, avg, mu=self.mu, eta=cfg.meta_lr,
                 nesterov=cfg.nesterov,
             )
-            ldt = tree_leaves(learners)[0].dtype
+            ldt = learner_dtype(learners)
             # learner reset in place: every learner's copy <- w~'
             tree_map(lambda w, g: w.copy_(g.to(ldt).expand_as(w)),
                      learners, gp)

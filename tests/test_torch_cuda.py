@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import block_momentum as bm  # noqa: E402
 from repro_torch.kernels import fused_meta as fm  # noqa: E402
 from repro_torch.kernels import local_sgd as sgd  # noqa: E402
+from repro_torch.kernels import neighbor_mix as nm  # noqa: E402
 from repro_torch.kernels import pack_update as pu  # noqa: E402
 from repro_torch.kernels import quantize as qk  # noqa: E402
 
@@ -32,7 +33,8 @@ def cuda_device():
 @pytest.mark.cuda
 def test_cuda_comm_kernels_match_plain_bitwise(cuda_device):
     """On the card: quantize, dequantize and pack_update bitwise equal to
-    their plain versions, at b = 8 and 64, in place and out of place."""
+    their plain versions, at b = 8 and 64 (pack_update at 32 too), in
+    place and out of place."""
     gen = torch.Generator(device=cuda_device).manual_seed(1)
 
     def rand(*shape):
@@ -52,7 +54,7 @@ def test_cuda_comm_kernels_match_plain_bitwise(cuda_device):
     g = rand(QROWS, 128)
     for ld in (torch.float32, torch.bfloat16):
         for ee in (None, e):
-            for block in (8, 64):
+            for block in (8, 32, 64):
                 got = pu.pack_update_cuda(w.to(ld), g, ee, uu, 127, block)
                 want = pu.pack_update_plain(w.to(ld), g, ee, uu, 127, block)
                 assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -83,3 +85,48 @@ def test_cuda_kernels_match_plain_bitwise(cuda_device):
         wl, gl = w.to(ld), v.to(ld)
         assert torch.equal(sgd.sgd_apply_cuda(wl, gl, 0.1),
                            sgd.sgd_apply_plain(wl, gl, 0.1))
+
+
+@pytest.mark.cuda
+def test_cuda_topology_kernels_match_plain_bitwise(cuda_device):
+    """On the card: neighbor_mix (plain and stepped entries, f32 and bf16,
+    in place and out of place, L = 1..16) and pack_compress (with and
+    without err, b = 8, 16, 32 and 64, in place) bitwise equal to their
+    plain versions; pack_compress(d, u) == pack_update(d, 0, None, u).
+    b = 16 and 32 put two and four chunks in one block of threads, whose
+    max is reduced across warps through shared memory."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    for n in (1, 2, 3, 4, 7, 16):
+        x = torch.randn(n, QROWS, 128, generator=gen, device=cuda_device)
+        w = torch.rand(n, n, generator=torch.Generator().manual_seed(n))
+        for dt in (torch.float32, torch.bfloat16):
+            xd = x.to(dt)
+            want = nm.neighbor_mix_plain(xd, w)
+            assert torch.equal(nm.neighbor_mix_cuda(xd, w), want)
+            assert nm.neighbor_mix_cuda(xd, w, out=xd) is xd
+            assert torch.equal(xd, want)
+    stack = torch.rand(3, 4, 4, generator=torch.Generator().manual_seed(9))
+    x = torch.randn(4, QROWS, 128, generator=gen, device=cuda_device)
+    for step in (0, 4):
+        assert torch.equal(nm.neighbor_mix_stepped_cuda(x, stack, step),
+                           nm.neighbor_mix_stepped_plain(x, stack, step))
+    d = torch.randn(L, QROWS, 128, generator=gen, device=cuda_device) * 0.05
+    u = torch.rand(L, QROWS, 128, generator=gen, device=cuda_device)
+    for block in (8, 16, 32, 64):
+        for with_err in (True, False):
+            got = pu.pack_compress_cuda(d, u, 127, block, with_err=with_err)
+            want = pu.pack_compress_plain(d, u, 127, block,
+                                          with_err=with_err)
+            assert (got[1] is None) == (not with_err)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)
+                       if b is not None)
+        ref = pu.pack_update_cuda(d, torch.zeros_like(d[0]), None, u, 127,
+                                  block)
+        got = pu.pack_compress_cuda(d, u, 127, block)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    for block in (8, 32):
+        want = pu.pack_compress_plain(d, u, 127, block)
+        dd, uu = d.clone(), u.clone()
+        got = pu.pack_compress_cuda(dd, uu, 127, block, c_out=uu, err_out=dd)
+        assert got[0] is uu and got[1] is dd
+        assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -227,10 +227,14 @@ def test_launch_counter_counts_kernel_launches_only():
     x = _t(*_planes(7, n=1))[0]
     ops.quant_dequant(x, lambda shape: torch.rand(shape))
     ops.pack_update(x[None], x, None, torch.rand(1, ROWS, 128))
+    ops.pack_compress(x[None], torch.rand(1, ROWS, 128))
+    ops.neighbor_mix(torch.stack([x, x]), torch.eye(2))
     assert ops.launch_counts() == {"fused_momentum_broadcast": 0,
                                    "block_momentum": 0, "sgd_apply": 0,
                                    "pack_update": 0, "quantize": 0,
-                                   "dequantize": 0}
+                                   "dequantize": 0, "pack_compress": 0,
+                                   "neighbor_mix": 0,
+                                   "neighbor_mix_stepped": 0}
 
 
 # ---------------------------------------------------------------------------

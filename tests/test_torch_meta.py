@@ -215,6 +215,6 @@ def test_unported_configs_raise():
 
     for cfg in (MAvgConfig(algorithm="downpour"),
                 MAvgConfig(finite_guard=True),
-                MAvgConfig(topology=TopologyConfig(kind="gossip"))):
+                MAvgConfig(topology=TopologyConfig(kind="async"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_state(_params(), cfg)
