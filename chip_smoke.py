@@ -19,9 +19,12 @@ Phases (any failure raises and the script exits non-zero):
    the (4, 4,790,496, 128) stack of the 6-layer plane at the b=32 that
    choose_block gives it (four chunks to a block of threads); neighbor_mix
    with L=4 in f32 and bf16, in place and out of place, and its stepped
-   entry with the (2, 4, 4) one_peer_exponential stack. Bitwise equality
-   over the whole plane (in
-   windows of rows, so the plain version's temporaries fit), then
+   entry with the (2, 4, 4) one_peer_exponential stack; robust_reduce with
+   L=4 at trims 0 and 1 on the full plane, L=8 at trims 0-3 and L=5 at the
+   median on the 6-layer plane, a stack of NaN, +-inf and -0.0, and trim 0
+   against torch.mean at L = 2, 3, 4 and 8. Bitwise equality over the
+   whole plane (in windows of rows, so the plain version's temporaries
+   fit), then
    CUDA-event times of the kernel, the plain version and, where one
    exists, a single PyTorch library call, beside the least time the card
    could take (bytes over 3.35 TB/s or flops over 67 TFLOP/s, whichever is
@@ -43,7 +46,11 @@ Phases (any failure raises and the script exits non-zero):
    without EF, gossip one_peer_exponential int8+EF with elastic
    membership, and hierarchical elastic with an int8+EF inner level (L=4
    for the topologies), with the same dither on both devices (drawn on
-   the CPU);
+   the CPU); then robust aggregation, L=4, 3 meta steps, learner 3 under
+   sticky finite corruption: flat dense packed and per-leaf (trimmed mean,
+   norm clip, scores, finite guard), hierarchical G=2 and gossip ring
+   (clip and scores), and the inert robust config against robust off,
+   bitwise on the card;
 7. gossip at full width: Qwen3-1.7B with every width unchanged and the
    depth cut to 6 of 28 layers (four learners' private meta, momentum and
    residual planes do not fit one card at full depth), L=4, K=4, B=8,
@@ -52,7 +59,13 @@ Phases (any failure raises and the script exits non-zero):
 8. hierarchical at the same cut: G=2, H=2, mu_out=0.3, elastic
    membership (period 4, drop 0.25: one learner of four absent a step),
    an int8+EF inner level and a dense outer one, 4 meta steps (the outer
-   level fires twice).
+   level fires twice);
+9. the robust main path at full width and depth: Qwen3-1.7B, flat dense,
+   L=4, K=4, B=8, S=64, trimmed mean (trim 1), norm clip at 3x a 2-step
+   trailing median, anomaly scores and the finite guard, learner 3
+   bit-flipped every step and scaled x12 on steps 1-3, 4 meta steps
+   (the clip fires on steps 2 and 3), counted, split by memory part and
+   profiled as in phase 5.
 
 The second-to-last line is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every phase
@@ -85,6 +98,8 @@ TOPOLOGY_SOURCE = "src/repro_torch/kernels/csrc/topology_kernels.cu"
 NM_REPLACES = "src/repro/kernels/neighbor_mix.py:39"
 NM_STEPPED_REPLACES = "src/repro/kernels/neighbor_mix.py:85"
 PC_REPLACES = "src/repro/kernels/pack_update.py:126"
+ROBUST_SOURCE = "src/repro_torch/kernels/csrc/robust_kernels.cu"
+RR_REPLACES = "src/repro/kernels/robust_reduce.py:57"
 DEPTH = 6  # layers of the full-width topology runs (of 28)
 # card vs CPU after compressed meta steps: values beyond rtol 1e-5 /
 # atol 1e-6 are rounding decisions that flipped because the two devices'
@@ -653,8 +668,144 @@ def check_pack_compress(torch, pu, rows) -> dict:
                 library_ms=None)
 
 
+def same_bits(torch, got, want) -> float:
+    """Raise unless ``got`` and ``want`` are NaN at the same places and
+    bitwise equal elsewhere (sign bits of zeros included); the largest
+    |difference| over the non-NaN values (0.0)."""
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        raise AssertionError("kernel and plain version differ in NaNs")
+    ok = ~nan
+    if not torch.equal(got[ok].view(torch.int32), want[ok].view(torch.int32)):
+        raise AssertionError(
+            f"kernel differs from plain version: max |diff| "
+            f"{float((got[ok] - want[ok]).abs().max())}")
+    return 0.0
+
+
+def check_robust_reduce(torch, rr, rows, rows_cut) -> dict:
+    """robust_reduce: bitwise against its plain version in row windows on
+    the full (4, rows, 128) plane at trim 0 and 1 (the main path's L and
+    trim), on the 6-layer (8, rows_cut, 128) plane at trims 0-3 and its
+    first five learners at trim 2 (the median), and on a small stack of
+    NaN, +-inf and -0.0; trim 0 against torch.mean for L = 2, 3, 4 and 8;
+    CUDA-event times of the kernel, the plain version and the library
+    calls (torch.mean at trim 0, torch.quantile's midpoint for the even-L
+    median, L=4 trim 1, torch.median for odd L at the median)."""
+    err = 0.0
+
+    def check(x, trim, nrows):
+        nonlocal err
+        got = rr.robust_reduce_cuda(x, trim)
+        torch.cuda.synchronize()
+        for sl in windows(nrows):
+            err = max(err, same_bits(torch, got[sl],
+                                     rr.robust_reduce_plain(x[:, sl], trim)))
+        return got
+
+    x = torch.empty(L, rows, 128, device="cuda")
+    for j in range(L):
+        filled(torch, 90 + j, rows, out=x[j])
+    for trim in (0, 1):
+        check(x, trim, rows)
+        print(f"  robust_reduce ({L}, {rows}, 128) trim={trim}: bitwise "
+              f"equal to the plain version")
+        free(torch)
+    out = torch.empty(rows, 128, device="cuda")
+    ms = cuda_ms(torch, lambda: rr.robust_reduce_cuda(x, 1, out=out))
+    ms0 = cuda_ms(torch, lambda: rr.robust_reduce_cuda(x, 0, out=out))
+    mean_ms = cuda_ms(torch, lambda: torch.mean(x, dim=0, out=out))
+    plain_ms = sum(cuda_ms(
+        torch, lambda sl=sl: rr.robust_reduce_plain(x[:, sl], 1), warmup=1,
+        iters=3) for sl in windows(rows))
+    plain0_ms = sum(cuda_ms(
+        torch, lambda sl=sl: rr.robust_reduce_plain(x[:, sl], 0), warmup=1,
+        iters=3) for sl in windows(rows))
+    # at L=4, trim 1 is median_trim(4): the even-L median, the mean of the
+    # two middle values, which torch.quantile's midpoint computes in one
+    # call (as lerp(a, b, 0.5), so within an ulp, not bitwise); it takes
+    # at most 2^24 values a call, so it is timed in such windows and summed
+    assert rr.median_trim(L) == 1
+    q_rows = (1 << 24) // (L * 128)
+
+    def quantile(sl):
+        return torch.quantile(x[:, sl], 0.5, dim=0, interpolation="midpoint")
+
+    head = slice(0, q_rows)
+    rr.robust_reduce_cuda(x, 1, out=out)
+    q_err = float((quantile(head) - out[head]).abs().max())
+    # two roundings of lerp against one of the kernel's sum: a few ulps
+    # of the largest |value| of the window
+    q_tol = 4 * 2.0 ** -23 * float(x[:, head].abs().max())
+    library_ms = sum(cuda_ms(torch, lambda sl=sl: quantile(sl), warmup=1,
+                             iters=3)
+                     for sl in (slice(r0, min(r0 + q_rows, rows))
+                                for r0 in range(0, rows, q_rows)))
+    del x, out
+    free(torch)
+    n = rows * 128
+    b_ms, b_by = bound((L + 1) * n * 4, n * (L * (L - 1) // 2 + L - 1))
+    b0_ms, _ = bound((L + 1) * n * 4, n * L)
+    print(f"  robust_reduce ({L}, {rows}, 128): trim=1 {ms:.3f} ms (bound "
+          f"{b_ms:.3f} ms, {b_ms / ms:.1%}), plain {plain_ms:.3f} ms, "
+          f"torch.quantile(midpoint) {library_ms:.3f} ms in "
+          f"{-(-rows // q_rows)} calls of {q_rows} rows (max |diff| from "
+          f"the kernel {q_err:.3e}); trim=0 {ms0:.3f} ms (bound "
+          f"{b0_ms:.3f} ms), plain {plain0_ms:.3f} ms, torch.mean "
+          f"{mean_ms:.3f} ms")
+    assert q_err <= q_tol, (q_err, q_tol)
+
+    n8 = 8
+    x = torch.empty(n8, rows_cut, 128, device="cuda")
+    for j in range(n8):
+        filled(torch, 100 + j, rows_cut, out=x[j])
+    for trim in range(rr.median_trim(n8) + 1):
+        check(x, trim, rows_cut)
+    print(f"  robust_reduce ({n8}, {rows_cut}, 128) trims 0-3: bitwise "
+          f"equal to the plain version")
+    x5 = x[:5]
+    check(x5, 2, rows_cut)
+    print(f"  robust_reduce (5, {rows_cut}, 128) trim=2 (the median): "
+          f"bitwise equal to the plain version")
+    med_ms = cuda_ms(torch, lambda: rr.robust_reduce_cuda(x5, 2))
+    median_ms = cuda_ms(torch, lambda: torch.median(x5, dim=0).values)
+    m_ms, _ = bound(6 * rows_cut * 128 * 4, rows_cut * 128 * 12)
+    print(f"  robust_reduce (5, {rows_cut}, 128) median: {med_ms:.3f} ms "
+          f"(bound {m_ms:.3f} ms), torch.median {median_ms:.3f} ms")
+    for nl in (2, 3, 4, 8):
+        got = rr.robust_reduce_cuda(x[:nl], 0)
+        want = torch.mean(x[:nl], dim=0)
+        bitwise = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        share = float((got != want).float().mean())
+        print(f"  robust_reduce trim=0 vs torch.mean, L={nl}: "
+              f"{'bitwise equal' if bitwise else 'NOT bitwise equal'} "
+              f"({share:.4%} of values differ, max |diff| "
+              f"{float((got - want).abs().max()):.3e})")
+        del got, want
+    del x, x5
+    free(torch)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    s = torch.randn(4, 64, 128, generator=gen, device="cuda")
+    f = s.view(4, -1)
+    f[:, :4] = -0.0
+    f[0, 8:12] = float("nan")
+    f[1, 12:16] = float("inf")
+    f[3, 16:20] = float("-inf")
+    f[0, 20:24], f[3, 20:24] = float("nan"), float("-inf")
+    f[:, 24] = torch.tensor([-0.0, 0.0, -0.0, 0.0])
+    for trim in (0, 1):
+        got = check(s, trim, 64)
+        assert bool(torch.isfinite(got.view(-1)[8:24]).all()) == (trim == 1)
+    print("  robust_reduce with NaN, +-inf and -0.0: bitwise equal (NaN "
+          "where NaN, signs of zeros); trim=1 trims them to finite values")
+    return dict(name="robust_reduce", replaces=RR_REPLACES,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms)
+
+
 # ---------------------------------------------------------------------------
-# phases 4 to 8: the trainer
+# phases 4 to 9: the trainer
 # ---------------------------------------------------------------------------
 
 
@@ -715,7 +866,8 @@ def full_width_training(torch, ops) -> dict:
 
 NO_LAUNCHES = dict(fused_momentum_broadcast=0, block_momentum=0,
                    sgd_apply=0, pack_update=0, quantize=0, dequantize=0,
-                   pack_compress=0, neighbor_mix=0, neighbor_mix_stepped=0)
+                   pack_compress=0, neighbor_mix=0, neighbor_mix_stepped=0,
+                   robust_reduce=0)
 
 
 def compressed_full_width(torch, ops) -> dict:
@@ -902,7 +1054,8 @@ class PhasePeaks:
 # kernel-name fragments -> the class a kernel's device time is booked to
 KERNEL_CLASSES = (
     ("port kernels", ("momentum_kernel", "sgd_kernel", "chunk_quant_kernel",
-                      "dequant_kernel", "neighbor_mix_kernel")),
+                      "dequant_kernel", "neighbor_mix_kernel",
+                      "robust_reduce_kernel")),
     ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
     ("copy/cast", ("copy", "Cat")),
 )
@@ -1139,6 +1292,248 @@ def card_vs_cpu(torch, ops) -> tuple[dict, dict]:
     return per_leaf, topo_sum
 
 
+# the robust configuration of phases 6 and 9: trimmed mean (trim 1), the
+# norm clip at 3x the trailing median of a 2-step ring, anomaly scores
+ROBUST = dict(estimator="trimmed", trim=1, clip_mult=3.0, clip_window=2,
+              score=True)
+
+
+def sticky_chaos(steps: int, scale_from: int):
+    """The robust bench's sticky corruption of learner L-1: bit 29 of one
+    element flipped on every step, and its plane scaled x12 from step
+    ``scale_from`` on (benchmarks/robust_bench.py:57-82). Both finite."""
+    from repro_torch.chaos import ChaosConfig, FaultSpec
+
+    return ChaosConfig(seed=0, horizon=steps, faults=(
+        FaultSpec("finite_bitflip", step=0, learner=L - 1, duration=steps,
+                  bit=29, sticky=True),
+        FaultSpec("finite_scale", step=scale_from, learner=L - 1,
+                  duration=steps - scale_from, magnitude=12.0,
+                  sticky=True)))
+
+
+def robust_card_vs_cpu(torch, ops) -> dict:
+    """Phase 6, robust: qwen3-1.7b.reduced() in f32, L=4, K=2, 3 meta
+    steps on the same CPU-drawn dither, card against CPU: flat dense
+    packed and per-leaf with ROBUST and the finite guard under the sticky
+    corruption (x12 on all three steps), hierarchical G=2 (estimator
+    mean: a group of 2 cannot trim) and gossip ring with the clip and
+    scores (x12 on the clip step only: before the ring fills nothing
+    clips, and a mean-based level would spread the scaled plane to every
+    learner). Then the inert config against robust=None, bitwise on the
+    card. Returns the card's launches summed over the runs."""
+    from repro_torch.chaos import FaultSchedule, PayloadCorruptor
+    from repro_torch.comm import seeded_dither
+    from repro_torch.configs.base import (
+        MAvgConfig,
+        RobustConfig,
+        TopologyConfig,
+        get_config,
+    )
+    from repro_torch.core.meta import init_state, make_meta_step
+    from repro_torch.models import api
+    from repro_torch.topology import make_topology
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                              dtype="float32")
+    gen = torch.Generator().manual_seed(1)
+    params = api.init_params(gen, cfg, "cpu")
+    steps = 3
+    batches = [{"tokens": t, "labels": t} for t in (
+        torch.randint(0, cfg.vocab_size, (L, 2, 2, 16), generator=gen)
+        for _ in range(steps))]
+    loss_fn = lambda p, b: api.loss_fn(p, cfg, b)  # noqa: E731
+    n_leaves = len(tree_leaves(params))
+    cpu_dither = seeded_dither(7)
+
+    def shared_dither(i, step, shape, device):
+        return cpu_dither(i, step, shape, "cpu").to(device)
+
+    def run(mcfg, device, chaos):
+        topology = make_topology(mcfg, dither=shared_dither)
+        state = init_state(tree_map(lambda x: x.to(device), params), mcfg,
+                           topology=topology)
+        cor = (None if chaos is None else
+               PayloadCorruptor(FaultSchedule(chaos, mcfg.num_learners)))
+        step = make_meta_step(loss_fn, mcfg, topology=topology, chaos=cor)
+        ops.reset_launch_counts()
+        metrics = []
+        for b in batches:
+            state, m = step(state, tree_map(lambda x: x.to(device), b))
+            metrics.append({k: float(v) for k, v in m.items()})
+        planes = [state.global_params, state.momentum, state.learners] + [
+            v for k, v in sorted((state.topo or {}).items())
+            if k != "membership"]
+        return ([x.cpu() for t in planes if t is not None
+                 for x in tree_leaves(t)], metrics, ops.launch_counts())
+
+    hier = TopologyConfig(kind="hierarchical", groups=2)
+    gossip = TopologyConfig(kind="gossip", graph="ring")
+    runs = (  # (label, packed, topology, robust, guard, x12 from, launches)
+        ("flat dense packed", True, None, ROBUST, True, 0,
+         dict(fused_momentum_broadcast=3, sgd_apply=24, robust_reduce=3)),
+        ("flat dense per-leaf", False, None, ROBUST, True, 0,
+         dict(block_momentum=3 * n_leaves, sgd_apply=24 * n_leaves,
+              robust_reduce=3 * n_leaves)),
+        ("hierarchical G=2", True, hier, dict(ROBUST, estimator="mean"),
+         False, 2, dict(block_momentum=3, sgd_apply=24,
+                        fused_momentum_broadcast=3)),
+        ("gossip ring", True, gossip, ROBUST, False, 2,
+         dict(block_momentum=3, sgd_apply=24, neighbor_mix=3)),
+    )
+    total = dict(NO_LAUNCHES)
+    for label, packed, topo, rcfg, guard, scale_from, launches in runs:
+        mcfg = MAvgConfig(algorithm="mavg", num_learners=L, k_steps=2,
+                          learner_lr=0.1, momentum=0.7, packed=packed,
+                          finite_guard=guard, robust=RobustConfig(**rcfg),
+                          topology=topo or TopologyConfig(kind="flat"))
+        chaos = sticky_chaos(steps, scale_from)
+        cpu, cpu_m, _ = run(mcfg, "cpu", chaos)
+        card, card_m, counts = run(mcfg, "cuda", chaos)
+        want = dict(NO_LAUNCHES, **launches)
+        assert counts == want, (label, counts, want)
+        total = {k: v + counts[k] for k, v in total.items()}
+        worst = 0.0
+        for c, g in zip(cpu, card):
+            torch.testing.assert_close(g, c, rtol=1e-5, atol=1e-6,
+                                       equal_nan=True)
+            ok = torch.isfinite(c)
+            worst = max(worst, float((g[ok] - c[ok]).abs().max())
+                        if bool(ok.any()) else 0.0)
+            assert bool(ok.all()), label
+        clipped = [m["robust_clipped_learners"] for m in card_m]
+        assert clipped == [m["robust_clipped_learners"] for m in cpu_m]
+        assert clipped == [0.0, 0.0, 1.0], (label, clipped)
+        scores = [m[f"robust_score_{j}"] for m in card_m[-1:]
+                  for j in range(L)]
+        assert max(range(L), key=lambda j: scores[j]) == L - 1, scores
+        for m, mc in zip(card_m, cpu_m):
+            for k in ("robust_clip_budget", "robust_anomaly_score"):
+                torch.testing.assert_close(m[k], mc[k], rtol=1e-4,
+                                           atol=1e-6, equal_nan=True)
+        print(f"  {label} robust (x12 from step {scale_from}): card == CPU "
+              f"to rtol=1e-5, atol=1e-6 (max |diff| {worst:.3e}); clipped "
+              f"{clipped}; scores at step 2 "
+              f"{[round(x, 3) for x in scores]}; launches {counts}")
+    mcfg = MAvgConfig(algorithm="mavg", num_learners=L, k_steps=2,
+                      learner_lr=0.1, momentum=0.7)
+    off, _, _ = run(mcfg, "cuda", None)
+    inert, _, _ = run(dataclasses.replace(mcfg, robust=RobustConfig(
+        estimator="mean", clip_mult=0.0, score=False)), "cuda", None)
+    for a, b in zip(off, inert):
+        assert torch.equal(a, b)
+    print("  inert RobustConfig(mean, no clip, no score) == robust=None on "
+          "the card: bitwise")
+    return total
+
+
+def robust_full_width(torch, ops) -> dict:
+    """Phase 9: the robust main path at full width and full depth:
+    Qwen3-1.7B, flat dense, L=4, K=4, B=8, S=64, ROBUST with the finite
+    guard, learner 3 under the sticky corruption (x12 on steps 1-3), 4
+    meta steps through the Trainer: the 2-step ring fills on steps 0-1
+    and the clip fires on steps 2 and 3."""
+    from repro_torch.configs.base import (
+        MAvgConfig,
+        RobustConfig,
+        TrainConfig,
+        get_config,
+    )
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data import uniform_batch_fn
+    from repro_torch.models import api
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.robust.aggregator import RobustAggregator
+
+    cfg = get_config("qwen3-1.7b")
+    k, batch, seq, steps = 4, 8, 64, 4
+    mcfg = MAvgConfig(algorithm="mavg", num_learners=L, k_steps=k,
+                      finite_guard=True, robust=RobustConfig(**ROBUST))
+    tcfg = TrainConfig(model=cfg, mavg=mcfg, batch_per_learner=batch,
+                       seq_len=seq, meta_steps=steps,
+                       chaos=sticky_chaos(steps, 1))
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(
+        tcfg, lambda p, b: api.loss_fn(p, cfg, b),
+        init_params_fn=lambda gen: api.init_params(gen, cfg, "cuda"),
+        batch_fn=uniform_batch_fn(cfg, L, k, batch, seq),
+        lr_schedule=warmup_cosine(LR, 5, steps), device="cuda",
+    )
+    spec = trainer.state.spec
+    print(f"  state: {spec.rows} rows x 128, {L} learners, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    peaks = PhasePeaks(torch, trainer)
+    # the records count the clipped learners; to see which, the guard's
+    # per-learner clip factors are read as it returns them (it computes
+    # them on the host), and the guard is put back before the profile
+    factors, guard = [], RobustAggregator.guard
+
+    def read_factors(self, *args, **kw):
+        scale, topo, metrics = guard(self, *args, **kw)
+        factors.append(scale.tolist())
+        return scale, topo, metrics
+
+    RobustAggregator.guard = read_factors
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        history = trainer.run(log=lambda s: print("  " + s))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        RobustAggregator.guard = guard
+    peak = peaks.stop()
+    print(f"  launches: {counts}")
+    assert counts == dict(NO_LAUNCHES, robust_reduce=steps,
+                          sgd_apply=steps * k * L,
+                          fused_momentum_broadcast=steps), counts
+    losses = [h["loss"] for h in history]
+    assert all(math.isfinite(x) for x in losses), losses
+    rows = trainer.robust_records
+    clipped = [rb["clipped_learners"] for rb in rows]
+    print(f"  robust_clipped_learners by step {clipped} (clip budget "
+          f"{[round(rb['clip_budget'], 4) for rb in rows]})")
+    print(f"  clip factors by step and learner {factors}")
+    # the clip fires once the ring is full, and only on the corrupt learner
+    assert clipped == [0.0, 0.0, 1.0, 1.0], clipped
+    assert len(factors) == steps, factors
+    assert all(f == [1.0] * L for f in factors[:2]), factors
+    assert all(f[:L - 1] == [1.0] * (L - 1) and f[L - 1] < 1.0
+               for f in factors[2:]), factors
+    for rb in rows:
+        print(f"  step {rb['meta_step']} anomaly scores "
+              f"{[f'{x:.4g}' for x in rb['scores']]}")
+    assert all(max(range(L), key=lambda j: rb["scores"][j]) == L - 1
+               for rb in rows[1:]), rows
+    print("  nonfinite_learners by step "
+          f"{[h['nonfinite_learners'] for h in history]}")
+    state = trainer.state
+    for name in ("global_params", "momentum", "learners"):
+        # in row windows: torch.isfinite forms |x| over its whole input
+        x = getattr(state, name).view(-1, 128)
+        assert all(bool(torch.isfinite(x[sl]).all())
+                   for sl in windows(x.shape[0])), name
+    print("  global params, momentum and learner planes all finite; "
+          f"losses {[round(x, 4) for x in losses]}")
+    last = history[-1]
+    print(f"  peak device memory {peak / 1e9:.2f} GB "
+          f"({peak / 2**30:.2f} GiB); {steps} meta steps in {seconds:.2f} s "
+          f"({steps / seconds:.3f} meta steps/s; last step alone "
+          f"{last['meta_steps_per_sec']:.3f} meta steps/s, "
+          f"{last['samples_per_sec']:.1f} samples/s)")
+    print("  peak device memory by part: " + ", ".join(
+        f"{name} {v / 1e9:.2f} GB" for name, v in peaks.parts))
+    assert peak < 80e9, peak
+    profile_meta_step(torch, trainer, 1e3 / last["meta_steps_per_sec"])
+    del trainer, state
+    free(torch)
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1154,6 +1549,7 @@ def main() -> int:
     from repro_torch.kernels import neighbor_mix as nm
     from repro_torch.kernels import pack_update as pu
     from repro_torch.kernels import quantize as qk
+    from repro_torch.kernels import robust_reduce as rr
     from repro_torch.models import api
     from repro_torch.pack import make_pack_spec
 
@@ -1167,9 +1563,27 @@ def main() -> int:
     lib = build.library()
     print(f"  {lib.path.name} ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {lib.build_s:.2f} s)")
+    # each kernel's registers and spills; the 64 instantiations of the
+    # robust-reduce kernel (L = 1..16, 1 or 4 coordinates a thread, f32 or
+    # bf16) in one line
+    entry, robust_regs, robust_spills = "", [], []
     for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip())
+        if "Compiling entry function" in line or "Function properties" in line:
+            entry = line
+        elif "registers" in line or "spill" in line:
+            if "robust_reduce_kernel" not in entry:
+                print("  " + line.strip())
+            elif "registers" in line:
+                robust_regs.append(int(line.split("Used ")[1].split()[0]))
+            else:
+                robust_spills.append(line.strip())
+    if robust_regs:
+        unspilled = all(x.startswith("0 bytes stack frame, 0 bytes spill "
+                                     "stores, 0 bytes spill loads")
+                        for x in robust_spills)
+        print(f"  robust_reduce_kernel: {len(robust_regs)} instantiations, "
+              f"{min(robust_regs)}-{max(robust_regs)} registers, "
+              f"{'no stack and no spills' if unspilled else robust_spills}")
 
     print("phase 3: kernels vs plain versions at the main path's shapes")
     rows = make_pack_spec(api.init_params(
@@ -1195,7 +1609,9 @@ def main() -> int:
     topo_records = check_neighbor_mix(torch, nm, rows)
     for r in topo_records:
         r["source"] = TOPOLOGY_SOURCE
-    records += comm_records + topo_records
+    robust_record = check_robust_reduce(torch, rr, rows, rows_cut)
+    robust_record["source"] = ROBUST_SOURCE
+    records += comm_records + topo_records + [robust_record]
     for r in records:
         print(f"  {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
               f"ms by {r['bound_by']}), plain {r['plain_ms']:.3f} ms, "
@@ -1210,6 +1626,9 @@ def main() -> int:
 
     print("phase 6: card vs CPU, qwen3-1.7b.reduced() float32")
     leaf_counts, topo_counts = card_vs_cpu(torch, ops)
+    print("phase 6, robust: card vs CPU, qwen3-1.7b.reduced() float32, "
+          f"L={L}, 3 meta steps")
+    robust_card_vs_cpu(torch, ops)
 
     from repro_torch.configs.base import (
         CommConfig,
@@ -1249,6 +1668,11 @@ def main() -> int:
             block_momentum=steps, fused_momentum_broadcast=steps // 2))
     assert hier_counts["pack_compress"] == 8
 
+    print(f"phase 9: full-width Qwen3-1.7B M-AVG trainer, robust (trimmed "
+          f"mean, clip 3x, scores) + finite guard, learner {L - 1} under "
+          f"sticky corruption, L={L}")
+    robust_counts = robust_full_width(torch, ops)
+
     # each kernel's launches in the run of the path it serves: the dense
     # and compressed full-width runs, the reduced per-leaf runs, the gossip
     # run (whose time-varying graph takes the stepped entry) and the
@@ -1262,7 +1686,8 @@ def main() -> int:
         dequantize=leaf_counts["dequantize"],
         pack_compress=gossip_counts["pack_compress"],
         neighbor_mix=topo_counts["neighbor_mix"],
-        neighbor_mix_stepped=gossip_counts["neighbor_mix_stepped"])
+        neighbor_mix_stepped=gossip_counts["neighbor_mix_stepped"],
+        robust_reduce=robust_counts["robust_reduce"])
     for r in records:
         r.update(route="cuda", launches=launches[r["name"]])
         assert r["launches"] > 0, r

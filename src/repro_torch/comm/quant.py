@@ -13,9 +13,12 @@ On the packed flat meta-plane the learner stack arrives as ONE
 pass, with per-learner scale chunks. It writes the compressed
 displacement over the dither and the new residual over the old one, so
 the full-width meta step needs one (L, rows, 128) plane beyond its state
-(the dither) and not three. Wire bytes are modeled over the plane's
-element count; ``core.meta.meta_step`` rescales every comm_bytes* metric
-by the real-parameter fraction.
+(the dither) and not three. It averages C(delta) with the plain mean
+and never reads the robust ``aggregate`` hook, as the JAX package's
+``_reduce_packed`` does not (ROADMAP Queue 3): with int8 on the packed
+plane a robust estimator is skipped. Wire bytes are modeled over the
+plane's element count; ``core.meta.meta_step`` rescales every
+comm_bytes* metric by the real-parameter fraction.
 
 Dither. The JAX package draws the stochastic-rounding uniforms with
 ``jax.random`` keyed on (seed, leaf index, meta step), and PyTorch cannot

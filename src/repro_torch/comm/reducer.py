@@ -19,8 +19,11 @@ Every reducer reports ``comm_bytes`` (modeled wire payload this step),
 are analytic, as in the JAX package: one card ships nothing, but the
 numerics of compression are real.
 
-The robust aggregation hook of the JAX ``Reducer`` (``aggregate``) is not
-ported: robust aggregation is ROADMAP Queue 1, item 7.
+``aggregate`` is the robust aggregation hook (``repro_torch.robust``): a
+callable that replaces the learner-stack mean (the trimmed mean or median
+of the ``robust_reduce`` kernel). None, the default and the only value
+when ``MAvgConfig.robust`` is off, keeps the exact mean. The packed int8
+path of ``QuantReducer`` ignores it, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ class Reducer:
     """Base: reduce the learner stack to one averaged parameter tree."""
 
     name = "reducer"
+    aggregate = None  # the robust aggregation hook (see the module doc)
 
     def init_residual(self, gp, num_learners: int):
         """Error-feedback state for MetaState.comm_residual (None = off)."""
@@ -68,8 +72,9 @@ class DenseReducer(Reducer):
         self.meta_dtype = meta_dtype
 
     def reduce(self, learners, gp, residual, *, step):
-        avg = tree_cast(tree_mean_axis0(learners),
-                        getattr(torch, self.meta_dtype))
+        mean = (tree_mean_axis0(learners) if self.aggregate is None
+                else self.aggregate(learners))
+        avg = tree_cast(mean, getattr(torch, self.meta_dtype))
         b = dense_bytes(learners)
         metrics = {
             "comm_bytes": b,
@@ -101,9 +106,12 @@ class CompressedReducer(Reducer):
             delta = tree_add(delta, residual)
         c, wire = self._compress(delta, step)
         err = tree_sub(delta, c)  # quantization error: EF residual + metric
-        avg = tree_map(
-            lambda g, ci: g.to(torch.float32) + torch.mean(ci, dim=0), gp, c
-        )
+        if self.aggregate is not None:
+            avg = tree_add(tree_cast(gp, torch.float32), self.aggregate(c))
+        else:
+            avg = tree_map(
+                lambda g, ci: g.to(torch.float32) + torch.mean(ci, dim=0),
+                gp, c)
         db = dense_bytes(learners)
         metrics = {
             "comm_bytes": wire,
@@ -147,22 +155,26 @@ class ErrorFeedback(Reducer):
         return self.inner.reduce(learners, gp, residual, step=step)
 
 
-def make_reducer(cfg, dither=None) -> Reducer:
+def make_reducer(cfg, dither=None, aggregate=None) -> Reducer:
     """Build the reducer described by ``cfg.comm`` (an MAvgConfig).
     ``dither`` replaces the quantizers' default dither source (see
-    ``comm.quant.QuantReducer``)."""
+    ``comm.quant.QuantReducer``); ``aggregate`` installs the robust
+    aggregation hook."""
     return make_reducer_for(cfg.comm, meta_dtype=cfg.meta_dtype,
-                            dither=dither)
+                            dither=dither, aggregate=aggregate)
 
 
-def make_reducer_for(c, meta_dtype: str = "float32",
-                     dither=None) -> Reducer:
-    """Build a reducer from a bare ``CommConfig``."""
+def make_reducer_for(c, meta_dtype: str = "float32", dither=None,
+                     aggregate=None) -> Reducer:
+    """Build a reducer from a bare ``CommConfig``, with the robust
+    ``aggregate`` hook on the underlying reducer when given."""
     from repro_torch.comm.quant import QuantReducer
     from repro_torch.comm.topk import TopKReducer
 
     if c.scheme == "dense":
-        return DenseReducer(meta_dtype=meta_dtype)
+        r = DenseReducer(meta_dtype=meta_dtype)
+        r.aggregate = aggregate
+        return r
     # CommConfig.use_pallas plays no part: the tensor's device routes
     if c.scheme in ("int8", "fp8"):
         r = QuantReducer(dtype=c.scheme, chunk_rows=c.chunk_rows,
@@ -174,6 +186,7 @@ def make_reducer_for(c, meta_dtype: str = "float32",
                         chunk_rows=c.chunk_rows, seed=c.seed, dither=dither)
     else:
         raise ValueError(f"unknown comm scheme {c.scheme!r}")
+    r.aggregate = aggregate
     if c.error_feedback:
         return ErrorFeedback(r)
     return r

@@ -27,6 +27,11 @@ How the port differs from JAX in execution, not in math:
   of the fused momentum-broadcast kernel). ``meta_step`` therefore
   consumes its input state, as the JAX step consumes a donated one: work
   off the returned state only.
+* The payload corruptor (``chaos``) and the finite guard
+  (``cfg.finite_guard``) also work in place, one learner plane at a time:
+  the corruptor scales and bit-flips the dirty learners' planes, and the
+  guard checks each learner for NaN/Inf in windows and resets only the
+  learners that carry one.
 """
 from __future__ import annotations
 
@@ -38,11 +43,12 @@ import torch
 
 from repro_torch.configs.base import MAvgConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.planes import f32
+from repro_torch.kernels.planes import f32, windows
 from repro_torch.pack import PackSpec, make_pack_spec
 from repro_torch.utils.tree import (
     tree_broadcast_learners,
     tree_cast,
+    tree_leaves,
     tree_map,
     tree_norm,
 )
@@ -98,6 +104,12 @@ def init_state(params, cfg: MAvgConfig, reducer=None,
 
         topology = make_topology(cfg, reducer)
     comm_residual, topo = topology.init_buffers(gp, cfg)
+    if cfg.robust is not None and cfg.robust.clip_mult > 0.0:
+        # the norm clip's trailing-median ring rides in MetaState.topo on
+        # every topology, only when clipping is on
+        from repro_torch.robust import robust_ring_buffers
+
+        topo = {**(topo or {}), **robust_ring_buffers(cfg.robust)}
     return MetaState(
         global_params=gp,
         momentum=tree_map(torch.zeros_like, gp),
@@ -202,6 +214,13 @@ def _local_phase(loss_fn: LossFn, learners, local_mom, batches,
             _sgd_update(w_upd, mom, g_upd, cfg, lr)
             losses.append(loss)
             gnorms.append(gnorm)
+    if spec is not None:
+        # JAX repacks every learner after its local steps, which writes
+        # zero padding; the port trains the plane in place. The padding
+        # is nonzero only where a corrupted payload reached it through the
+        # mean (repro_torch.chaos), and is cleared here as JAX clears it.
+        with torch.no_grad():
+            spec.zero_padding_(learners)
     if steps is None:
         loss_l = torch.stack(losses).view(L, K).mean(dim=1)
         gnorm = torch.stack(gnorms).view(L, K).mean(dim=1).mean()
@@ -230,18 +249,67 @@ def _loss_spread(loss_l, active):
 
 
 # ---------------------------------------------------------------------------
+# the in-step finite guard (DESIGN.md §13)
+# ---------------------------------------------------------------------------
+
+def _learner_finite_mask(tree) -> list[bool] | None:
+    """Per learner j, True where every float element of its planes is
+    finite; None when the tree has no float leaves. One plane and one
+    window at a time, and one read back to the host for all learners."""
+    leaves = [x for x in tree_leaves(tree) if x.is_floating_point()]
+    if not leaves:
+        return None
+    L = leaves[0].shape[0]
+    flags = []
+    for j in range(L):
+        ok = torch.ones((), dtype=torch.bool, device=leaves[0].device)
+        for x in leaves:
+            xj = x[j].reshape(-1)
+            for sl in windows(xj.numel()):
+                ok &= torch.isfinite(xj[sl]).all()
+        flags.append(ok)
+    return torch.stack(flags).tolist()
+
+
+def _finite_guard(learners, local_mom, gp, metrics, L):
+    """The in-step skip-and-decay barrier: a learner whose post-local-phase
+    planes (or local momentum) carry NaN/Inf is reset to the global params
+    in the learner dtype, so it adds zero displacement to the mix, and its
+    local momentum is zeroed. Only those learners are written: on a clean
+    step nothing is (JAX's ``where`` over an all-true mask, bitwise)."""
+    ok = _learner_finite_mask(learners)
+    if local_mom is not None:
+        mok = _learner_finite_mask(local_mom)
+        if mok is not None:
+            ok = mok if ok is None else [a and b for a, b in zip(ok, mok)]
+    if ok is None:
+        return learners, local_mom, metrics
+    for j in (j for j, good in enumerate(ok) if not good):
+        tree_map(lambda w, g: w[j].copy_(g), learners, gp)
+        if local_mom is not None:
+            tree_map(lambda m: m[j].zero_(), local_mom)
+    metrics["nonfinite_learners"] = torch.tensor(float(L - sum(ok)),
+                                                 dtype=torch.float32)
+    return learners, local_mom, metrics
+
+
+# ---------------------------------------------------------------------------
 # meta updates
 # ---------------------------------------------------------------------------
 
 
 def meta_step(state: MetaState, batches, *, loss_fn: LossFn,
-              cfg: MAvgConfig, lr=None, reducer=None,
-              topology=None) -> tuple[MetaState, dict]:
+              cfg: MAvgConfig, lr=None, reducer=None, topology=None,
+              chaos=None) -> tuple[MetaState, dict]:
     """One meta-iteration n -> n+1 of Algorithm 1 (or a baseline).
 
     batches: dict of (L, K, B_local, ...) tensors on the state's device.
-    ``lr`` overrides ``cfg.learner_lr`` (a schedule's value). The input
-    state is updated in place and returned; do not reuse it.
+    ``lr`` overrides ``cfg.learner_lr`` (a schedule's value). ``chaos``: an
+    optional payload corruptor (``chaos.PayloadCorruptor``) applied to the
+    post-local-phase learner planes, where the reducer picks the payload
+    up; ``cfg.finite_guard`` then screens the (possibly corrupted) planes
+    before the mix. The input state is updated in place and returned; do
+    not reuse it.
     """
     lr = f32(cfg.learner_lr if lr is None else lr)
     if topology is None:
@@ -262,6 +330,15 @@ def meta_step(state: MetaState, batches, *, loss_fn: LossFn,
         "grad_norm": gnorm,
         "loss_spread": _loss_spread(loss_l, active),
     }
+    with torch.no_grad():
+        if chaos is not None:
+            with torch.profiler.record_function("chaos.payload"):
+                learners = chaos(learners, state.step)
+        if cfg.finite_guard:
+            with torch.profiler.record_function("chaos.finite_guard"):
+                learners, local_mom, metrics = _finite_guard(
+                    learners, local_mom, state.global_params, metrics,
+                    cfg.num_learners)
     with torch.no_grad(), torch.profiler.record_function("obs.meta_mix"):
         gp, v, learners, comm_res, topo, topo_metrics = topology.mix(
             learners, state.global_params, state.momentum,
@@ -284,11 +361,13 @@ def meta_step(state: MetaState, batches, *, loss_fn: LossFn,
 
 
 def make_meta_step(loss_fn: LossFn, cfg: MAvgConfig, reducer=None,
-                   topology=None):
+                   topology=None, chaos=None):
     """``step(state, batches, lr=None) -> (state, metrics)`` with the
-    topology (and its reducer, and the effective mu) resolved once."""
+    topology (and its reducer, and the effective mu) and the payload
+    corruptor ``chaos`` (or None) resolved once."""
     if topology is None:
         from repro_torch.topology import make_topology
 
         topology = make_topology(cfg, reducer)
-    return partial(meta_step, loss_fn=loss_fn, cfg=cfg, topology=topology)
+    return partial(meta_step, loss_fn=loss_fn, cfg=cfg, topology=topology,
+                   chaos=chaos)

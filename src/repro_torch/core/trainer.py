@@ -1,12 +1,22 @@
 """Minimal training driver: model init, data, meta step, metric history.
 
-The JAX package's ``core/trainer.py`` without telemetry sinks, chaos,
-checkpointing or robust aggregation (ROADMAP Queue 1, items 3 and 7-8).
-Metrics stay on the device between ``log_every`` boundaries; a flush
-reads them back once and adds host-side throughput.
+The JAX package's ``core/trainer.py`` without telemetry sinks or
+checkpointing (ROADMAP Queue 1, items 3 and 8). Metrics stay on the device
+between ``log_every`` boundaries; a flush reads them back once and adds
+host-side throughput.
+
+Fault injection (``repro_torch.chaos``) is wired as in JAX: the config
+transform (crash windows -> elastic membership) before the topology is
+built, the batch poisoner around ``batch_fn`` and the payload corruptor
+into the meta step. Save faults need the verified checkpoint chain, which
+is not ported: a schedule that holds one raises. Robust telemetry
+(``repro_torch.robust``): each flush moves the ``robust_*`` metrics out of
+the step records into ``robust_records``, and the inline quarantine masks
+a persistently anomalous learner out of the membership schedule.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, Optional
 
@@ -15,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import MAvgConfig, TrainConfig
 from repro_torch.core.meta import init_state, make_meta_step
+from repro_torch.robust import ROBUST_METRIC_PREFIX
 from repro_torch.utils.rng import seeded_generator
 
 
@@ -36,6 +47,27 @@ class Trainer:
         self.batch_fn = batch_fn
         self.lr_schedule = lr_schedule
         self.device = torch.device(device)
+        chaos_corruptor = None
+        if train_cfg.chaos is not None:
+            from repro_torch.chaos import (
+                FaultSchedule,
+                PayloadCorruptor,
+                apply_chaos,
+                wrap_batch_fn,
+            )
+
+            self.mcfg = apply_chaos(self.mcfg, train_cfg.chaos,
+                                    salt=train_cfg.data_salt)
+            schedule = FaultSchedule(train_cfg.chaos, self.mcfg.num_learners,
+                                     salt=train_cfg.data_salt)
+            if schedule.save_faults:
+                raise NotImplementedError(
+                    "chaos torn_save/corrupt_save faults need the verified "
+                    "checkpoint chain, which is not ported yet (ROADMAP "
+                    "Queue 1, item 7)")
+            self.batch_fn = wrap_batch_fn(batch_fn, schedule)
+            if schedule.any_payload_faults:
+                chaos_corruptor = PayloadCorruptor(schedule)
         # the init and data streams: seeded generators, one per purpose
         # (init) and per meta step (data), reproducible run to run
         params = init_params_fn(
@@ -44,8 +76,14 @@ class Trainer:
         self.state = init_state(params, self.mcfg, topology=self._topology)
         del params  # the state holds its own copy
         self._step_fn = make_meta_step(loss_fn, self.mcfg,
-                                       topology=self._topology)
+                                       topology=self._topology,
+                                       chaos=chaos_corruptor)
         self.history: list[dict] = []
+        # inline quarantine: a host-side streak counter over the flushed
+        # per-learner anomaly scores
+        self.robust_records: list[dict] = []
+        self.quarantined: dict[int, int] = {}  # learner -> quarantine step
+        self._anomaly_streak = None
 
     def run(self, meta_steps: Optional[int] = None, log=print):
         """Drive ``meta_steps`` meta steps; returns ``history`` (one dict
@@ -69,6 +107,7 @@ class Trainer:
             now = time.perf_counter()
             msps = len(recs) / max(now - last_t, 1e-9)
             last_t = now
+            robust_rows = self._extract_robust(recs)
             for r in recs:
                 r["samples"] = (self._topology.work_completed(r["meta_step"])
                                 * samples_per_block)
@@ -77,6 +116,7 @@ class Trainer:
                 r["elapsed_s"] = now - run_t0
             self.history.extend(recs)
             pending.clear()
+            self._observe_robust(robust_rows)
 
         for i in range(n):
             step = start + i
@@ -97,3 +137,89 @@ class Trainer:
                         f"{m['samples_per_sec']:.0f} samples/s "
                         f"({m['elapsed_s']:.1f}s)")
         return self.history
+
+    # ------------------------------------------------------------------
+    # robust telemetry + inline quarantine
+    # ------------------------------------------------------------------
+
+    def _extract_robust(self, recs):
+        """Pop the ``robust_*`` scalars out of the flushed step records
+        into ``robust`` records, one per meta step that carried them."""
+        P = ROBUST_METRIC_PREFIX
+        rows = []
+        for r in recs:
+            if not any(k.startswith(P) for k in r):
+                continue
+            rb = {
+                "kind": "robust",
+                "meta_step": r["meta_step"],
+                "clipped_learners": r.pop(P + "clipped_learners", 0.0),
+                "clip_budget": r.pop(P + "clip_budget", 0.0),
+                "anomaly_score": r.pop(P + "anomaly_score", 0.0),
+                "trim_fraction": r.pop(P + "trim_fraction", 0.0),
+            }
+            scores = []
+            while f"{P}score_{len(scores)}" in r:
+                scores.append(r.pop(f"{P}score_{len(scores)}"))
+            if scores:
+                rb["scores"] = scores
+            for k in [k for k in r if k.startswith(P)]:
+                r.pop(k)
+            rows.append(rb)
+        self.robust_records.extend(rows)
+        return rows
+
+    def _observe_robust(self, rows):
+        """The inline quarantine: a learner whose windowed mean anomaly
+        score exceeds ``score_ratio`` x the peer median for
+        ``quarantine_after`` consecutive flush windows is masked out of
+        the membership schedule on the spot. Needs a membership schedule
+        (elastic or chaos crash faults); inert otherwise."""
+        rcfg = self.mcfg.robust
+        if rcfg is None or rcfg.quarantine_after <= 0:
+            return
+        sc = [row["scores"] for row in rows if "scores" in row]
+        if not sc:
+            return
+        mean = np.asarray(sc, np.float64).mean(axis=0)  # (L,)
+        med = float(np.median(mean))
+        anomalous = mean > rcfg.score_ratio * max(med, 1e-30)
+        if self._anomaly_streak is None:
+            self._anomaly_streak = np.zeros(mean.shape[0], np.int64)
+        self._anomaly_streak = np.where(anomalous,
+                                        self._anomaly_streak + 1, 0)
+        hit = [j for j in range(mean.shape[0])
+               if self._anomaly_streak[j] >= rcfg.quarantine_after
+               and j not in self.quarantined]
+        topo = self.state.topo
+        if not hit or not (isinstance(topo, dict) and "membership" in topo):
+            return
+        m = np.asarray(topo["membership"], np.float32).copy()
+        m[:, hit] = 0.0
+        if (m.sum(axis=1) < 1.0).any():
+            return  # never quarantine away the last present learner(s)
+        step = int(rows[-1]["meta_step"])
+        self.set_membership(m)
+        for j in hit:
+            self.quarantined[j] = step
+        rows[-1]["quarantined"] = sorted(self.quarantined)
+
+    def set_membership(self, membership):
+        """Replace the elastic membership schedule in the state: new
+        (period, L) 0/1 rows of the same shape, every row with a learner
+        present. Only valid on a run that has a membership schedule."""
+        topo = self.state.topo
+        if not (isinstance(topo, dict) and "membership" in topo):
+            raise ValueError(
+                "set_membership needs a run with an elastic membership "
+                "schedule (TopologyConfig.elastic or chaos crash faults)")
+        m = np.asarray(membership, np.float32)
+        old = topo["membership"]
+        if m.shape != tuple(old.shape):
+            raise ValueError(f"membership shape {m.shape} != schedule "
+                             f"shape {tuple(old.shape)}")
+        if (m.sum(axis=1) < 1.0).any():
+            raise ValueError(
+                "quarantine membership leaves a row with no learner present")
+        self.state = dataclasses.replace(
+            self.state, topo={**topo, "membership": torch.from_numpy(m)})

@@ -38,11 +38,15 @@ def params_from_jax(tree, device="cpu") -> dict:
     return _tree(tree, device)
 
 
-# the MetaState.topo keys of the hierarchical and gossip topologies
+# the MetaState.topo keys of the hierarchical and gossip topologies and of
+# the robust norm clip's ring
 TOPO_KEYS = frozenset({
     "params", "momentum", "residual", "membership", "group_params",
-    "group_momentum", "inner_residual", "outer_residual",
+    "group_momentum", "inner_residual", "outer_residual", "robust_ring",
+    "robust_count",
 })
+# topo keys the port keeps on the host: the elastic schedule and the ring
+HOST_TOPO_KEYS = frozenset({"membership", "robust_ring", "robust_count"})
 
 
 def state_from_jax(state, device="cpu") -> MetaState:
@@ -51,8 +55,9 @@ def state_from_jax(state, device="cpu") -> MetaState:
     Reads the fields by name; a packed state's layout comes from its
     spec's ``layout_dict()``. The flat topology's error-feedback residual
     (``comm_residual``) is carried, and so are the hierarchical and gossip
-    buffers of ``topo``; the elastic ``membership`` schedule stays on the
-    host, where the port's topologies read it.
+    buffers of ``topo`` and the robust clip's ring; the elastic
+    ``membership`` schedule and the ring stay on the host, where the
+    port's topologies read them.
     """
     topo = state.topo
     if topo is not None:
@@ -60,8 +65,8 @@ def state_from_jax(state, device="cpu") -> MetaState:
         if unknown:
             raise NotImplementedError(
                 f"topology buffers {sorted(unknown)} belong to a topology "
-                f"that is not ported (ROADMAP Queue 1, items 6-7)")
-        topo = {k: _tree(v, "cpu" if k == "membership" else device)
+                f"that is not ported (ROADMAP Queue 1, item 6)")
+        topo = {k: _tree(v, "cpu" if k in HOST_TOPO_KEYS else device)
                 for k, v in topo.items()}
     spec = getattr(state, "spec", None)
     return MetaState(

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "meta_kernels.cu", CSRC / "comm_kernels.cu",
-           CSRC / "topology_kernels.cu")
+           CSRC / "topology_kernels.cu", CSRC / "robust_kernels.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_kernels.so"
 # --fmad=false: no multiply-add contraction anywhere, so the kernels round
@@ -48,6 +48,7 @@ SIGNATURES = {
     "repro_pack_compress": (
         _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P),
     "repro_neighbor_mix": (_P, _P, _P, _I32, _I64, _I32, _P),
+    "repro_robust_reduce": (_P, _P, _I32, _I64, _I32, _I32, _I32, _P),
 }
 
 

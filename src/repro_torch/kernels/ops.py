@@ -14,6 +14,8 @@ planes (L, rows, 128) as one (L * rows, 128) plane. The wire compression
 ``pack_compress``) takes its stochastic-rounding dither from the caller,
 as JAX's ``kernels/ops.py:183-249`` draws it from a key the caller gives.
 The gossip mix (``neighbor_mix``) takes its (L, L) matrix on the host.
+The robust reduction (``robust_reduce``) takes any contiguous (L, ...)
+stack as it is, packed plane or per-leaf leaf.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from repro_torch.kernels import local_sgd as _sgd
 from repro_torch.kernels import neighbor_mix as _nm
 from repro_torch.kernels import pack_update as _pu
 from repro_torch.kernels import quantize as _q
+from repro_torch.kernels import robust_reduce as _rr
 from repro_torch.kernels.planes import (
     LANES,
     from_2d,
@@ -246,6 +249,37 @@ def pack_compress(d, u, *, qmax=127, block=None, with_err=True, c_out=None,
               err_out=err_out)
 
 
+# ---------------------------------------------------------------------------
+# robust learner-stack reduction (repro_torch.robust)
+# ---------------------------------------------------------------------------
+
+
+median_trim = _rr.median_trim
+
+
+def robust_reduce(x, *, trim=0, block=None):
+    """Coordinate-wise trimmed mean over the leading (learner) axis of a
+    stack: drop the ``trim`` largest and smallest values per coordinate,
+    average the rest, in f32. ``trim=0`` is the plain mean (bitwise
+    ``torch.mean`` on the CPU); ``trim=median_trim(L)`` the median.
+
+    Any contiguous (L, ...) stack goes to the kernel as it is. ``block``
+    keeps the JAX signature: there it picks the Pallas kernel's row tile,
+    which the CUDA kernel has no counterpart of, so a tile choice is
+    refused rather than ignored.
+    """
+    if block is not None:
+        raise ValueError(f"robust_reduce takes no row tile (block={block}): "
+                         "the CUDA kernel gives each thread whole columns")
+    fn = _route(x, _rr.robust_reduce_plain, _rr.robust_reduce_cuda)
+    return fn(x, trim)
+
+
+def robust_reduce_tree(tree, *, trim=0):
+    """The robust reduction leaf by leaf over a stacked (L, ...) tree."""
+    return tree_map(lambda x: robust_reduce(x, trim=trim), tree)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by kernel entry. The neighbor-mix kernel
     counts each launch once, under ``neighbor_mix`` or, when it came
@@ -260,6 +294,7 @@ def launch_counts() -> dict[str, int]:
         "pack_compress": _pu.COMPRESS_LAUNCHES,
         "neighbor_mix": _nm.LAUNCHES,
         "neighbor_mix_stepped": _nm.STEPPED_LAUNCHES,
+        "robust_reduce": _rr.LAUNCHES,
     }
 
 
@@ -267,3 +302,4 @@ def reset_launch_counts() -> None:
     _fm.LAUNCHES = _bm.LAUNCHES = _sgd.LAUNCHES = _pu.LAUNCHES = 0
     _q.QUANTIZE_LAUNCHES = _q.DEQUANTIZE_LAUNCHES = 0
     _pu.COMPRESS_LAUNCHES = _nm.LAUNCHES = _nm.STEPPED_LAUNCHES = 0
+    _rr.LAUNCHES = 0

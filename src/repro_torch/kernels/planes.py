@@ -10,6 +10,19 @@ SUBLANES = 8
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
+# values of one plane that a windowed pass over a full-width plane takes at
+# a time (the robust Gram and clip, the finite guard, the payload
+# corruptor): 128 MB in f32, so their temporaries stay small beside the
+# state
+WINDOW = 1 << 25
+
+
+def windows(n: int, size: int = WINDOW):
+    """Slices covering range(n) in steps of ``size``."""
+    for lo in range(0, n, size):
+        yield slice(lo, min(lo + size, n))
+
+
 def f32(x) -> float:
     """A scalar rounded to float32, as a Python float (exact in f32), so
     the plain versions and the kernels multiply by the same number."""

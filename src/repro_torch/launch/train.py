@@ -17,9 +17,16 @@ adds L planes, so ``--full --comm int8`` fits one 80 GB card at
 through ``repro_torch.topology`` (``--groups``, ``--outer-every``,
 ``--outer-momentum``, ``--outer-comm``, ``--group-k``; ``--gossip-graph``),
 with elastic membership under ``--elastic-period``/``--elastic-drop``/
-``--elastic-seed``; the flags mean what they mean in the JAX launcher.
-Its other flags (async, obs, chaos, robust, checkpoints) are not ported
-yet; ``--topology async`` is refused.
+``--elastic-seed``. ``--robust mean|trimmed|median`` turns on robust
+aggregation (``repro_torch.robust``: ``--robust-trim``, ``--robust-clip``,
+``--robust-clip-window``, ``--robust-no-score``,
+``--robust-quarantine-after``), ``--finite-guard`` the in-step NaN/Inf
+barrier, and ``--chaos`` the standard fault schedule
+(``repro_torch.chaos``: ``--chaos-seed``, ``--chaos-faults``). The flags
+mean what they mean in the JAX launcher. Its other flags (async, obs,
+checkpoints, the supervisor) are not ported yet; ``--topology async`` and
+``--supervise`` are refused, and so are the straggle and torn_save fault
+kinds.
 """
 from __future__ import annotations
 
@@ -27,14 +34,17 @@ import argparse
 
 import torch
 
+from repro_torch.chaos import STANDARD_KINDS, standard_chaos
 from repro_torch.configs.base import (
     AVERAGING_ALGOS,
     COMM_SCHEMES,
     GOSSIP_GRAPHS,
+    ROBUST_ESTIMATORS,
     TOPOLOGIES,
     CommConfig,
     ElasticConfig,
     MAvgConfig,
+    RobustConfig,
     TopologyConfig,
     TrainConfig,
     get_config,
@@ -87,6 +97,39 @@ def main(argv=None) -> None:
                     help="fraction of learners absent per scheduled step")
     ap.add_argument("--elastic-seed", type=int, default=0,
                     help="seed of the deterministic membership schedule")
+    ap.add_argument("--chaos", action="store_true",
+                    help="deterministic fault injection: the standard fault "
+                         "schedule sized to --steps/--learners. Int-token LM "
+                         "batches carry no float leaves, so the nan kind "
+                         "perturbs nothing here")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed of the standard chaos schedule")
+    ap.add_argument("--chaos-faults", default=None,
+                    help="comma subset of the standard fault kinds "
+                         "(crash,nan,payload; straggle and torn_save are "
+                         "not ported); default all")
+    ap.add_argument("--robust", default=None, choices=ROBUST_ESTIMATORS,
+                    help="robust meta aggregation: the coordinate-wise "
+                         "trimmed mean or median in place of the learner "
+                         "mean ('mean' keeps it but enables clip/score)")
+    ap.add_argument("--robust-trim", type=int, default=1,
+                    help="learners trimmed from EACH end per coordinate")
+    ap.add_argument("--robust-clip", type=float, default=0.0,
+                    help="per-learner displacement norm clip at this "
+                         "multiple of the trailing-median budget (0 = off)")
+    ap.add_argument("--robust-clip-window", type=int, default=8,
+                    help="trailing-median ring length (meta steps)")
+    ap.add_argument("--robust-no-score", action="store_true",
+                    help="disable the per-learner anomaly scores")
+    ap.add_argument("--robust-quarantine-after", type=int, default=0,
+                    help="mask a learner out of membership after this many "
+                         "consecutive anomalous flush windows (0 = never; "
+                         "needs a membership schedule)")
+    ap.add_argument("--finite-guard", action="store_true",
+                    help="in-step NaN/Inf barrier: a poisoned learner is "
+                         "reset to the global params before the mix")
+    ap.add_argument("--supervise", action="store_true",
+                    help="supervised rollback recovery (not ported)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -94,6 +137,29 @@ def main(argv=None) -> None:
         raise NotImplementedError(
             "--topology async: the async server is not ported yet "
             "(ROADMAP Queue 1, item 6)")
+    if args.supervise:
+        raise NotImplementedError(
+            "--supervise: the supervisor and its verified checkpoint chain "
+            "are not ported yet (ROADMAP Queue 1, item 7)")
+    chaos_cfg = None
+    if args.chaos:
+        kinds = (tuple(k.strip() for k in args.chaos_faults.split(","))
+                 if args.chaos_faults else STANDARD_KINDS)
+        unknown = set(kinds) - set(STANDARD_KINDS)
+        if unknown:
+            raise SystemExit(f"--chaos-faults: unknown kinds "
+                             f"{sorted(unknown)}; choose from "
+                             f"{STANDARD_KINDS}")
+        chaos_cfg = standard_chaos(args.learners, args.steps,
+                                   seed=args.chaos_seed, kinds=kinds)
+    robust = (
+        RobustConfig(estimator=args.robust, trim=args.robust_trim,
+                     clip_mult=args.robust_clip,
+                     clip_window=args.robust_clip_window,
+                     score=not args.robust_no_score,
+                     quarantine_after=args.robust_quarantine_after)
+        if args.robust is not None else None
+    )
 
     cfg = get_config(args.arch)
     if not args.full:
@@ -114,6 +180,7 @@ def main(argv=None) -> None:
     mcfg = MAvgConfig(algorithm=args.algorithm, num_learners=args.learners,
                       k_steps=args.k, learner_lr=args.lr,
                       momentum=args.momentum,
+                      finite_guard=args.finite_guard, robust=robust,
                       comm=CommConfig(
                           scheme=args.comm, k_frac=args.comm_k_frac,
                           error_feedback=not args.no_error_feedback),
@@ -124,7 +191,8 @@ def main(argv=None) -> None:
                           graph=args.gossip_graph, outer_comm=outer_comm,
                           group_k=group_k, elastic=elastic))
     tcfg = TrainConfig(model=cfg, mavg=mcfg, batch_per_learner=args.batch,
-                       seq_len=args.seq, meta_steps=args.steps)
+                       seq_len=args.seq, meta_steps=args.steps,
+                       chaos=chaos_cfg)
     shape = (cfg, args.learners, args.k, args.batch, args.seq)
     batch_fn = (uniform_batch_fn(*shape) if args.full
                 else lm_batch_fn(*shape, device=device))
@@ -151,6 +219,14 @@ def main(argv=None) -> None:
                  f"  consensus_dist {last['consensus_dist']:.3e}")
     if "present_count" in last:
         line += f"  present {last['present_count']:.0f}/{args.learners}"
+    if "nonfinite_learners" in last:
+        line += f"  nonfinite_learners {last['nonfinite_learners']:.0f}"
+    if trainer.robust_records:
+        rb = trainer.robust_records[-1]
+        line += (f"  robust clipped {rb['clipped_learners']:.0f}"
+                 f"  anomaly_score {rb['anomaly_score']:.3e}")
+        if trainer.quarantined:
+            line += f"  quarantined {sorted(trainer.quarantined)}"
     if not args.full:
         eval_batch = lm_eval_set(cfg, n=32, seq_len=args.seq, device=device)
         with torch.no_grad():

@@ -70,6 +70,21 @@ class PackSpec:
     def pad_waste(self) -> int:
         return self.total - sum(self.sizes)
 
+    def padding(self) -> list[tuple[int, int]]:
+        """The [start, end) ranges of the flat plane that hold no leaf: the
+        lane-alignment gaps and the tail pad."""
+        ends = [o + n for o, n in zip(self.offsets, self.sizes)]
+        starts = list(self.offsets[1:]) + [self.total]
+        return [(e, s) for e, s in zip(ends, starts) if s > e]
+
+    def zero_padding_(self, buf: torch.Tensor) -> torch.Tensor:
+        """Zero the padding of a (..., rows, 128) plane or stack in place,
+        as a repack would."""
+        flat = buf.view(tuple(buf.shape[:-2]) + (self.total,))
+        for lo, hi in self.padding():
+            flat[..., lo:hi].zero_()
+        return buf
+
     def plane_bytes(self, dtype=None) -> int:
         dt = _dtype(self.dtype if dtype is None else dtype)
         return self.total * dt.itemsize

@@ -1,8 +1,7 @@
 # Meta-level mixing topologies (the JAX package's repro.topology): who
 # averages with whom, how often. Flat, hierarchical and gossip are ported,
-# with elastic membership; the async server (and the eamsgd/downpour
-# aliases onto it), robust aggregation and the finite guard are ROADMAP
-# Queue 1, items 6-7.
+# with elastic membership and robust aggregation; the async server (and
+# the eamsgd/downpour aliases onto it) is ROADMAP Queue 1, item 6.
 from repro_torch.topology.base import (
     FlatAllReduce,
     Topology,
@@ -42,14 +41,6 @@ def make_topology(cfg, reducer=None, dither=None) -> Topology:
             f"the async server (topology {kind!r}, algorithm "
             f"{cfg.algorithm!r}; eamsgd and downpour are aliases onto it) "
             f"is not ported yet (ROADMAP Queue 1, item 6)"
-        )
-    if cfg.robust is not None:
-        raise NotImplementedError(
-            "robust aggregation is not ported yet (ROADMAP Queue 1, item 7)"
-        )
-    if cfg.finite_guard:
-        raise NotImplementedError(
-            "the finite guard is not ported yet (ROADMAP Queue 1, item 7)"
         )
     if kind == "flat":
         return FlatAllReduce(cfg, reducer, dither)

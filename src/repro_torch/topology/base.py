@@ -10,10 +10,12 @@ one with its error-feedback residual, ``repro_torch.comm``), then the
 block-momentum update and the reset of every learner to the new meta
 params. On the packed plane that update is ONE launch of the fused
 momentum-broadcast kernel, in place: w~ and v are overwritten, and the
-learner plane (already consumed by the reducer) receives the reset. The
-hierarchical and gossip topologies live beside it (``hierarchical.py``,
-``gossip.py``, ``elastic.py``); the async server, robust aggregation and
-the finite guard are not ported (ROADMAP Queue 1, items 6-7).
+learner plane (already consumed by the reducer) receives the reset. With
+robust aggregation on (``repro_torch.robust``) the learners are scored
+and norm-clipped against w~ first, and the reducer's mean becomes the
+robust estimator. The hierarchical and gossip topologies live beside it
+(``hierarchical.py``, ``gossip.py``, ``elastic.py``); the async server is
+not ported (ROADMAP Queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -87,6 +89,14 @@ def displacement_norm(avg, gp) -> torch.Tensor:
     ]).sum())
 
 
+def robust_aggregate(robust):
+    """The reducers' ``aggregate`` hook of a RobustAggregator (or None):
+    set only when its estimator replaces the mean."""
+    if robust is None or not robust.aggregates:
+        return None
+    return robust.aggregate
+
+
 class Topology:
     """Base: one meta-level mixing step over the learner stack."""
 
@@ -118,27 +128,36 @@ class FlatAllReduce(Topology):
 
     def __init__(self, cfg: MAvgConfig, reducer=None, dither=None):
         from repro_torch.comm import make_reducer
+        from repro_torch.robust import make_robust
 
         self.cfg = cfg
         self.mu = effective_momentum(cfg)
-        self.reducer = (make_reducer(cfg, dither=dither) if reducer is None
-                        else reducer)
+        self.robust = make_robust(cfg)
+        self.reducer = (
+            make_reducer(cfg, dither=dither,
+                         aggregate=robust_aggregate(self.robust))
+            if reducer is None else reducer)
 
     def init_buffers(self, gp, cfg: MAvgConfig):
         return self.reducer.init_residual(gp, cfg.num_learners), None
 
     def mix(self, learners, gp, v, comm_residual, topo, *, step):
         cfg = self.cfg
+        metrics = {}
+        if self.robust is not None:
+            # score and clip the displacements BEFORE the reducer: the
+            # wire compressor and the EF residual only see the clipped ones
+            learners, topo, rmetrics = self.robust.clip_learners(
+                learners, gp, topo)
+            metrics.update(rmetrics)
         avg, comm_residual, comm_metrics = self.reducer.reduce(
             learners, gp, comm_residual, step=step
         )
         avg = tree_cast(avg, getattr(torch, cfg.meta_dtype))
         # both telemetry norms read the pre-update planes, so they are
         # taken before the in-place update below overwrites them
-        metrics = {
-            "consensus_dist": consensus_dist(learners, avg),
-            "displacement_norm": displacement_norm(avg, gp),
-        }
+        metrics["consensus_dist"] = consensus_dist(learners, avg)
+        metrics["displacement_norm"] = displacement_norm(avg, gp)
         if is_packed_plane(gp):
             gp, v, learners = fused_momentum_broadcast_update(
                 gp, v, avg, learners, mu=self.mu, eta=cfg.meta_lr,

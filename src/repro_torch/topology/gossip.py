@@ -10,6 +10,11 @@ w_j from x_j:
     v_j     = mu v_j + eta (m_j - x_j)          [then v <- W v if tracking]
     x_j    += v_j ; learner j resets to x_j
 
+Robust aggregation (``repro_torch.robust``): gossip has no L-way mean to
+replace, so its influence bound is the per-learner clip of delta (in
+place, before compression: the neighbors and the EF residual only see
+the clipped payload) plus the anomaly scores; the estimator is unused.
+
 State (``MetaState.topo``): ``params`` x (L, ...) and ``momentum`` v
 (L, ...) in the meta dtype, ``residual`` (the EF residual, or None) and,
 under elastic membership, the (period, L) ``membership`` schedule on the
@@ -191,6 +196,9 @@ class Gossip(Topology):
         self.mu = effective_momentum(cfg)
         self.momentum_tracking = t.momentum_tracking
         self.elastic = t.elastic
+        from repro_torch.robust import make_robust
+
+        self.robust = make_robust(cfg)
         self.reducer = (
             reducer if reducer is not None
             else make_reducer_for(t.inner_comm or cfg.comm, cfg.meta_dtype,
@@ -256,6 +264,9 @@ class Gossip(Topology):
                           if w.dtype == torch.float32
                           else w.to(torch.float32) - x.to(torch.float32)),
             learners, xp)
+        rmetrics = {}
+        if self.robust is not None:
+            delta, topo, rmetrics = self.robust.clip_stack(delta, topo)
         c, res, wire = compress_stack(self.reducer, delta, res, step=step,
                                       learners=learners)
         # x + C(delta) in C's buffer (the sum commutes bitwise), mixed in
@@ -299,6 +310,7 @@ class Gossip(Topology):
             "comm_compression": (comm_dense / max(comm_bytes, 1.0)
                                  if comm_bytes > 0 else 1.0),
         }
+        metrics.update(rmetrics)
         if mask is not None:
             metrics["present_count"] = float(mask.sum())
         return gp_new, v, learners, comm_residual, topo, metrics

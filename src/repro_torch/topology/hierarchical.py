@@ -18,6 +18,13 @@ State (``MetaState.topo``):
 Heterogeneous K (``group_k``): group g runs only its first K_g local
 steps (``local_steps``); uniform group_k is scalar K bit for bit.
 
+Robust aggregation (``repro_torch.robust``): each learner is scored and
+norm-clipped against its own group's params before the inner level, and
+the robust estimator replaces the mean in the static inner reducers (at
+group width S) and in the outer one (at G, where the trim clamps to
+(G - 1) // 2). The masked elastic inner level averages the present
+learners with the plain mean, as JAX's does.
+
 Where the port differs from JAX in execution, not in math: the groups are
 a Python loop where JAX vmaps them (every group asks the dither for the
 same (leaf, step) uniforms, as JAX's vmap hands every group one key), the
@@ -41,6 +48,7 @@ from repro_torch.topology.base import (
     effective_momentum,
     fused_momentum_broadcast_update,
     is_packed_plane,
+    robust_aggregate,
     stack_dist,
 )
 from repro_torch.topology.elastic import (
@@ -118,13 +126,18 @@ class Hierarchical(Topology):
             if t.group_k is not None
             else np.full((cfg.num_learners,), cfg.k_steps, np.int64)
         )
+        from repro_torch.robust import make_robust
+
+        self.robust = make_robust(cfg)
+        agg = robust_aggregate(self.robust)
         self.inner_reducer = (
             reducer if reducer is not None
             else make_reducer_for(t.inner_comm or cfg.comm, cfg.meta_dtype,
-                                  dither=dither)
+                                  dither=dither, aggregate=agg)
         )
-        self.outer_reducer = make_reducer_for(t.outer_comm or cfg.comm,
-                                              cfg.meta_dtype, dither=dither)
+        self.outer_reducer = make_reducer_for(
+            t.outer_comm or cfg.comm, cfg.meta_dtype, dither=dither,
+            aggregate=agg)
 
     # ------------------------------------------------------------------
     def init_buffers(self, gp, cfg: MAvgConfig):
@@ -233,6 +246,13 @@ class Hierarchical(Topology):
         gparams = topo["group_params"]
         gmom = topo["group_momentum"]
         inner_res = topo["inner_residual"]
+        rmetrics = {}
+        if self.robust is not None:
+            # score and clip each learner against its own group's params
+            # before the inner reducers: the inner wire and EF residual
+            # only see clipped payloads
+            learners, topo, rmetrics = self.robust.clip_anchored(
+                learners, gparams, topo)
 
         # ---- inner level: per-group average + block momentum ----------
         grouped = tree_map(
@@ -298,6 +318,7 @@ class Hierarchical(Topology):
             "comm_compression": (total_dense / max(total_bytes, 1.0)
                                  if total_bytes > 0 else 1.0),
         }
+        metrics.update(rmetrics)
         if present is not None:
             metrics["present_count"] = float(sum(present))
         return gp, v, learners, comm_residual, topo, metrics

@@ -16,6 +16,7 @@ from repro_torch.kernels import local_sgd as sgd  # noqa: E402
 from repro_torch.kernels import neighbor_mix as nm  # noqa: E402
 from repro_torch.kernels import pack_update as pu  # noqa: E402
 from repro_torch.kernels import quantize as qk  # noqa: E402
+from repro_torch.kernels import robust_reduce as rr  # noqa: E402
 
 ROWS = 264  # a multiple of 8 that is not a multiple of the 256-row block
 QROWS = 192  # 64 divides it: chunks of 64 rows, or of 8 on request
@@ -130,3 +131,51 @@ def test_cuda_topology_kernels_match_plain_bitwise(cuda_device):
         got = pu.pack_compress_cuda(dd, uu, 127, block, c_out=uu, err_out=dd)
         assert got[0] is uu and got[1] is dd
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _specials(x):
+    """NaN, +-inf and -0.0 into the first learners' leading values, and a
+    column of mixed-sign zeros."""
+    f = x.view(x.shape[0], -1)
+    f[:, :4] = -0.0
+    f[0, 8:16] = float("nan")
+    f[1, 12:20] = float("inf")
+    f[-1, 16:24] = float("-inf")
+    f[:, 24] = torch.tensor([0.0 if j % 2 else -0.0
+                             for j in range(x.shape[0])])
+    return x
+
+
+@pytest.mark.cuda
+def test_cuda_robust_reduce_matches_plain_bitwise(cuda_device):
+    """On the card: the robust-reduce kernel bitwise equal to its plain
+    version (NaN where NaN, sign bits of zeros included) for L in
+    {2, 3, 4, 5, 8} and every valid trim, on a packed (L, rows, 128)
+    stack (4 coordinates a thread), on per-leaf widths that are not a
+    multiple of 128 or of 4 (1 a thread), in bf16, into ``out``, and on
+    a stack holding NaN, +-inf and -0.0."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def equal(got, want):
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        ok = ~torch.isnan(want)
+        assert torch.equal(got[ok].view(torch.int32),
+                           want[ok].view(torch.int32))
+
+    for n in (2, 3, 4, 5, 8):
+        for shape in ((QROWS, 128), (1000,), (37, 3)):
+            x = torch.randn((n,) + shape, generator=gen, device=cuda_device)
+            for xx in (x, _specials(x.clone())):
+                for dt in (torch.float32, torch.bfloat16):
+                    xd = xx.to(dt)
+                    for trim in range(rr.median_trim(n) + 1):
+                        equal(rr.robust_reduce_cuda(xd, trim),
+                              rr.robust_reduce_plain(xd, trim))
+        out = torch.empty(QROWS, 128, device=cuda_device)
+        x = torch.randn(n, QROWS, 128, generator=gen, device=cuda_device)
+        assert rr.robust_reduce_cuda(x, 1 if n > 2 else 0, out=out) is out
+        equal(out, rr.robust_reduce_plain(x, 1 if n > 2 else 0))
+    x = torch.randn(16, QROWS, 128, generator=gen, device=cuda_device)
+    for trim in (0, 3, 7):
+        equal(rr.robust_reduce_cuda(x, trim),
+              rr.robust_reduce_plain(x, trim))

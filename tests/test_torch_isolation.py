@@ -63,3 +63,25 @@ def test_default_run_configs_equal_jax():
     assert tbase.ARCH_IDS == jbase.ARCH_IDS
     assert tbase.ALGORITHMS == jbase.ALGORITHMS
     assert tbase.AVERAGING_ALGOS == jbase.AVERAGING_ALGOS
+
+
+def test_chaos_configs_equal_jax():
+    """The port's copy of ``chaos/config.py``: the same dataclasses, field
+    for field (names, types, defaults), the same kinds and limits."""
+    from repro.chaos import config as jchaos
+    from repro_torch.chaos import config as tchaos
+
+    for name in ("ChaosConfig", "FaultSpec"):
+        jf = dataclasses.fields(getattr(jchaos, name))
+        tf = dataclasses.fields(getattr(tchaos, name))
+        assert [(f.name, f.type, f.default) for f in tf] == [
+            (f.name, f.type, f.default) for f in jf]
+    for const in ("FAULT_KINDS", "LEARNER_KINDS", "STANDARD_KINDS",
+                  "FINITE_SCALE_MAX"):
+        assert getattr(tchaos, const) == getattr(jchaos, const)
+    spec = dict(kind="finite_bitflip", step=2, learner=1, duration=3,
+                bit=31, sticky=True)
+    assert dataclasses.asdict(tchaos.FaultSpec(**spec)) == \
+        dataclasses.asdict(jchaos.FaultSpec(**spec))
+    assert dataclasses.asdict(tchaos.ChaosConfig()) == \
+        dataclasses.asdict(jchaos.ChaosConfig())

@@ -229,12 +229,14 @@ def test_launch_counter_counts_kernel_launches_only():
     ops.pack_update(x[None], x, None, torch.rand(1, ROWS, 128))
     ops.pack_compress(x[None], torch.rand(1, ROWS, 128))
     ops.neighbor_mix(torch.stack([x, x]), torch.eye(2))
+    ops.robust_reduce(torch.stack([x, x, x]), trim=1)
     assert ops.launch_counts() == {"fused_momentum_broadcast": 0,
                                    "block_momentum": 0, "sgd_apply": 0,
                                    "pack_update": 0, "quantize": 0,
                                    "dequantize": 0, "pack_compress": 0,
                                    "neighbor_mix": 0,
-                                   "neighbor_mix_stepped": 0}
+                                   "neighbor_mix_stepped": 0,
+                                   "robust_reduce": 0}
 
 
 # ---------------------------------------------------------------------------

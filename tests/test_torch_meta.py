@@ -214,7 +214,7 @@ def test_unported_configs_raise():
     from repro_torch.configs.base import TopologyConfig
 
     for cfg in (MAvgConfig(algorithm="downpour"),
-                MAvgConfig(finite_guard=True),
+                MAvgConfig(algorithm="eamsgd"),
                 MAvgConfig(topology=TopologyConfig(kind="async"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_state(_params(), cfg)
