@@ -28,7 +28,15 @@ Phases (any failure raises and the script exits non-zero):
    CUDA-event times of the kernel, the plain version and, where one
    exists, a single PyTorch library call, beside the least time the card
    could take (bytes over 3.35 TB/s or flops over 67 TFLOP/s, whichever is
-   larger);
+   larger). Then flash_attention, which is not bitwise (another summation
+   order): against its plain version's f32 result on the same inputs, to
+   1e-5 + 1e-4 |plain| in f32 and one bf16 ulp in bf16, at the serving
+   prefill's shape (Qwen3-1.7B heads, B=8, S=512, causal, bf16), a long
+   prefill (B=4, S=4096, bf16 and f32), the 524k variant's window (B=1,
+   S=16384, window 8192, compared in windows of queries) and the mask and
+   shape cases; its bound counts the visible (q, k) pairs' matmul flops
+   over the BF16 tensor-core or f32 rate, and its library call is
+   scaled_dot_product_attention (timed only);
 4. the dense main path: the port's Trainer on the full-width, full-depth
    Qwen3-1.7B, M-AVG with L=4, K=4, B=8, S=64, 3 meta steps from random
    weights on uniform random tokens, with the kernel launch counters
@@ -65,7 +73,16 @@ Phases (any failure raises and the script exits non-zero):
    trailing median, anomaly scores and the finite guard, learner 3
    bit-flipped every step and scaled x12 on steps 1-3, 4 meta steps
    (the clip fires on steps 2 and 3), counted, split by memory part and
-   profiled as in phase 5.
+   profiled as in phase 5;
+10. serving: reduced Qwen3 and Qwen2 in f32 on the card against the CPU
+   (prefill through the flash kernel, 8 decode steps, greedy generate),
+   then full-width, full-depth Qwen3-1.7B with random weights, bf16
+   compute, B=8, a 512-token prompt and 64 greedy tokens through
+   ``launch/serve.py::generate`` with the flash kernel in prefill (28
+   launches, counted), finite logits, flash against plain prefill and
+   decode against one forward (teacher forcing) within a bf16 limit,
+   prefill ms, decode steps/s and tokens/s, peak memory, and one decode
+   step and one prefill profiled.
 
 The second-to-last line is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every phase
@@ -100,6 +117,9 @@ NM_STEPPED_REPLACES = "src/repro/kernels/neighbor_mix.py:85"
 PC_REPLACES = "src/repro/kernels/pack_update.py:126"
 ROBUST_SOURCE = "src/repro_torch/kernels/csrc/robust_kernels.cu"
 RR_REPLACES = "src/repro/kernels/robust_reduce.py:57"
+ATTENTION_SOURCE = "src/repro_torch/kernels/csrc/attention_kernels.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention.py:80"
+BF16_FLOPS_PER_S = 989.4e12  # H100 SXM, dense BF16 tensor cores
 DEPTH = 6  # layers of the full-width topology runs (of 28)
 # card vs CPU after compressed meta steps: values beyond rtol 1e-5 /
 # atol 1e-6 are rounding decisions that flipped because the two devices'
@@ -804,6 +824,166 @@ def check_robust_reduce(torch, rr, rows, rows_cut) -> dict:
                 bound_by=b_by, library_ms=library_ms)
 
 
+def bhsd(x):
+    """(B, S, h, D) -> a (B h, S, D) copy, the plain version's layout."""
+    return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[3])
+
+
+def flash_limit(torch, got, plain32) -> tuple[bool, float, float, float]:
+    """The kernel's output against the plain version's f32 result on the
+    same inputs. f32: |d| <= 1e-5 + 1e-4 |p|. bf16: within one bf16 ulp of
+    p, or within the f32 limit where that is wider (|p| below about
+    1.5e-3, where the f32 summation order and not the output rounding
+    decides). Returns (ok, max |d|, share of values that differ from p
+    rounded to bf16, share more than one ulp from p); both shares 0 in
+    f32."""
+    p = plain32.to(torch.float32)
+    d = (got.to(torch.float32) - p).abs()
+    limit = 1e-5 + 1e-4 * p.abs()
+    differ = beyond = 0.0
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(p)
+        ulp = torch.where(p == 0, torch.zeros_like(p),
+                          torch.ldexp(torch.ones_like(p), e - 8))
+        differ = float((got != p.to(torch.bfloat16)).float().mean())
+        beyond = float((d > ulp).float().mean())
+        limit = torch.maximum(limit, ulp)
+    return bool((d <= limit).all()), float(d.max()), differ, beyond
+
+
+def flash_bound(torch, fa, B, Sq, Sk, H, KV, D, dtype, **kw):
+    """The least time of one call: the bytes (q, k, v read once, the output
+    written once) over 3.35 TB/s, or the matmul flops of the visible (q, k)
+    pairs of this call's mask (4 D per pair and head) over the peak of the
+    input type (dense BF16 tensor cores, or f32), whichever is larger."""
+    mask = fa.visible(torch.arange(Sq, device="cuda"),
+                      torch.arange(Sk, device="cuda"),
+                      causal=kw.get("causal", True),
+                      sliding_window=kw.get("sliding_window", 0),
+                      prefix_global=kw.get("prefix_global", 0),
+                      kv_len=kw.get("kv_len", Sk))
+    flops = 4.0 * B * H * D * float(mask.sum())
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (2 * B * H * Sq + 2 * B * KV * Sk) * D * size
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_case(torch, fa, B, Sq, Sk, H, KV, D, dtype, *, rows=None,
+               timed=False, **kw) -> dict:
+    """One flash-attention case: the kernel on (B, S, H, D) projections
+    (the model's entry, read through strides) against the plain version's
+    f32 result on the same inputs, in windows of ``rows`` queries (through
+    its q_offset) so that its (B H, rows, Sk) f32 scores fit; with
+    ``timed``, CUDA-event medians of the kernel, the plain version (its
+    windows in turn), SDPA where the mask is plain causal, and the
+    bound."""
+    gen = torch.Generator(device="cuda").manual_seed(Sq * 7 + D)
+    q = torch.randn(B, Sq, H, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, Sk, KV, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, Sk, KV, D, generator=gen, device="cuda").to(dtype)
+    got = fa.flash_attention_bshd_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    got3 = bhsd(got)
+    q3, k3, v3 = (bhsd(x).to(torch.float32) for x in (q, k, v))
+    rows = rows or Sq
+    ok, err, n = True, 0.0, 0
+    differ = beyond = 0.0
+    for lo in range(0, Sq, rows):
+        want = fa.flash_attention_plain(q3[:, lo:lo + rows], k3, v3,
+                                        q_offset=lo, **kw)
+        w_ok, w_err, w_differ, w_beyond = flash_limit(
+            torch, got3[:, lo:lo + rows], want)
+        share = want.shape[1] / Sq
+        ok, err = ok and w_ok, max(err, w_err)
+        differ, beyond = differ + share * w_differ, beyond + share * w_beyond
+        del want
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    label = (f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} {name} "
+             f"{' '.join(f'{a}={b}' for a, b in kw.items())}")
+    shares = (f", {differ:.4%} differ from the plain result in bf16, "
+              f"{beyond:.4%} beyond one ulp" if dtype == torch.bfloat16
+              else "")
+    print(f"  flash_attention {label}: max |diff| {err:.3g}{shares}")
+    assert ok, f"flash_attention {label}: beyond the limit ({err})"
+    rec = dict(max_abs_err=err)
+    if timed:
+        rec["ms"] = cuda_ms(torch, lambda: fa.flash_attention_bshd_cuda(
+            q, k, v, **kw))
+        del q3, k3, v3, got3
+        free(torch)
+
+        def plain():
+            for lo in range(0, Sq, rows):
+                fa.flash_attention_plain(
+                    bhsd(q[:, lo:lo + rows]), bhsd(k), bhsd(v), q_offset=lo,
+                    **kw)
+
+        rec["plain_ms"] = cuda_ms(torch, plain, warmup=1, iters=3)
+        rec["library_ms"] = None
+        if kw == dict(causal=True):
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            rec["library_ms"] = cuda_ms(
+                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True))
+        rec["bound_ms"], rec["bound_by"] = flash_bound(
+            torch, fa, B, Sq, Sk, H, KV, D, dtype, **kw)
+        print(f"    kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} "
+              f"ms, SDPA {rec['library_ms']} ms, bound "
+              f"{rec['bound_ms']:.3f} ms by {rec['bound_by']}")
+    del q, k, v, got
+    free(torch)
+    return rec
+
+
+def check_flash_attention(torch, fa) -> dict:
+    """flash_attention against its plain version: the serving prefill's
+    shape (Qwen3-1.7B heads, B=8, S=512, causal, bf16: the record's
+    times), a long prefill (B=4, S=4096, causal, bf16 and f32), the 524k
+    variant's window (B=1, S=16384, window 8192, bf16, compared in windows
+    of 2048 queries), and the mask and shape cases (non-causal, window +
+    prefix, kv_len < Sk down to 0, D = 64, 80, 112 and 256, n_rep 1, 2, 4
+    and 5/5 heads, S = 96 and 1, Sq != Sk), in f32 and bf16."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    main = flash_case(torch, fa, 8, 512, 512, 16, 8, 128, bf16, timed=True,
+                      causal=True)
+    errs = [main["max_abs_err"]]
+    for dt in (bf16, f32):
+        errs.append(flash_case(torch, fa, 4, 4096, 4096, 16, 8, 128, dt,
+                               rows=1024, timed=True,
+                               causal=True)["max_abs_err"])
+    errs.append(flash_case(torch, fa, 1, 16384, 16384, 16, 8, 128, bf16,
+                           rows=2048, timed=True, causal=True,
+                           sliding_window=8192)["max_abs_err"])
+    small = [  # (B, Sq, Sk, H, KV, D, kwargs)
+        (2, 96, 96, 4, 2, 64, dict(causal=False)),
+        (2, 128, 128, 4, 2, 64, dict(causal=True, sliding_window=32,
+                                     prefix_global=8)),
+        (2, 128, 128, 4, 2, 64, dict(causal=True, sliding_window=16,
+                                     prefix_global=4)),
+        (2, 128, 128, 8, 2, 64, dict(causal=True, kv_len=77)),
+        (2, 64, 64, 4, 2, 64, dict(causal=True, kv_len=0)),
+        (1, 64, 64, 4, 2, 64, dict(causal=True, sliding_window=16,
+                                   kv_len=10)),
+        (2, 64, 64, 4, 1, 80, dict(causal=True)),
+        (1, 96, 96, 5, 5, 64, dict(causal=True)),
+        (1, 128, 128, 4, 4, 256, dict(causal=False)),
+        (2, 1, 1, 16, 8, 128, dict(causal=True)),
+        (1, 33, 70, 4, 2, 112, dict(causal=False)),
+        (1, 100, 60, 4, 2, 128, dict(causal=True, sliding_window=8)),
+    ]
+    for B, Sq, Sk, H, KV, D, kw in small:
+        for dt in (f32, bf16):
+            errs.append(flash_case(torch, fa, B, Sq, Sk, H, KV, D, dt,
+                                   **kw)["max_abs_err"])
+    return dict(name="flash_attention", replaces=FA_REPLACES,
+                max_abs_err=max(errs), ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=main["library_ms"])
+
+
 # ---------------------------------------------------------------------------
 # phases 4 to 9: the trainer
 # ---------------------------------------------------------------------------
@@ -867,7 +1047,7 @@ def full_width_training(torch, ops) -> dict:
 NO_LAUNCHES = dict(fused_momentum_broadcast=0, block_momentum=0,
                    sgd_apply=0, pack_update=0, quantize=0, dequantize=0,
                    pack_compress=0, neighbor_mix=0, neighbor_mix_stepped=0,
-                   robust_reduce=0)
+                   robust_reduce=0, flash_attention=0)
 
 
 def compressed_full_width(torch, ops) -> dict:
@@ -1055,7 +1235,7 @@ class PhasePeaks:
 KERNEL_CLASSES = (
     ("port kernels", ("momentum_kernel", "sgd_kernel", "chunk_quant_kernel",
                       "dequant_kernel", "neighbor_mix_kernel",
-                      "robust_reduce_kernel")),
+                      "robust_reduce_kernel", "flash_attention_kernel")),
     ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
     ("copy/cast", ("copy", "Cat")),
 )
@@ -1063,51 +1243,11 @@ KERNEL_CLASSES = (
 
 def profile_meta_step(torch, trainer, step_ms: float) -> None:
     """One more meta step under torch.profiler (after the counters were
-    read): kernel time by class and by name, the device span of each
-    phase, and the device's idle share. The profiler slows the host, so
-    the idle share divides the profiled kernel time by ``step_ms``, the
-    wall time of the last unprofiled meta step. Reports "not measured" if
-    the profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        trainer.run(1, log=None)
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    on_device = [e for e in events if str(e.device_type).endswith("CUDA")]
-    # the obs.* ranges also appear as device spans; they are not kernels
-    kernels = sorted((e for e in on_device if not e.key.startswith("obs.")),
-                     key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy_ms <= 0:
-        print(f"  profiled meta step: wall {wall_ms:.1f} ms; device time "
-              f"not measured (the profiler saw no device activity)")
-        return
-    print(f"  profiled meta step: kernels busy {busy_ms:.1f} ms in "
-          f"{sum(e.count for e in kernels)} launches (profiled wall "
-          f"{wall_ms:.1f} ms); unprofiled step {step_ms:.1f} ms -> device "
-          f"idle share {1 - busy_ms / step_ms:.3f}")
-    for e in on_device:
-        if e.key.startswith("obs."):
-            print(f"    {e.key} device span {e.device_time_total / 1e3:.1f} ms")
-    booked = {name: [0.0, 0] for name, _ in KERNEL_CLASSES}
-    booked["other elementwise/reduce"] = [0.0, 0]
-    for e in kernels:
-        cls = next((name for name, frags in KERNEL_CLASSES
-                    if any(f in e.key for f in frags)),
-                   "other elementwise/reduce")
-        booked[cls][0] += e.self_device_time_total / 1e3
-        booked[cls][1] += e.count
-    for cls, (ms, count) in booked.items():
-        print(f"    class {cls}: {ms:.1f} ms in {count} launches "
-              f"({ms / busy_ms:.3f} of kernel time)")
-    for e in kernels[:12]:
-        print(f"    {e.self_device_time_total / 1e3:9.2f} ms "
-              f"{e.count:6d}x  {e.key[:90]}")
+    read), against ``step_ms``, the wall time of the last unprofiled meta
+    step: kernel time by class and name, the device span of each phase,
+    and the device's idle share."""
+    profile_call(torch, "meta step", lambda: trainer.run(1, log=None),
+                 step_ms)
 
 
 class Spread:
@@ -1534,6 +1674,229 @@ def robust_full_width(torch, ops) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: serving (prefill through the flash kernel, KV-cache decode)
+# ---------------------------------------------------------------------------
+
+SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 512, 64
+# bf16 compute at full depth, two routes to the same logits (flash vs the
+# plain softmax, or batched forward vs one-token decode): a relative RMS
+# error of at most 5 % and no logit further than a quarter of the largest
+# |logit|; a wrong cache row or position gives logits unrelated to the
+# reference, a relative RMS error near 1.4
+BF16_RMS, BF16_MAX = 0.05, 0.25
+
+
+def bf16_close(torch, label, got, want) -> None:
+    got, want = got.to(torch.float32), want.to(torch.float32)
+    rms = float((got - want).norm() / want.norm())
+    mx = float((got - want).abs().max())
+    top = float(want.abs().max())
+    print(f"  {label}: relative RMS error {rms:.3e}, max |diff| {mx:.4f} "
+          f"(largest |logit| {top:.3f}; limits {BF16_RMS}, "
+          f"{BF16_MAX} x {top:.3f})")
+    assert rms <= BF16_RMS and mx <= BF16_MAX * top, label
+
+
+def serving_card_vs_cpu(torch, ops) -> None:
+    """Phase 10a: reduced Qwen3 (qk-norm, n_rep 2) and Qwen2 (QKV bias,
+    n_rep 4) in f32, the same params and prompt on both devices: prefill
+    through the flash kernel (its plain version on the CPU), 8 decode
+    steps, greedy generate."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.utils.tree import tree_map
+
+    tol = dict(rtol=1e-5, atol=1e-5)
+    for arch in ("qwen3-1.7b", "qwen2-7b"):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="float32")
+        params = api.init_params(torch.Generator().manual_seed(0), cfg,
+                                 "cpu")
+        gparams = tree_map(lambda t: t.to("cuda"), params)
+        toks = torch.randint(0, cfg.vocab_size, (4, 16),
+                             generator=torch.Generator().manual_seed(1),
+                             dtype=torch.int32)
+        errs = []
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            lg, cg = api.prefill(gparams, cfg, {"tokens": toks.cuda()}, 32,
+                                 use_pallas=True)
+            torch.cuda.synchronize()
+            assert ops.launch_counts() == dict(
+                NO_LAUNCHES, flash_attention=cfg.num_layers)
+            lc, cc = api.prefill(params, cfg, {"tokens": toks}, 32,
+                                 use_pallas=True)
+            for g, c in ((lg, lc), (cg["k"], cc["k"]), (cg["v"], cc["v"])):
+                torch.testing.assert_close(g.cpu(), c, **tol)
+                errs.append(float((g.cpu() - c).abs().max()))
+            assert int(cg["pos"]) == int(cc["pos"]) == 16
+            nxt = torch.argmax(lc, -1).to(torch.int32)
+            for _ in range(8):
+                lg, cg = api.decode_step(gparams, cfg, cg, nxt.cuda())
+                lc, cc = api.decode_step(params, cfg, cc, nxt)
+                torch.testing.assert_close(lg.cpu(), lc, **tol)
+                errs.append(float((lg.cpu() - lc).abs().max()))
+                nxt = torch.argmax(lc, -1).to(torch.int32)
+            got = serve.generate(gparams, cfg, toks.cuda(), 8, 32,
+                                 use_pallas=True)
+            want = serve.generate(params, cfg, toks, 8, 32, use_pallas=True)
+        assert torch.equal(got.cpu(), want), (got, want)
+        print(f"  {arch} reduced f32: prefill (flash) logits and cache, 8 "
+              f"decode steps' logits card == CPU within rtol 1e-5 / atol "
+              f"1e-5 (max |diff| {max(errs):.3g}); greedy generate equal "
+              f"({want[0].tolist()})")
+
+
+def profile_call(torch, label, fn, wall_ms: float) -> None:
+    """One call of ``fn`` under torch.profiler: kernel time by class and by
+    name, and the device's idle share against ``wall_ms``, the wall time
+    of the same call unprofiled (the profiler slows the host). Reports
+    "not measured" if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    on_device = [e for e in events if str(e.device_type).endswith("CUDA")]
+    # the obs.* ranges also appear as device spans; they are not kernels
+    kernels = sorted((e for e in on_device if not e.key.startswith("obs.")),
+                     key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms <= 0:
+        print(f"  profiled {label}: wall {prof_ms:.1f} ms; device time "
+              f"not measured (the profiler saw no device activity)")
+        return
+    print(f"  profiled {label}: kernels busy {busy_ms:.1f} ms in "
+          f"{sum(e.count for e in kernels)} launches (profiled wall "
+          f"{prof_ms:.1f} ms); unprofiled {wall_ms:.1f} ms -> device "
+          f"idle share {1 - busy_ms / wall_ms:.3f}")
+    for e in on_device:
+        if e.key.startswith("obs."):
+            print(f"    {e.key} device span {e.device_time_total / 1e3:.1f} ms")
+    booked = {name: [0.0, 0] for name, _ in KERNEL_CLASSES}
+    booked["other elementwise/reduce"] = [0.0, 0]
+    for e in kernels:
+        cls = next((name for name, frags in KERNEL_CLASSES
+                    if any(f in e.key for f in frags)),
+                   "other elementwise/reduce")
+        booked[cls][0] += e.self_device_time_total / 1e3
+        booked[cls][1] += e.count
+    for cls, (ms, count) in booked.items():
+        print(f"    class {cls}: {ms:.1f} ms in {count} launches "
+              f"({ms / busy_ms:.3f} of kernel time)")
+    for e in kernels[:12]:
+        print(f"    {e.self_device_time_total / 1e3:9.2f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+
+
+def serving_full_width(torch, ops) -> dict:
+    """Phase 10b: full-width, full-depth Qwen3-1.7B (28 layers), f32 params
+    from a seeded generator, bf16 compute, batch 8, a 512-token prompt of
+    uniform random tokens, 64 greedy tokens through ``generate`` with the
+    flash kernel in prefill, cache_len 512 + 64 + 8. Checked: exactly 28
+    flash launches, finite logits, prefill with and without the kernel
+    within the bf16 limit, and teacher forcing (one forward over prompt
+    and generated tokens against the decode logits). Returns the launch
+    counts of the generate run."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    cfg = get_config("qwen3-1.7b")
+    B, S0, new = SERVE_B, SERVE_PROMPT, SERVE_NEW
+    cache_len = S0 + new + 8
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, "cuda")
+    prompt = torch.randint(
+        0, cfg.vocab_size, (B, S0), device="cuda", dtype=torch.int32,
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    batch = {"tokens": prompt}
+    print(f"  params {torch.cuda.memory_allocated() / 1e9:.2f} GB f32, "
+          f"{cfg.num_layers} layers, compute {cfg.dtype}")
+    with torch.no_grad():
+        # warm-up, and the prefill logits with and without the kernel
+        flash_logits, _ = api.prefill(params, cfg, batch, cache_len,
+                                      use_pallas=True)
+        plain_logits, _ = api.prefill(params, cfg, batch, cache_len)
+        bf16_close(torch, "prefill logits, flash vs plain attention",
+                   flash_logits, plain_logits)
+        del plain_logits
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tokens = serve.generate(params, cfg, prompt, new, cache_len,
+                                use_pallas=True)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  launches: {counts}")
+        assert counts == dict(NO_LAUNCHES, flash_attention=cfg.num_layers)
+        assert tokens.shape == (B, new) and tokens.dtype == torch.int32
+
+        prefill_times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits0, cache = api.prefill(params, cfg, batch, cache_len,
+                                         use_pallas=True)
+            torch.cuda.synchronize()
+            prefill_times.append((time.perf_counter() - t0) * 1e3)
+        prefill_ms = statistics.median(prefill_times)
+        # teacher forcing: decode the generated tokens again, timed
+        decoded = []
+        t0 = time.perf_counter()
+        for i in range(new):
+            logits, cache = api.decode_step(params, cfg, cache, tokens[:, i])
+            decoded.append(logits)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        step_ms = decode_s / new * 1e3
+        served = torch.cat([logits0[:, None], torch.stack(decoded, 1)], 1)
+        del decoded
+        assert bool(torch.isfinite(served).all()), "non-finite logits"
+        # the replay is the same computation: the same greedy tokens
+        assert torch.equal(torch.argmax(served[:, :-1], -1).to(torch.int32),
+                           tokens)
+        print(f"  {served.numel()} logits of prefill and {new} decode "
+              f"steps finite; the replay's greedy tokens equal generate's")
+        full = torch.cat([prompt, tokens], 1)
+        fwd, _ = api.forward(params, cfg, {"tokens": full})
+        bf16_close(torch, f"teacher forcing, forward over {S0 + new} "
+                   f"tokens vs prefill + {new} decode steps",
+                   served, fwd[:, S0 - 1:])
+        del fwd, served
+        free(torch)
+        print(f"  prefill {prefill_ms:.1f} ms ({B * S0 / prefill_ms * 1e3:.0f}"
+              f" prompt tokens/s); decode {step_ms:.2f} ms a step, "
+              f"{1e3 / step_ms:.2f} steps/s, {B * 1e3 / step_ms:.1f} "
+              f"tokens/s; generate {gen_s:.2f} s "
+              f"({B * new / gen_s:.1f} tokens/s); peak device memory "
+              f"{peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB)")
+        assert peak < 80e9, peak
+        _, cache = api.prefill(params, cfg, batch, cache_len,
+                               use_pallas=True)
+        tok = tokens[:, 0]
+        profile_call(torch, "decode step",
+                     lambda: api.decode_step(params, cfg, cache, tok),
+                     step_ms)
+        profile_call(torch, "prefill (flash)",
+                     lambda: api.prefill(params, cfg, batch, cache_len,
+                                         use_pallas=True), prefill_ms)
+    del params, cache
+    free(torch)
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1544,6 +1907,7 @@ def main() -> int:
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import block_momentum as bm
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_meta as fm
     from repro_torch.kernels import local_sgd as sgd
     from repro_torch.kernels import neighbor_mix as nm
@@ -1565,25 +1929,30 @@ def main() -> int:
           f"(nvcc {lib.build_s:.2f} s)")
     # each kernel's registers and spills; the 64 instantiations of the
     # robust-reduce kernel (L = 1..16, 1 or 4 coordinates a thread, f32 or
-    # bf16) in one line
-    entry, robust_regs, robust_spills = "", [], []
+    # bf16) and the 12 of the flash-attention kernel (6 head dims, f32 or
+    # bf16) in one line each
+    grouped = ("robust_reduce_kernel", "flash_attention_kernel")
+    entry, regs, spills = "", {g: [] for g in grouped}, {g: [] for g in
+                                                         grouped}
     for line in lib.build_log.splitlines():
         if "Compiling entry function" in line or "Function properties" in line:
             entry = line
         elif "registers" in line or "spill" in line:
-            if "robust_reduce_kernel" not in entry:
+            group = next((g for g in grouped if g in entry), None)
+            if group is None:
                 print("  " + line.strip())
             elif "registers" in line:
-                robust_regs.append(int(line.split("Used ")[1].split()[0]))
+                regs[group].append(int(line.split("Used ")[1].split()[0]))
             else:
-                robust_spills.append(line.strip())
-    if robust_regs:
-        unspilled = all(x.startswith("0 bytes stack frame, 0 bytes spill "
-                                     "stores, 0 bytes spill loads")
-                        for x in robust_spills)
-        print(f"  robust_reduce_kernel: {len(robust_regs)} instantiations, "
-              f"{min(robust_regs)}-{max(robust_regs)} registers, "
-              f"{'no stack and no spills' if unspilled else robust_spills}")
+                spills[group].append(line.strip())
+    for group in grouped:
+        if regs[group]:
+            unspilled = all(x.startswith("0 bytes stack frame, 0 bytes "
+                                         "spill stores, 0 bytes spill loads")
+                            for x in spills[group])
+            print(f"  {group}: {len(regs[group])} instantiations, "
+                  f"{min(regs[group])}-{max(regs[group])} registers, "
+                  f"{'no stack and no spills' if unspilled else spills[group]}")
 
     print("phase 3: kernels vs plain versions at the main path's shapes")
     rows = make_pack_spec(api.init_params(
@@ -1611,7 +1980,9 @@ def main() -> int:
         r["source"] = TOPOLOGY_SOURCE
     robust_record = check_robust_reduce(torch, rr, rows, rows_cut)
     robust_record["source"] = ROBUST_SOURCE
-    records += comm_records + topo_records + [robust_record]
+    flash_record = check_flash_attention(torch, fa)
+    flash_record["source"] = ATTENTION_SOURCE
+    records += comm_records + topo_records + [robust_record, flash_record]
     for r in records:
         print(f"  {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
               f"ms by {r['bound_by']}), plain {r['plain_ms']:.3f} ms, "
@@ -1673,10 +2044,18 @@ def main() -> int:
           f"sticky corruption, L={L}")
     robust_counts = robust_full_width(torch, ops)
 
+    print("phase 10: serving, card vs CPU on reduced configs (float32)")
+    serving_card_vs_cpu(torch, ops)
+    print(f"phase 10: serving full-width Qwen3-1.7B, 28 layers, B={SERVE_B}, "
+          f"{SERVE_PROMPT}-token prompt, {SERVE_NEW} greedy tokens, flash "
+          f"prefill")
+    serve_counts = serving_full_width(torch, ops)
+
     # each kernel's launches in the run of the path it serves: the dense
     # and compressed full-width runs, the reduced per-leaf runs, the gossip
-    # run (whose time-varying graph takes the stepped entry) and the
-    # reduced gossip runs on static or elastic-masked matrices
+    # run (whose time-varying graph takes the stepped entry), the reduced
+    # gossip runs on static or elastic-masked matrices, the robust run and
+    # the full-width serving run
     launches = dict(
         fused_momentum_broadcast=dense_counts["fused_momentum_broadcast"],
         sgd_apply=dense_counts["sgd_apply"],
@@ -1687,7 +2066,8 @@ def main() -> int:
         pack_compress=gossip_counts["pack_compress"],
         neighbor_mix=topo_counts["neighbor_mix"],
         neighbor_mix_stepped=gossip_counts["neighbor_mix_stepped"],
-        robust_reduce=robust_counts["robust_reduce"])
+        robust_reduce=robust_counts["robust_reduce"],
+        flash_attention=serve_counts["flash_attention"])
     for r in records:
         r.update(route="cuda", launches=launches[r["name"]])
         assert r["launches"] > 0, r

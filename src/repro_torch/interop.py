@@ -38,6 +38,18 @@ def params_from_jax(tree, device="cpu") -> dict:
     return _tree(tree, device)
 
 
+def cache_from_jax(cache, device="cpu") -> dict:
+    """A JAX KV cache ``{"k", "v", "pos"}`` with numpy leaves (as
+    ``jax.device_get`` gives it) -> the port's: k and v tensors of the same
+    shape and dtype, and pos a 0-d int32 tensor, all on ``device``."""
+    return {
+        "k": to_tensor(cache["k"], device),
+        "v": to_tensor(cache["v"], device),
+        "pos": torch.tensor(int(np.asarray(cache["pos"])), dtype=torch.int32,
+                            device=device),
+    }
+
+
 # the MetaState.topo keys of the hierarchical and gossip topologies and of
 # the robust norm clip's ring
 TOPO_KEYS = frozenset({

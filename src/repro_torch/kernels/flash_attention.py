@@ -1,0 +1,190 @@
+"""Flash attention: blocked online-softmax attention with GQA and the
+causal, sliding-window, prefix-global and kv-length masks.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
+``flash_attention_bhsd``. It is reached through the model's ``use_pallas``
+forward and the prefill of the serving path (``models/layers.py``
+``attention_block_kv``), once per layer, through ``ops.flash_attention``.
+
+The function, in the kernel and in ``flash_attention_plain`` alike: q, k and
+v upcast to f32; s = (q k^T) * scale; a masked score is the finite -1e30 (so
+a row that no key can see ends as the plain mean of all Sk rows of V, as in
+the Pallas kernel); softmax and the PV product in f32; the result divided by
+max(l, 1e-30) and cast once to q's dtype. Query row ``bh`` reads kv row
+``bh // n_rep``; K and V are never repeated in memory. In f32 this is
+``flash_attention_ref``'s formula; at bf16 it differs from the plain
+``full_attention``, which casts the probabilities to bf16 before the PV
+product (by design, in both packages).
+
+Bound by the card's arithmetic at the prefill shapes: 4 B H Sq Sk D flops
+(times the visible share of the (Sq, Sk) square) against (q + k + v + o)
+bytes. The CUDA kernel (``csrc/attention_kernels.cu``,
+``repro_flash_attention``) is the simple form: one block of 128 threads per
+(b h, tile of 64 queries; 32 for D = 256), K/V tiles of 32 keys staged as
+f32 in shared memory, f32 FMAs on the CUDA cores and an f32 running max,
+sum and accumulator per row. It reads the (B, S, H, D) projections through
+their strides (no transpose copy), takes any Sq and Sk, and skips kv tiles
+that are masked for every row of a block only where that leaves the result
+unchanged. It is compiled for the head dims of the repo's configs, 64, 80,
+112, 128 and 256, and refuses any other. CPU tensors take the plain
+version; ``chip_smoke.py`` holds the kernel to it on the card.
+
+There is no gradient: the Pallas kernel has no VJP and no trainer sets
+``use_pallas``. Both routes run inside ``FlashAttentionFn``, whose backward
+raises.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.planes import KERNEL_DTYPES
+
+NEG_INF = -1e30  # the masked score (finite, as the Pallas kernel's)
+HEAD_DIMS = (64, 80, 112, 128, 256)  # the configs' head dims, compiled
+
+LAUNCHES = 0  # kernel launches; ``flash_attention_bshd_cuda`` adds one each
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Runs ``fn(*tensors)`` with no backward: the TPU kernel has none, and
+    the plain version is never substituted for one."""
+
+    @staticmethod
+    def forward(ctx, fn, *tensors):
+        return fn(*tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "flash attention has no backward (ROADMAP Queue 2, item 4: a "
+            "Hopper backward kernel comes when training uses it); train "
+            "with use_pallas=False")
+
+
+def visible(qpos, kpos, *, causal, sliding_window, prefix_global, kv_len):
+    """The (Sq, Sk) mask of the Pallas kernel: ``kpos < kv_len``, causal
+    ``qpos >= kpos``, window ``qpos - kpos < window`` OR-ed with ``kpos <
+    prefix`` when a prefix is set."""
+    qp, kp = qpos[:, None], kpos[None, :]
+    mask = kp < kv_len
+    if causal:
+        mask = mask & (qp >= kp)
+    if sliding_window:
+        win = qp - kp < sliding_window
+        if prefix_global:
+            win = win | (kp < prefix_global)
+        mask = mask & win
+    return mask
+
+
+def flash_attention_plain(q, k, v, *, causal=True, sliding_window=0,
+                          prefix_global=0, kv_len=None, scale=None,
+                          q_offset=0):
+    """q (BH, Sq, D); k, v (BKV, Sk, D), BH = BKV n_rep -> (BH, Sq, D) in
+    q's dtype. ``q_offset`` places the queries at absolute positions
+    ``q_offset + i`` (to compare a window of queries at a time)."""
+    BH, Sq, D = q.shape
+    BKV, Sk, _ = k.shape
+    if BH % BKV:
+        raise ValueError(f"{BH} query rows for {BKV} kv rows")
+    n_rep = BH // BKV
+    kv_len = Sk if kv_len is None else kv_len
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    q32 = q.to(torch.float32).view(BKV, n_rep, Sq, D)
+    k32 = k.to(torch.float32)[:, None]
+    v32 = v.to(torch.float32)[:, None]
+    s = torch.matmul(q32, k32.transpose(-1, -2)).mul_(scale)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    kpos = torch.arange(Sk, device=q.device)
+    mask = visible(qpos, kpos, causal=causal, sliding_window=sliding_window,
+                   prefix_global=prefix_global, kv_len=kv_len)
+    s.masked_fill_(~mask, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = s.sub_(m).exp_()
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p, v32).div_(l.clamp_(min=1e-30))
+    return out.view(BH, Sq, D).to(q.dtype)
+
+
+def flash_attention_bshd_plain(q, k, v, *, causal=True, sliding_window=0,
+                               prefix_global=0, scale=None):
+    """The plain version on (B, S, H, D) / (B, S, KV, D) projections, as
+    the JAX wrapper ``kernels/ops.py::flash_attention`` lays them out for
+    the kernel: (B H, S, D) copies, then back."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+
+    def prep(x, nh):
+        return x.transpose(1, 2).reshape(B * nh, x.shape[1], D)
+
+    out = flash_attention_plain(
+        prep(q, H), prep(k, KV), prep(v, KV), causal=causal,
+        sliding_window=sliding_window, prefix_global=prefix_global,
+        scale=scale)
+    return out.view(B, H, S, D).transpose(1, 2).contiguous()
+
+
+def _check(name, x, dtype, device):
+    if x.device.type != "cuda" or x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{name}: expected a float32 or bfloat16 CUDA "
+                         f"tensor, got {x.dtype} on {x.device}")
+    if x.dtype != dtype or x.device != device:
+        raise ValueError(f"{name}: {x.dtype} on {x.device}, expected "
+                         f"{dtype} on {device} (q's)")
+    if x.stride(-1) != 1:
+        raise ValueError(f"{name}: the head dim must be contiguous")
+
+
+def _skip_is_exact(Sq, kv_len, sliding_window, prefix_global) -> bool:
+    """Whether every query row sees at least one key. Then a kv tile that
+    is masked for every row of a block adds exactly 0 once a visible tile
+    has set the row's max, and wipes out (alpha = 0) what it added before
+    it, so the kernel may skip it. A row that no key sees keeps the mean of
+    all Sk rows of V instead, and every tile must then be visited."""
+    if kv_len < 1:
+        return False
+    if not sliding_window or prefix_global:
+        return True  # key 0 is visible to every row
+    # the last row's nearest allowed key is min(qpos, kv_len - 1)
+    return Sq - 1 < kv_len - 1 + sliding_window
+
+
+def flash_attention_bshd_cuda(q, k, v, *, causal=True, sliding_window=0,
+                              prefix_global=0, kv_len=None, scale=None):
+    """The kernel on (B, Sq, H, D) q and (B, Sk, KV, D) k, v CUDA tensors,
+    any strides with a contiguous head dim (the model's projections are
+    read as they are), D one of ``HEAD_DIMS`` -> a new contiguous
+    (B, Sq, H, D) tensor in q's dtype."""
+    global LAUNCHES
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D}: the kernel is compiled for "
+                         f"{HEAD_DIMS}")
+    if H % KV or tuple(k.shape) != (B, Sk, KV, D) or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}: expected (B, Sq, H, D) and "
+                         f"(B, Sk, KV, D) with KV dividing H")
+    if Sq < 1 or Sk < 1 or B < 1:
+        raise ValueError(f"empty attention: B={B}, Sq={Sq}, Sk={Sk}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check(name, x, q.dtype, q.device)
+    kv_len = Sk if kv_len is None else kv_len
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        lib.call(
+            "repro_flash_attention", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), B, H, KV, Sq, Sk, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], int(causal), int(sliding_window),
+            int(prefix_global), int(kv_len),
+            int(_skip_is_exact(Sq, kv_len, sliding_window, prefix_global)),
+            float(scale), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    LAUNCHES += 1
+    return out

@@ -15,14 +15,20 @@ planes (L, rows, 128) as one (L * rows, 128) plane. The wire compression
 as JAX's ``kernels/ops.py:183-249`` draws it from a key the caller gives.
 The gossip mix (``neighbor_mix``) takes its (L, L) matrix on the host.
 The robust reduction (``robust_reduce``) takes any contiguous (L, ...)
-stack as it is, packed plane or per-leaf leaf.
+stack as it is, packed plane or per-leaf leaf. Flash attention
+(``flash_attention``) takes the model's (B, S, H, D) projections: the
+kernel reads them through their strides, the plain version through the
+(B H, S, D) copies of JAX's ``kernels/ops.py:347-378``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import block_momentum as _bm
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_meta as _fm
 from repro_torch.kernels import local_sgd as _sgd
 from repro_torch.kernels import neighbor_mix as _nm
@@ -280,6 +286,30 @@ def robust_reduce_tree(tree, *, trim=0):
     return tree_map(lambda x: robust_reduce(x, trim=trim), tree)
 
 
+# ---------------------------------------------------------------------------
+# flash attention (the model's use_pallas forward and the serving prefill)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(q, k, v, *, causal=True, sliding_window=0,
+                    prefix_global=0):
+    """q: (B, S, H, D); k, v: (B, S, KV, D) -> (B, S, H, D) in q's dtype.
+
+    The scale is 1/sqrt(D) of the unpadded head dim, as JAX's. GQA reads kv
+    head h // n_rep inside the kernel (no repeated K/V). No gradient: the
+    call runs inside ``FlashAttentionFn``, whose backward raises.
+    """
+    fn = _route(q, _fa.flash_attention_bshd_plain,
+                _fa.flash_attention_bshd_cuda)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+
+    def run(q, k, v):
+        return fn(q, k, v, causal=causal, sliding_window=sliding_window,
+                  prefix_global=prefix_global, scale=scale)
+
+    return _fa.FlashAttentionFn.apply(run, q, k, v)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by kernel entry. The neighbor-mix kernel
     counts each launch once, under ``neighbor_mix`` or, when it came
@@ -295,6 +325,7 @@ def launch_counts() -> dict[str, int]:
         "neighbor_mix": _nm.LAUNCHES,
         "neighbor_mix_stepped": _nm.STEPPED_LAUNCHES,
         "robust_reduce": _rr.LAUNCHES,
+        "flash_attention": _fa.LAUNCHES,
     }
 
 
@@ -302,4 +333,4 @@ def reset_launch_counts() -> None:
     _fm.LAUNCHES = _bm.LAUNCHES = _sgd.LAUNCHES = _pu.LAUNCHES = 0
     _q.QUANTIZE_LAUNCHES = _q.DEQUANTIZE_LAUNCHES = 0
     _pu.COMPRESS_LAUNCHES = _nm.LAUNCHES = _nm.STEPPED_LAUNCHES = 0
-    _rr.LAUNCHES = 0
+    _rr.LAUNCHES = _fa.LAUNCHES = 0

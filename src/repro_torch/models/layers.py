@@ -1,13 +1,16 @@
-"""Neural-net building blocks of the dense training path, as plain
-functions over nested dicts of tensors (the JAX package's
-``models/layers.py``, same keys, shapes and op order).
+"""Neural-net building blocks of the dense transformer, as plain functions
+over nested dicts of tensors (the JAX package's ``models/layers.py``, same
+keys, shapes and op order).
 
 * Params are stored in float32 (the packed master plane); the forward
   casts weights to ``cfg.dtype`` (bf16 by default) where the JAX code
   does, keeps norm scales in f32, and returns float32 logits.
 * Attention projections are 3-D ``(d_model, heads, head_dim)`` as in JAX.
-* Only the full-sequence training path is here: ``chunked_attention``
-  (above 8192 tokens), decode and the Pallas flash kernel are not.
+* Attention over a full sequence takes the flash kernel when the caller
+  sets ``use_pallas`` (``kernels/ops.py::flash_attention``), blockwise
+  ``chunked_attention`` above ``ATTN_CHUNK_THRESHOLD`` tokens, and the
+  plain ``full_attention`` otherwise; ``attention_decode`` is the
+  one-token step against a KV cache.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
 
 # ---------------------------------------------------------------------------
 # init
@@ -174,23 +178,116 @@ def full_attention(q, k, v, *, causal, sliding_window=0, q_offset=0,
                                   mask[None, None])
 
 
-# the JAX package switches to blockwise attention above this length; the
-# port's training path has no blockwise attention yet
+def chunked_attention(q, k, v, *, causal, sliding_window=0, q_chunk=512,
+                      kv_chunk=1024, prefix_global=0):
+    """Blockwise online-softmax attention in plain ops (JAX's XLA path for
+    long sequences): the score matrix is formed one (q_chunk, kv_chunk)
+    block at a time. Chunks are the largest divisors of S up to the given
+    sizes, as in JAX; the running max starts at -inf and p is cast to q's
+    dtype before the PV product, as there."""
+    B, S, nq, hd = q.shape
+    n_rep = nq // k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    q_chunk = math.gcd(min(q_chunk, S), S)
+    kv_chunk = math.gcd(min(kv_chunk, S), S)
+    outs = []
+    for q0 in range(0, S, q_chunk):
+        q_i = q[:, q0:q0 + q_chunk]
+        acc = torch.zeros((B, q_chunk, nq, hd), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((B, nq, q_chunk), -math.inf, device=q.device)
+        l = torch.zeros((B, nq, q_chunk), device=q.device)
+        qpos = q0 + torch.arange(q_chunk, device=q.device)
+        for k0 in range(0, S, kv_chunk):
+            k_j = _expand_kv(k[:, k0:k0 + kv_chunk], n_rep)
+            v_j = _expand_kv(v[:, k0:k0 + kv_chunk], n_rep)
+            s = torch.einsum("bqhk,bshk->bhqs", q_i, k_j).to(torch.float32)
+            s = s * scale
+            kpos = k0 + torch.arange(kv_chunk, device=q.device)
+            mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
+                              device=q.device)
+            if causal:
+                mask &= qpos[:, None] >= kpos[None, :]
+            if sliding_window:
+                win = qpos[:, None] - kpos[None, :] < sliding_window
+                if prefix_global:
+                    win |= kpos[None, :] < prefix_global
+                mask &= win
+            s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            pv = torch.einsum("bhqs,bshk->bqhk", p.to(q.dtype), v_j)
+            acc = acc * alpha.transpose(1, 2)[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
+        outs.append(out.to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+# Sequences above this length take the blockwise ``chunked_attention``, as
+# in the JAX package (which also reads an environment override, kept there
+# to reproduce a TPU measurement; the port keeps the constant)
 ATTN_CHUNK_THRESHOLD = 8192
 
 
-def attention_block(x, p, cfg: ModelConfig, positions):
-    """Self-attention over a full sequence (train)."""
-    if x.shape[1] > ATTN_CHUNK_THRESHOLD:
-        raise NotImplementedError(
-            f"sequence {x.shape[1]} > {ATTN_CHUNK_THRESHOLD}: the port has "
-            f"no chunked/flash attention yet (ROADMAP Queue 2)"
-        )
-    q, k, v = _qkv(x, p, cfg, positions)
-    out = full_attention(q, k, v, causal=cfg.causal,
-                         sliding_window=cfg.sliding_window)
+def out_proj(out, p, dtype):
     nq, hd, d = p["wo"].shape
-    return out.flatten(-2) @ p["wo"].to(x.dtype).reshape(nq * hd, d)
+    return out.flatten(-2) @ p["wo"].to(dtype).reshape(nq * hd, d)
+
+
+def attention_block_kv(x, p, cfg: ModelConfig, positions, use_pallas=False):
+    """Self-attention over a full sequence; also returns (k, v) for the
+    prefill's cache. ``use_pallas`` takes the flash kernel (no gradient)."""
+    q, k, v = _qkv(x, p, cfg, positions)
+    if use_pallas:
+        out = kops.flash_attention(q, k, v, causal=cfg.causal,
+                                   sliding_window=cfg.sliding_window)
+    elif x.shape[1] > ATTN_CHUNK_THRESHOLD:
+        out = chunked_attention(q, k, v, causal=cfg.causal,
+                                sliding_window=cfg.sliding_window)
+    else:
+        out = full_attention(q, k, v, causal=cfg.causal,
+                             sliding_window=cfg.sliding_window)
+    return out_proj(out, p, x.dtype), k, v
+
+
+def attention_block(x, p, cfg: ModelConfig, positions, use_pallas=False):
+    """Self-attention over a full sequence (train / prefill)."""
+    return attention_block_kv(x, p, cfg, positions, use_pallas)[0]
+
+
+def decode_attention(q, kc, vc, valid, cfg: ModelConfig):
+    """One query position against a cache (B, S, KV, D) under the (S,)
+    mask ``valid``: f32 softmax, p cast to q's dtype (JAX's op order)."""
+    n_rep = cfg.num_heads // cfg.num_kv_heads
+    kk = _expand_kv(kc.to(q.dtype), n_rep)
+    vv = _expand_kv(vc.to(q.dtype), n_rep)
+    s = torch.einsum("bqhk,bshk->bhqs", q, kk).to(torch.float32)
+    s = s / math.sqrt(cfg.head_dim)
+    s = torch.where(valid[None, None, None, :], s, torch.full_like(s, -1e30))
+    prob = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqs,bshk->bqhk", prob, vv)
+
+
+def attention_decode(x, p, cfg: ModelConfig, k_cache, v_cache, pos):
+    """One-token decode against a full-length KV cache, updated IN PLACE.
+
+    x: (B, 1, d); k_cache, v_cache: (B, S, KV, D); pos: 0-d int tensor on
+    the device (the new token's index; read on the device, no host sync).
+    Returns (out (B, 1, d), k_cache, v_cache).
+    """
+    q, k_new, v_new = _qkv(x, p, cfg, pos.view(1))
+    idx = pos.view(1).long()
+    k_cache.index_copy_(1, idx, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, idx, v_new.to(v_cache.dtype))
+    kpos = torch.arange(k_cache.shape[1], device=x.device)
+    valid = kpos <= pos
+    if cfg.sliding_window:
+        valid &= kpos > pos - cfg.sliding_window
+    out = decode_attention(q, k_cache, v_cache, valid, cfg)
+    return out_proj(out, p, x.dtype), k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------

@@ -11,9 +11,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import block_momentum as bm  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_meta as fm  # noqa: E402
 from repro_torch.kernels import local_sgd as sgd  # noqa: E402
 from repro_torch.kernels import neighbor_mix as nm  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import pack_update as pu  # noqa: E402
 from repro_torch.kernels import quantize as qk  # noqa: E402
 from repro_torch.kernels import robust_reduce as rr  # noqa: E402
@@ -179,3 +181,108 @@ def test_cuda_robust_reduce_matches_plain_bitwise(cuda_device):
     for trim in (0, 3, 7):
         equal(rr.robust_reduce_cuda(x, trim),
               rr.robust_reduce_plain(x, trim))
+
+
+def flash_limit(got, plain32):
+    """The flash kernel's limit against its plain version's f32 result: in
+    f32 |d| <= 1e-5 + 1e-4 |p|; in bf16 one bf16 ulp of p, or the f32 limit
+    where that is wider (below ~1.5e-3, where the f32 summation error and
+    not the output rounding dominates)."""
+    p = plain32.to(torch.float32)
+    diff = (got.to(torch.float32) - p).abs()
+    limit = 1e-5 + 1e-4 * p.abs()
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(p)
+        ulp = torch.where(p == 0, torch.zeros_like(p),
+                          torch.ldexp(torch.ones_like(p), e - 8))
+        limit = torch.maximum(limit, ulp)
+    return bool((diff <= limit).all()), float(diff.max())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_matches_plain(cuda_device):
+    """On the card: the flash kernel against its plain version's f32
+    result on the same f32 or bf16 inputs, in the mask and shape cases of
+    the JAX kernel tests, on (B, S, H, D) projections and on a strided
+    view of them, through ``ops.flash_attention`` (counted)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+
+    def bhsd(x):
+        return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[3])
+
+    cases = [  # (B, Sq, Sk, H, KV, D, kwargs)
+        (2, 96, 96, 4, 2, 64, dict(causal=True)),
+        (2, 96, 96, 4, 2, 64, dict(causal=False)),
+        (1, 128, 128, 4, 2, 80, dict(causal=True, sliding_window=32,
+                                     prefix_global=8)),
+        (1, 128, 128, 4, 1, 128, dict(causal=True, sliding_window=16,
+                                      prefix_global=4)),
+        (1, 64, 64, 4, 4, 256, dict(causal=True)),
+        (1, 96, 96, 5, 5, 64, dict(causal=True, kv_len=40)),
+        (2, 64, 64, 4, 2, 64, dict(causal=True, kv_len=0)),
+        (1, 64, 64, 4, 2, 64, dict(causal=True, sliding_window=16,
+                                   kv_len=10)),
+        (2, 1, 1, 4, 2, 128, dict(causal=True)),
+        (1, 33, 70, 4, 2, 112, dict(causal=False)),
+    ]
+    for B, Sq, Sk, H, KV, D, kw in cases:
+        q = torch.randn(B, Sq, H, D, generator=gen, device=cuda_device)
+        k = torch.randn(B, Sk, KV, D, generator=gen, device=cuda_device)
+        v = torch.randn(B, Sk, KV, D, generator=gen, device=cuda_device)
+        for dt in (torch.float32, torch.bfloat16):
+            qd, kd, vd = (x.to(dt) for x in (q, k, v))
+            want = fa.flash_attention_plain(
+                *(bhsd(x).float() for x in (qd, kd, vd)), **kw)
+            got = fa.flash_attention_bshd_cuda(qd, kd, vd, **kw)
+            assert got.dtype == dt and got.shape == q.shape
+            ok, err = flash_limit(bhsd(got), want)
+            assert ok, (B, Sq, Sk, H, KV, D, kw, dt, err)
+    # a strided view (every other head of a wider projection), counted
+    q = torch.randn(2, 80, 8, 64, generator=gen, device=cuda_device)
+    k = torch.randn(2, 80, 2, 64, generator=gen, device=cuda_device)
+    v = torch.randn(2, 80, 2, 64, generator=gen, device=cuda_device)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q[:, :, ::2], k, v, causal=True)
+    assert ops.launch_counts()["flash_attention"] == 1
+    ok, err = flash_limit(got, fa.flash_attention_bshd_plain(q[:, :, ::2],
+                                                             k, v))
+    assert ok, err
+
+
+@pytest.mark.cuda
+def test_cuda_serving_matches_cpu(cuda_device):
+    """Reduced Qwen3 in f32: prefill through the flash kernel and 4 decode
+    steps on the card against the CPU, same params and prompt."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.utils.tree import tree_map
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                              dtype="float32")
+    params = api.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    gparams = tree_map(lambda t: t.to(cuda_device), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12),
+                         generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        lg, cg = api.prefill(gparams, cfg, {"tokens": toks.to(cuda_device)},
+                             20, use_pallas=True)
+        assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+        lc, cc = api.prefill(params, cfg, {"tokens": toks}, 20,
+                             use_pallas=True)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(cg["k"].cpu(), cc["k"], rtol=1e-5,
+                                   atol=1e-5)
+        nxt = torch.argmax(lc, -1).to(torch.int32)
+        for _ in range(4):
+            lg, cg = api.decode_step(gparams, cfg, cg, nxt.to(cuda_device))
+            lc, cc = api.decode_step(params, cfg, cc, nxt)
+            torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=1e-5)
+            nxt = torch.argmax(lc, -1).to(torch.int32)
+        got = serve.generate(gparams, cfg, toks.to(cuda_device), 6, 24,
+                             use_pallas=True)
+        want = serve.generate(params, cfg, toks, 6, 24, use_pallas=True)
+        assert torch.equal(got.cpu(), want)

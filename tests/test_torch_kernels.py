@@ -230,13 +230,16 @@ def test_launch_counter_counts_kernel_launches_only():
     ops.pack_compress(x[None], torch.rand(1, ROWS, 128))
     ops.neighbor_mix(torch.stack([x, x]), torch.eye(2))
     ops.robust_reduce(torch.stack([x, x, x]), trim=1)
+    qkv = torch.rand(1, 16, 2, 64)
+    ops.flash_attention(qkv, qkv, qkv)
     assert ops.launch_counts() == {"fused_momentum_broadcast": 0,
                                    "block_momentum": 0, "sgd_apply": 0,
                                    "pack_update": 0, "quantize": 0,
                                    "dequantize": 0, "pack_compress": 0,
                                    "neighbor_mix": 0,
                                    "neighbor_mix_stepped": 0,
-                                   "robust_reduce": 0}
+                                   "robust_reduce": 0,
+                                   "flash_attention": 0}
 
 
 # ---------------------------------------------------------------------------
