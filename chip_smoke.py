@@ -8,7 +8,10 @@ Phases (any failure raises and the script exits non-zero):
 
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, started together);
+   (one nvcc per source, started together); each kernel's registers and
+   spills, and whether the bf16 flash-attention kernel's SASS holds
+   HGMMA (wgmma) and UTMALDG (TMA) instructions (``cuobjdump -sass``
+   where the toolkit has it, else "not checked");
 3. each kernel against its plain PyTorch version at the main paths'
    shapes, the full Qwen3-1.7B packed plane (13,441,992 x 128): the meta
    kernels with L=4, the wire-compression kernels (quantize, dequantize at
@@ -28,15 +31,18 @@ Phases (any failure raises and the script exits non-zero):
    CUDA-event times of the kernel, the plain version and, where one
    exists, a single PyTorch library call, beside the least time the card
    could take (bytes over 3.35 TB/s or flops over 67 TFLOP/s, whichever is
-   larger). Then flash_attention, which is not bitwise (another summation
-   order): against its plain version's f32 result on the same inputs, to
-   1e-5 + 1e-4 |plain| in f32 and one bf16 ulp in bf16, at the serving
-   prefill's shape (Qwen3-1.7B heads, B=8, S=512, causal, bf16), a long
-   prefill (B=4, S=4096, bf16 and f32), the 524k variant's window (B=1,
-   S=16384, window 8192, compared in windows of queries) and the mask and
-   shape cases; its bound counts the visible (q, k) pairs' matmul flops
-   over the BF16 tensor-core or f32 rate, and its library call is
-   scaled_dot_product_attention (timed only);
+   larger); sgd_apply's times interleaved with torch.add's (kernel, add,
+   add, kernel). Then flash_attention, which is not bitwise (another
+   summation order), bf16 through the Hopper kernel (TMA, wgmma) and f32
+   through the CUDA-core kernel: against the plain version's f32 result
+   on the same inputs, to 1e-5 + 1e-4 |plain| in f32 and one bf16 ulp in
+   bf16, at the serving prefill's shape (Qwen3-1.7B heads, B=8, S=512,
+   causal, bf16), a long prefill (B=4, S=4096, bf16 and f32), the 524k
+   variant's window (B=1, S=16384, window 8192, compared in windows of
+   queries) and the mask and shape cases; its bound counts the visible
+   (q, k) pairs' matmul flops over the BF16 tensor-core or f32 rate, and
+   its library call is scaled_dot_product_attention (timed only; with an
+   explicit boolean mask for the window);
 4. the dense main path: the port's Trainer on the full-width, full-depth
    Qwen3-1.7B, M-AVG with L=4, K=4, B=8, S=64, 3 meta steps from random
    weights on uniform random tokens, with the kernel launch counters
@@ -93,6 +99,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -117,7 +124,8 @@ NM_STEPPED_REPLACES = "src/repro/kernels/neighbor_mix.py:85"
 PC_REPLACES = "src/repro/kernels/pack_update.py:126"
 ROBUST_SOURCE = "src/repro_torch/kernels/csrc/robust_kernels.cu"
 RR_REPLACES = "src/repro/kernels/robust_reduce.py:57"
-ATTENTION_SOURCE = "src/repro_torch/kernels/csrc/attention_kernels.cu"
+ATTENTION_SOURCE = "src/repro_torch/kernels/csrc/attention_hopper.cu"
+ATTENTION_F32_SOURCE = "src/repro_torch/kernels/csrc/attention_kernels.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention.py:80"
 BF16_FLOPS_PER_S = 989.4e12  # H100 SXM, dense BF16 tensor cores
 DEPTH = 6  # layers of the full-width topology runs (of 28)
@@ -140,7 +148,11 @@ def card_line() -> str:
 
 
 def cuda_ms(torch, fn, warmup: int = 2, iters: int = 10) -> float:
-    """Median of ``iters`` CUDA-event timings of ``fn`` after warm-up."""
+    """Median of ``iters`` CUDA-event timings of ``fn`` after warm-up. Each
+    timing starts behind a spin kernel of about a millisecond, so the card
+    is still busy while the host enqueues ``fn``: the events then measure
+    the device's time alone, not the host's launch latency (tens of
+    microseconds of Python, which a 0.05 ms kernel would otherwise carry)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -148,12 +160,36 @@ def cuda_ms(torch, fn, warmup: int = 2, iters: int = 10) -> float:
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def sass_ops(path, fragment: str, ops) -> dict | None:
+    """How many of each SASS opcode in ``ops`` the functions of the shared
+    library ``path`` whose names hold ``fragment`` contain, through
+    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        return None
+    counts, name = dict.fromkeys(ops, 0), ""
+    counts["functions"] = 0
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            name = line
+            counts["functions"] += fragment in name
+        elif fragment in name:
+            for op in ops:
+                counts[op] += op in line
+    return counts
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -303,14 +339,21 @@ def check_sgd_apply(torch, sgd, rows, plane) -> dict:
         if dt == torch.bfloat16:
             del w, g, out
             free(torch)
-    # the main path's case: f32 learner plane
-    ms = cuda_ms(torch, lambda: sgd.sgd_apply_cuda(w, g, LR, out=out))
+    # the main path's case: f32 learner plane; the kernel and the yardstick
+    # (torch.add, never called by the port; it may contract to an FMA) in
+    # turns, kernel, add, add, kernel, each a median of 10
+    kernel = lambda: sgd.sgd_apply_cuda(w, g, LR, out=out)  # noqa: E731
+    add = lambda: torch.add(w, g, alpha=-LR, out=out)  # noqa: E731
+    turns = [cuda_ms(torch, fn) for fn in (kernel, add, add, kernel)]
+    ms = statistics.median((turns[0], turns[3]))
+    library_ms = statistics.median((turns[1], turns[2]))
+    print(f"  sgd_apply in turns: kernel {turns[0]:.3f}, add {turns[1]:.3f}, "
+          f"add {turns[2]:.3f}, kernel {turns[3]:.3f} ms")
     plain_ms = cuda_ms(torch, lambda: sgd.sgd_apply_plain(w, g, LR, out=out))
+    sgd.sgd_apply_cuda(w, g, LR, out=out)
     sgd.sgd_apply_cuda(w, g, LR, out=w)  # in place, as the meta step runs it
     err = max(err, max_err(torch, w, out))
     print("  sgd_apply in place: equal to out of place")
-    # the yardstick, never called by the port (it may contract to an FMA)
-    library_ms = cuda_ms(torch, lambda: torch.add(w, g, alpha=-LR, out=out))
     del w, g, out
     free(torch)
     b_ms, b_by = bound(3 * n * 4, 2 * n)
@@ -923,40 +966,54 @@ def flash_case(torch, fa, B, Sq, Sk, H, KV, D, dtype, *, rows=None,
 
         rec["plain_ms"] = cuda_ms(torch, plain, warmup=1, iters=3)
         rec["library_ms"] = None
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
         if kw == dict(causal=True):
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            rec["library_ms"] = cuda_ms(
-                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True))
+            rec["library_ms"] = cuda_ms(torch, lambda: sdpa(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+        elif set(kw) == {"causal", "sliding_window"}:
+            # the window as an explicit (Sq, Sk) boolean mask (268 MB at
+            # S=16384): no fused backend takes a window
+            mask = fa.visible(torch.arange(Sq, device="cuda"),
+                              torch.arange(Sk, device="cuda"), kv_len=Sk,
+                              prefix_global=0, **kw)
+            rec["library_ms"] = cuda_ms(torch, lambda: sdpa(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), warmup=1,
+                iters=3)
+            del mask
         rec["bound_ms"], rec["bound_by"] = flash_bound(
             torch, fa, B, Sq, Sk, H, KV, D, dtype, **kw)
         print(f"    kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} "
               f"ms, SDPA {rec['library_ms']} ms, bound "
               f"{rec['bound_ms']:.3f} ms by {rec['bound_by']}")
+        del qt, kt, vt
     del q, k, v, got
     free(torch)
     return rec
 
 
-def check_flash_attention(torch, fa) -> dict:
+def check_flash_attention(torch, fa) -> list[dict]:
     """flash_attention against its plain version: the serving prefill's
-    shape (Qwen3-1.7B heads, B=8, S=512, causal, bf16: the record's
-    times), a long prefill (B=4, S=4096, causal, bf16 and f32), the 524k
-    variant's window (B=1, S=16384, window 8192, bf16, compared in windows
-    of 2048 queries), and the mask and shape cases (non-causal, window +
-    prefix, kv_len < Sk down to 0, D = 64, 80, 112 and 256, n_rep 1, 2, 4
-    and 5/5 heads, S = 96 and 1, Sq != Sk), in f32 and bf16."""
+    shape (Qwen3-1.7B heads, B=8, S=512, causal, bf16: the Hopper record's
+    times), a long prefill (B=4, S=4096, causal, bf16, and f32: the f32
+    record's times), the 524k variant's window (B=1, S=16384, window 8192,
+    bf16, compared in windows of 2048 queries), and the mask and shape
+    cases (non-causal, window + prefix, kv_len < Sk down to 0, D = 64, 80,
+    112 and 256, causal D = 256, a D = 80 window, n_rep 1, 2, 4 and 5/5
+    heads, S = 96 and 1, Sq != Sk), in f32 and bf16. Returns the records
+    of the Hopper (bf16) and the CUDA-core (f32) kernel."""
     bf16, f32 = torch.bfloat16, torch.float32
     main = flash_case(torch, fa, 8, 512, 512, 16, 8, 128, bf16, timed=True,
                       causal=True)
-    errs = [main["max_abs_err"]]
-    for dt in (bf16, f32):
-        errs.append(flash_case(torch, fa, 4, 4096, 4096, 16, 8, 128, dt,
-                               rows=1024, timed=True,
-                               causal=True)["max_abs_err"])
-    errs.append(flash_case(torch, fa, 1, 16384, 16384, 16, 8, 128, bf16,
-                           rows=2048, timed=True, causal=True,
-                           sliding_window=8192)["max_abs_err"])
+    errs = {bf16: [main["max_abs_err"]], f32: []}
+    long = {dt: flash_case(torch, fa, 4, 4096, 4096, 16, 8, 128, dt,
+                           rows=1024, timed=True, causal=True)
+            for dt in (bf16, f32)}
+    for dt, rec in long.items():
+        errs[dt].append(rec["max_abs_err"])
+    errs[bf16].append(flash_case(
+        torch, fa, 1, 16384, 16384, 16, 8, 128, bf16, rows=2048, timed=True,
+        causal=True, sliding_window=8192)["max_abs_err"])
     small = [  # (B, Sq, Sk, H, KV, D, kwargs)
         (2, 96, 96, 4, 2, 64, dict(causal=False)),
         (2, 128, 128, 4, 2, 64, dict(causal=True, sliding_window=32,
@@ -968,20 +1025,28 @@ def check_flash_attention(torch, fa) -> dict:
         (1, 64, 64, 4, 2, 64, dict(causal=True, sliding_window=16,
                                    kv_len=10)),
         (2, 64, 64, 4, 1, 80, dict(causal=True)),
+        (1, 200, 200, 4, 2, 80, dict(causal=True, sliding_window=50)),
         (1, 96, 96, 5, 5, 64, dict(causal=True)),
         (1, 128, 128, 4, 4, 256, dict(causal=False)),
+        (1, 300, 300, 4, 4, 256, dict(causal=True)),
         (2, 1, 1, 16, 8, 128, dict(causal=True)),
         (1, 33, 70, 4, 2, 112, dict(causal=False)),
         (1, 100, 60, 4, 2, 128, dict(causal=True, sliding_window=8)),
     ]
     for B, Sq, Sk, H, KV, D, kw in small:
         for dt in (f32, bf16):
-            errs.append(flash_case(torch, fa, B, Sq, Sk, H, KV, D, dt,
-                                   **kw)["max_abs_err"])
-    return dict(name="flash_attention", replaces=FA_REPLACES,
-                max_abs_err=max(errs), ms=main["ms"],
-                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-                bound_by=main["bound_by"], library_ms=main["library_ms"])
+            errs[dt].append(flash_case(torch, fa, B, Sq, Sk, H, KV, D, dt,
+                                       **kw)["max_abs_err"])
+    records = []
+    for name, dt, rec, src in (
+            ("flash_attention", bf16, main, ATTENTION_SOURCE),
+            ("flash_attention_f32", f32, long[f32], ATTENTION_F32_SOURCE)):
+        records.append(dict(
+            name=name, source=src, replaces=FA_REPLACES,
+            max_abs_err=max(errs[dt]), ms=rec["ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
+    return records
 
 
 # ---------------------------------------------------------------------------
@@ -1047,7 +1112,8 @@ def full_width_training(torch, ops) -> dict:
 NO_LAUNCHES = dict(fused_momentum_broadcast=0, block_momentum=0,
                    sgd_apply=0, pack_update=0, quantize=0, dequantize=0,
                    pack_compress=0, neighbor_mix=0, neighbor_mix_stepped=0,
-                   robust_reduce=0, flash_attention=0)
+                   robust_reduce=0, flash_attention=0,
+                   flash_attention_f32=0)
 
 
 def compressed_full_width(torch, ops) -> dict:
@@ -1235,7 +1301,8 @@ class PhasePeaks:
 KERNEL_CLASSES = (
     ("port kernels", ("momentum_kernel", "sgd_kernel", "chunk_quant_kernel",
                       "dequant_kernel", "neighbor_mix_kernel",
-                      "robust_reduce_kernel", "flash_attention_kernel")),
+                      "robust_reduce_kernel", "flash_attention_kernel",
+                      "flash_hopper_kernel")),
     ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
     ("copy/cast", ("copy", "Cat")),
 )
@@ -1698,17 +1765,19 @@ def bf16_close(torch, label, got, want) -> None:
     assert rms <= BF16_RMS and mx <= BF16_MAX * top, label
 
 
-def serving_card_vs_cpu(torch, ops) -> None:
+def serving_card_vs_cpu(torch, ops) -> int:
     """Phase 10a: reduced Qwen3 (qk-norm, n_rep 2) and Qwen2 (QKV bias,
     n_rep 4) in f32, the same params and prompt on both devices: prefill
-    through the flash kernel (its plain version on the CPU), 8 decode
-    steps, greedy generate."""
+    through the f32 flash kernel (its plain version on the CPU), 8 decode
+    steps, greedy generate. Returns the f32 flash kernel's launches in the
+    two prefills."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import serve
     from repro_torch.models import api
     from repro_torch.utils.tree import tree_map
 
     tol = dict(rtol=1e-5, atol=1e-5)
+    launches = 0
     for arch in ("qwen3-1.7b", "qwen2-7b"):
         cfg = dataclasses.replace(get_config(arch).reduced(),
                                   dtype="float32")
@@ -1725,7 +1794,8 @@ def serving_card_vs_cpu(torch, ops) -> None:
                                  use_pallas=True)
             torch.cuda.synchronize()
             assert ops.launch_counts() == dict(
-                NO_LAUNCHES, flash_attention=cfg.num_layers)
+                NO_LAUNCHES, flash_attention_f32=cfg.num_layers)
+            launches += cfg.num_layers
             lc, cc = api.prefill(params, cfg, {"tokens": toks}, 32,
                                  use_pallas=True)
             for g, c in ((lg, lc), (cg["k"], cc["k"]), (cg["v"], cc["v"])):
@@ -1747,6 +1817,7 @@ def serving_card_vs_cpu(torch, ops) -> None:
               f"decode steps' logits card == CPU within rtol 1e-5 / atol "
               f"1e-5 (max |diff| {max(errs):.3g}); greedy generate equal "
               f"({want[0].tolist()})")
+    return launches
 
 
 def profile_call(torch, label, fn, wall_ms: float) -> None:
@@ -1929,9 +2000,11 @@ def main() -> int:
           f"(nvcc {lib.build_s:.2f} s)")
     # each kernel's registers and spills; the 64 instantiations of the
     # robust-reduce kernel (L = 1..16, 1 or 4 coordinates a thread, f32 or
-    # bf16) and the 12 of the flash-attention kernel (6 head dims, f32 or
-    # bf16) in one line each
-    grouped = ("robust_reduce_kernel", "flash_attention_kernel")
+    # bf16), the 5 of the f32 flash-attention kernel and the 5 of the bf16
+    # one (one a head dim; registers at launch: setmaxnreg then gives the
+    # producer warpgroup 24 and the consumers 240) in one line each
+    grouped = ("robust_reduce_kernel", "flash_attention_kernel",
+               "flash_hopper_kernel")
     entry, regs, spills = "", {g: [] for g in grouped}, {g: [] for g in
                                                          grouped}
     for line in lib.build_log.splitlines():
@@ -1953,6 +2026,13 @@ def main() -> int:
             print(f"  {group}: {len(regs[group])} instantiations, "
                   f"{min(regs[group])}-{max(regs[group])} registers, "
                   f"{'no stack and no spills' if unspilled else spills[group]}")
+    sass = sass_ops(lib.path, "flash_hopper_kernel", ("HGMMA", "UTMALDG"))
+    if sass is None:
+        print("  flash_hopper_kernel SASS: not checked (no cuobjdump)")
+    else:
+        print(f"  flash_hopper_kernel SASS: {sass['functions']} functions, "
+              f"{sass['HGMMA']} HGMMA (wgmma) and {sass['UTMALDG']} UTMALDG "
+              f"(TMA load) instructions")
 
     print("phase 3: kernels vs plain versions at the main path's shapes")
     rows = make_pack_spec(api.init_params(
@@ -1980,9 +2060,8 @@ def main() -> int:
         r["source"] = TOPOLOGY_SOURCE
     robust_record = check_robust_reduce(torch, rr, rows, rows_cut)
     robust_record["source"] = ROBUST_SOURCE
-    flash_record = check_flash_attention(torch, fa)
-    flash_record["source"] = ATTENTION_SOURCE
-    records += comm_records + topo_records + [robust_record, flash_record]
+    flash_records = check_flash_attention(torch, fa)
+    records += comm_records + topo_records + [robust_record] + flash_records
     for r in records:
         print(f"  {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
               f"ms by {r['bound_by']}), plain {r['plain_ms']:.3f} ms, "
@@ -2045,7 +2124,7 @@ def main() -> int:
     robust_counts = robust_full_width(torch, ops)
 
     print("phase 10: serving, card vs CPU on reduced configs (float32)")
-    serving_card_vs_cpu(torch, ops)
+    f32_flash_launches = serving_card_vs_cpu(torch, ops)
     print(f"phase 10: serving full-width Qwen3-1.7B, 28 layers, B={SERVE_B}, "
           f"{SERVE_PROMPT}-token prompt, {SERVE_NEW} greedy tokens, flash "
           f"prefill")
@@ -2054,8 +2133,9 @@ def main() -> int:
     # each kernel's launches in the run of the path it serves: the dense
     # and compressed full-width runs, the reduced per-leaf runs, the gossip
     # run (whose time-varying graph takes the stepped entry), the reduced
-    # gossip runs on static or elastic-masked matrices, the robust run and
-    # the full-width serving run
+    # gossip runs on static or elastic-masked matrices, the robust run, the
+    # full-width serving run (bf16 flash) and the reduced f32 serving runs
+    # (f32 flash)
     launches = dict(
         fused_momentum_broadcast=dense_counts["fused_momentum_broadcast"],
         sgd_apply=dense_counts["sgd_apply"],
@@ -2067,7 +2147,8 @@ def main() -> int:
         neighbor_mix=topo_counts["neighbor_mix"],
         neighbor_mix_stepped=gossip_counts["neighbor_mix_stepped"],
         robust_reduce=robust_counts["robust_reduce"],
-        flash_attention=serve_counts["flash_attention"])
+        flash_attention=serve_counts["flash_attention"],
+        flash_attention_f32=f32_flash_launches)
     for r in records:
         r.update(route="cuda", launches=launches[r["name"]])
         assert r["launches"] > 0, r

@@ -1,8 +1,11 @@
-// Hand-written Hopper (sm_90a) kernel of attention (repro_torch serving).
+// Hand-written Hopper (sm_90a) kernel of float32 attention (repro_torch
+// serving).
 //
 // It replaces the JAX package's Pallas TPU kernel:
 //   repro_flash_attention  <- src/repro/kernels/flash_attention.py
 //                             flash_attention_bhsd
+// for float32 operands; bfloat16 operands take the tensor-core kernel of
+// attention_hopper.cu.
 //
 // Blocked online-softmax attention, forward only, on (B, Sq, H, D) queries
 // and (B, Sk, KV, D) keys and values, H = KV * n_rep: query head h of batch
@@ -11,7 +14,7 @@
 // Each operand comes with its own (batch, sequence, head) strides in
 // elements and a contiguous head dim, so the kernel reads the model's
 // (B, S, H, D) projections as they are and the (B H, S, D) layout of the
-// plain version through a view. f32 or bf16 in, the same type out.
+// plain version through a view. f32 in, f32 out.
 //
 // The function is the TPU kernel's: s = (q . k) * scale in f32; a masked
 // score is the finite -1e30 (kpos < kv_len; causal qpos >= kpos; window
@@ -25,13 +28,13 @@
 //
 // Bound: arithmetic. 4 Sq Sk D flops per (b, h) against (Sq + 2 Sk) D
 // elements read and Sq D written: hundreds of flops a byte at the prefill
-// shapes. This is the simple form of the kernel, on the CUDA cores, not
-// the tensor cores (wgmma, TMA and warp specialisation are a later
-// redesign): one block of 128 threads per (bh, tile of BQ queries), the
-// query tile and each K and V tile of BK keys staged in shared memory as
-// f32, the threads as 8 row groups x 16 column groups. A thread holds RQ
-// query rows: for them it computes BK / 16 scores of each kv tile
-// (columns cg + 16 j) and owns D / 16 output columns (cg + 16 j), with
+// shapes, on the f32 CUDA cores (the tensor cores have no f32 product that
+// keeps f32's precision; in f32 this kernel beats PyTorch's SDPA). One
+// block of 128 threads per (bh, tile of BQ queries), the query tile and
+// each K and V tile of BK keys staged in shared memory, the threads as 8
+// row groups x 16 column groups. A thread holds RQ query rows: for them it
+// computes BK / 16 scores of each kv tile (columns cg + 16 j) and owns
+// D / 16 output columns (cg + 16 j), with
 // explicit f32 FMAs (the library is built with --fmad=false, which keeps
 // the compiler from contracting, not __fmaf_rn from fusing). The row max
 // and sum are reduced over the 16 threads of a row group by an xor
@@ -53,7 +56,6 @@
 // and returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
 // for arguments the kernel does not take.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -79,31 +81,23 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
-// rows x D elements of one head, from row `r0` on, into shared memory as f32
-// with row stride `ld`; zeros past row `rows_valid`
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* src,
+// rows x D elements of one head, from row `r0` on, into shared memory with
+// row stride `ld`; zeros past row `rows_valid`
+template <int D>
+__device__ __forceinline__ void stage(float* dst, int ld, const float* src,
                                       int64_t row_stride, int r0, int rows,
                                       int rows_valid) {
   for (int i = threadIdx.x; i < rows * D; i += kThreads) {
     const int r = i / D, c = i - (i / D) * D;
     const int row = r0 + r;
     dst[r * ld + c] =
-        row < rows_valid ? to_f32(src[static_cast<int64_t>(row) * row_stride + c])
+        row < rows_valid ? src[static_cast<int64_t>(row) * row_stride + c]
                          : 0.0f;
   }
 }
 
-template <typename T, int D, int RQ, int BK>
+template <int D, int RQ, int BK>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const Params p) {
   constexpr int BQ = kRowGroups * RQ;
@@ -127,12 +121,12 @@ __global__ void __launch_bounds__(kThreads)
   const int kvh = h / p.n_rep;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
 
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  T* ob = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  float* ob = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 
-  stage<T, D>(sq, LQ, qb, p.q_ss, q0, BQ, p.Sq);
+  stage<D>(sq, LQ, qb, p.q_ss, q0, BQ, p.Sq);
 
   // the kv range this block visits
   int k_lo = 0, k_hi = p.Sk;
@@ -154,8 +148,8 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
     __syncthreads();  // the previous tile's PV product is done with sk/sv/sp
-    stage<T, D>(sk, LQ, kb, p.k_ss, k0, BK, p.Sk);
-    stage<T, D>(sv, D, vb, p.v_ss, k0, BK, p.Sk);
+    stage<D>(sk, LQ, kb, p.k_ss, k0, BK, p.Sk);
+    stage<D>(sv, D, vb, p.v_ss, k0, BK, p.Sk);
     __syncthreads();
 
     // s = q . k over the head dim, 4 lanes of it per step
@@ -255,21 +249,21 @@ __global__ void __launch_bounds__(kThreads)
     const int qpos = q0 + rg * RQ + i;
     if (qpos >= p.Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = ob + static_cast<int64_t>(qpos) * p.o_ss + cg;
+    float* orow = ob + static_cast<int64_t>(qpos) * p.o_ss + cg;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
-      store(orow + kColGroups * j, __fdiv_rn(acc[i][j], denom));
+      orow[kColGroups * j] = __fdiv_rn(acc[i][j], denom);
   }
 }
 
-template <typename T, int D, int RQ, int BK>
+template <int D, int RQ, int BK>
 int launch(const Params& p, int BH, cudaStream_t stream) {
   constexpr int BQ = kRowGroups * RQ;
   constexpr size_t smem =
       sizeof(float) * (BQ * (D + 4) + BK * (D + 4) + BK * D + BQ * (BK + 4));
   const int tiles = (p.Sq + BQ - 1) / BQ;
   if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_attention_kernel<T, D, RQ, BK>;
+  auto kernel = flash_attention_kernel<D, RQ, BK>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -279,19 +273,18 @@ int launch(const Params& p, int BH, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch(const Params& p, int BH, int D, cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch<T, 64, 8, 32>(p, BH, stream);
+      return launch<64, 8, 32>(p, BH, stream);
     case 80:
-      return launch<T, 80, 8, 32>(p, BH, stream);
+      return launch<80, 8, 32>(p, BH, stream);
     case 112:
-      return launch<T, 112, 8, 32>(p, BH, stream);
+      return launch<112, 8, 32>(p, BH, stream);
     case 128:
-      return launch<T, 128, 8, 32>(p, BH, stream);
+      return launch<128, 8, 32>(p, BH, stream);
     case 256:
-      return launch<T, 256, 4, 32>(p, BH, stream);
+      return launch<256, 4, 32>(p, BH, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -304,7 +297,7 @@ extern "C" int repro_flash_attention(
     int KV, int Sq, int Sk, int D, int64_t q_sb, int64_t q_ss, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
     int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh, int causal,
-    int window, int prefix, int kv_len, int skip, float scale, int bf16,
+    int window, int prefix, int kv_len, int skip, float scale,
     void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Sk < 1 ||
       static_cast<int64_t>(B) * H > 0x7fffffffLL) {
@@ -314,7 +307,5 @@ extern "C" int repro_flash_attention(
            k_ss, k_sh, v_sb, v_ss, v_sh, o_sb,  o_ss,   o_sh,
            H,    H / KV, Sq, Sk,   causal, window, prefix, kv_len,
            skip, scale};
-  const auto s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(p, B * H, D, s)
-              : dispatch<float>(p, B * H, D, s);
+  return dispatch(p, B * H, D, static_cast<cudaStream_t>(stream));
 }

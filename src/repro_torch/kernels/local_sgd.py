@@ -9,8 +9,10 @@ times per meta step.
 
 2 plane reads and 1 write, 2 flops per element: the card's memory rate
 bounds it (20.6 GB per call at Qwen3-1.7B in f32). The CUDA kernel
-(``csrc/meta_kernels.cu``, ``repro_sgd_apply``) streams 16 bytes per
-thread step (4 f32 or 8 bf16 elements) and updates in place (``out=w``).
+(``csrc/meta_kernels.cu``, ``repro_sgd_apply``) gives each thread one
+16-byte vector (4 f32 or 8 bf16 elements) and each block of threads one
+chunk of the plane, as many blocks as chunks; it updates in place
+(``out=w``).
 
 ``sgd_apply_plain`` is the same function in PyTorch ops, in the op order
 of ``kernels/ref.py::sgd_apply_ref``. CPU tensors take it;

@@ -313,7 +313,9 @@ def flash_attention(q, k, v, *, causal=True, sliding_window=0,
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by kernel entry. The neighbor-mix kernel
     counts each launch once, under ``neighbor_mix`` or, when it came
-    through the stepped entry, under ``neighbor_mix_stepped``."""
+    through the stepped entry, under ``neighbor_mix_stepped``; flash
+    attention under ``flash_attention`` (the bf16 Hopper kernel) or
+    ``flash_attention_f32`` (the f32 CUDA-core kernel)."""
     return {
         "fused_momentum_broadcast": _fm.LAUNCHES,
         "block_momentum": _bm.LAUNCHES,
@@ -326,6 +328,7 @@ def launch_counts() -> dict[str, int]:
         "neighbor_mix_stepped": _nm.STEPPED_LAUNCHES,
         "robust_reduce": _rr.LAUNCHES,
         "flash_attention": _fa.LAUNCHES,
+        "flash_attention_f32": _fa.F32_LAUNCHES,
     }
 
 
@@ -333,4 +336,4 @@ def reset_launch_counts() -> None:
     _fm.LAUNCHES = _bm.LAUNCHES = _sgd.LAUNCHES = _pu.LAUNCHES = 0
     _q.QUANTIZE_LAUNCHES = _q.DEQUANTIZE_LAUNCHES = 0
     _pu.COMPRESS_LAUNCHES = _nm.LAUNCHES = _nm.STEPPED_LAUNCHES = 0
-    _rr.LAUNCHES = _fa.LAUNCHES = 0
+    _rr.LAUNCHES = _fa.LAUNCHES = _fa.F32_LAUNCHES = 0

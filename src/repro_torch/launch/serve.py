@@ -30,7 +30,19 @@ def generate(params, cfg, prompt_tokens, max_new: int, cache_len: int,
     ``prefill`` (the flash kernel). Greedy decoding is argmax; sampling
     draws from a ``torch.Generator`` seeded by ``seed`` on the prompt's
     device (JAX's ``jax.random.categorical`` stream cannot be reproduced).
+
+    Raises ``ValueError`` before prefill when a full-attention config's
+    cache cannot hold the prompt and the ``max_new`` decoded tokens
+    (``cache_len < S0 + max_new``): JAX clamps the write and overwrites the
+    cache's last row, the port's in-place write would fault on the card
+    (see ``models/transformer.py::decode_step``). Sliding-window configs
+    keep a rolling cache and take any length.
     """
+    S0 = prompt_tokens.shape[1]
+    if not cfg.sliding_window and cache_len < S0 + max_new:
+        raise ValueError(
+            f"cache_len {cache_len} < prompt {S0} + max_new {max_new}: "
+            f"the KV cache has no row for the later tokens")
     logits, cache = model_api.prefill(params, cfg, {"tokens": prompt_tokens},
                                       cache_len, use_pallas=use_pallas)
     gen = None

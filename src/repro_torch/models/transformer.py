@@ -155,7 +155,16 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, *,
     """One decode step. tokens: (B,) int. Returns (logits (B, V) f32, the
     cache with its k and v updated in place and pos + 1). ``use_pallas``
     is accepted for API parity; the one-token step has no kernel (as in
-    JAX)."""
+    JAX).
+
+    Limit: on a full-attention config (no sliding window) the step writes
+    cache row ``pos``, so ``pos`` must stay below the cache's length. JAX
+    clamps the index and overwrites the last row; here ``index_copy_``
+    raises on the CPU and trips a device-side assert on the card, which
+    ends the CUDA context. ``pos`` lives on the device and is not checked
+    here (that would sync the host every token): ``launch/serve.py::
+    generate`` refuses ``cache_len < prompt + max_new`` before prefill.
+    Rolling window caches shift and have no such limit."""
     del use_pallas
     _check_ported(cfg)
     pos = cache["pos"]

@@ -10,6 +10,10 @@
   branches of ``attention_block_kv`` (flash, chunked, full) against JAX's
   at the same tolerance.
 * The flash path has no gradient: its backward raises.
+* The host-side logic of the bf16 Hopper kernel: the kv tiles a query
+  tile visits cover every visible key, its TMA layout check, and the
+  split-p PV product emulated on the CPU (within the one-ulp limit,
+  where one bf16 p is not).
 """
 import dataclasses
 import math
@@ -194,3 +198,119 @@ def test_skip_rule_holds_only_where_every_row_sees_a_key():
         assert fa._skip_is_exact(Sq, kv_len, window, prefix) == bool(
             mask.any(dim=1).all()), (Sq, kv_len, window, prefix)
     assert math.isclose(fa.NEG_INF, jfa.NEG_INF)
+
+
+# ---------------------------------------------------------------------------
+# host-side logic of the Hopper (bf16) kernel
+# ---------------------------------------------------------------------------
+
+TILE_CASES = [  # (Sq, Sk, causal, window, prefix, kv_len)
+    (700, 700, True, 0, 0, 700),
+    (700, 700, False, 0, 0, 700),
+    (700, 700, True, 100, 0, 700),
+    (700, 700, True, 300, 0, 700),
+    (700, 700, True, 100, 8, 700),
+    (700, 700, True, 0, 0, 77),
+    (700, 700, True, 0, 0, 0),
+    (700, 700, True, 64, 0, 1),
+    (300, 700, True, 0, 0, 700),
+    (300, 700, False, 50, 0, 500),
+    (1, 1, True, 0, 0, 1),
+    (129, 40, True, 16, 0, 40),
+]
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+@pytest.mark.parametrize("D", [128, 256])
+def test_kv_tile_range_covers_every_visible_key(case, D):
+    """Every visible key of every row of a 128-query tile lies in the kv
+    tiles the kernel visits at its BK (128, or 64 at D = 256); where a row
+    sees no key, every tile of [0, Sk) is visited, so that the row keeps
+    the mean of V."""
+    Sq, Sk, causal, window, prefix, kv_len = case
+    bk = fa.hopper_block_k(D)
+    assert bk == (64 if D == 256 else 128)
+    skip = fa._skip_is_exact(Sq, kv_len, window, prefix)
+    mask = fa.visible(torch.arange(Sq), torch.arange(Sk), causal=causal,
+                      sliding_window=window, prefix_global=prefix,
+                      kv_len=kv_len)
+    for q0 in range(0, Sq, fa.HOPPER_BLOCK_Q):
+        starts = fa.kv_tile_starts(
+            q0, Sq=Sq, Sk=Sk, block_k=bk, causal=causal,
+            sliding_window=window, prefix_global=prefix, kv_len=kv_len,
+            skip=skip)
+        seen = torch.zeros(Sk, dtype=torch.bool)
+        for k0 in starts:
+            assert 0 <= k0 < Sk
+            seen[k0:k0 + bk] = True
+        rows = mask[q0:q0 + fa.HOPPER_BLOCK_Q]
+        assert not (rows & ~seen).any(), (q0, list(starts))
+        if not skip:
+            assert seen.all()
+
+
+def test_tma_strides_refuse_what_the_tensor_maps_cannot_take():
+    """The Hopper wrapper's layout check: a 16-byte aligned base and
+    strides that are multiples of 8 elements; the strided every-other-head
+    view of the cuda tests passes with its own strides; a dim of length 1
+    gets the stride of a contiguous layout."""
+    base = torch.zeros(2 * 80 * 8 * 64 + 8, dtype=torch.bfloat16)
+    q = base[:2 * 80 * 8 * 64].view(2, 80, 8, 64)
+    assert fa.tma_strides("q", q) == list(q.stride()[:3])
+    view = q[:, :, ::2]
+    assert fa.tma_strides("q", view) == [80 * 512, 512, 128]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.tma_strides("q", base[1:1 + q.numel()].view(q.shape))
+    wide = torch.zeros(2, 16, 4, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa.tma_strides("k", wide)
+    one = torch.zeros(1, 16, 1, 64, dtype=torch.bfloat16).as_strided(
+        (1, 1, 1, 64), (3, 5, 7, 1))
+    assert fa.tma_strides("v", one) == [64, 64, 64]
+
+
+def _within_flash_limit(got, plain32):
+    """The bf16 limit of the kernels against the plain f32 result: one bf16
+    ulp of it, or 1e-5 + 1e-4 |p| where that is wider. The share of values
+    beyond it."""
+    p = plain32.to(torch.float64)
+    _, e = torch.frexp(plain32)
+    ulp = torch.where(plain32 == 0, torch.zeros_like(plain32),
+                      torch.ldexp(torch.ones_like(plain32), e - 8))
+    limit = torch.maximum(1e-5 + 1e-4 * p.abs(), ulp.to(torch.float64))
+    return float(((got.to(torch.float64) - p).abs() > limit)
+                 .to(torch.float64).mean())
+
+
+def _pv_emulated(q, k, v, split):
+    """The Hopper kernel's PV product on the CPU: p in f32 as the plain
+    version makes it, the row sum l of the f32 p, the products of p's bf16
+    parts (p_hi = bf16(p), p_lo = bf16(p - p_hi); p_hi alone without
+    ``split``) with V taken in f64, the result divided by l and rounded to
+    bf16 once."""
+    Sq, D = q.shape[-2:]
+    s = torch.matmul(q, k.transpose(-1, -2)).mul_(1.0 / math.sqrt(D))
+    mask = fa.visible(torch.arange(Sq), torch.arange(k.shape[-2]),
+                      causal=True, sliding_window=0, prefix_global=0,
+                      kv_len=k.shape[-2])
+    s.masked_fill_(~mask, fa.NEG_INF)
+    p = (s - s.amax(-1, keepdim=True)).exp()
+    hi = p.to(torch.bfloat16).to(torch.float32)
+    parts = [hi, (p - hi).to(torch.bfloat16).to(torch.float32)]
+    acc = sum(torch.matmul(x.double(), v.double())
+              for x in (parts if split else parts[:1]))
+    return (acc / p.double().sum(-1, keepdim=True)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pv_split_keeps_the_one_ulp_limit(seed):
+    """p split into two bf16 parts keeps every output within the flash
+    limit of the plain f32 result on seeded bf16 inputs (B H = 4, S = 512,
+    D = 64, causal); one bf16 p, what a single bf16 wgmma operand would
+    give, does not (about 17 % of values beyond it here)."""
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(rng.randn(4, 512, 64).astype(np.float32))
+               .to(torch.bfloat16).to(torch.float32) for _ in range(3))
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    assert _within_flash_limit(_pv_emulated(q, k, v, True), want) == 0.0
+    assert _within_flash_limit(_pv_emulated(q, k, v, False), want) > 0.05

@@ -85,9 +85,15 @@ def test_cuda_kernels_match_plain_bitwise(cuda_device):
             want = bm.block_momentum_plain(w, v, a, 0.7, 1.0,
                                            nesterov=nesterov)
             assert all(torch.equal(x, y) for x, y in zip(got, want))
-        wl, gl = w.to(ld), v.to(ld)
-        assert torch.equal(sgd.sgd_apply_cuda(wl, gl, 0.1),
-                           sgd.sgd_apply_plain(wl, gl, 0.1))
+        # sgd_apply: a block of threads takes 256 vectors of 16 bytes; in
+        # bf16, 264 rows are 16.5 such chunks and 8 rows half of one, so
+        # the last block's bounds check runs; in place too
+        for rows in (ROWS, 8):
+            wl, gl = w[:rows].to(ld), v[:rows].to(ld)
+            want = sgd.sgd_apply_plain(wl, gl, 0.1)
+            assert torch.equal(sgd.sgd_apply_cuda(wl, gl, 0.1), want)
+            assert sgd.sgd_apply_cuda(wl, gl, 0.1, out=wl) is wl
+            assert torch.equal(wl, want)
 
 
 @pytest.mark.cuda
@@ -201,10 +207,12 @@ def flash_limit(got, plain32):
 
 @pytest.mark.cuda
 def test_cuda_flash_attention_matches_plain(cuda_device):
-    """On the card: the flash kernel against its plain version's f32
-    result on the same f32 or bf16 inputs, in the mask and shape cases of
-    the JAX kernel tests, on (B, S, H, D) projections and on a strided
-    view of them, through ``ops.flash_attention`` (counted)."""
+    """On the card: the flash kernels against the plain version's f32
+    result on the same inputs, bf16 through the Hopper kernel and f32
+    through the CUDA-core kernel (each counted under its own key), in the
+    mask and shape cases of the JAX kernel tests plus a causal D = 256 and
+    a D = 80 window, on (B, S, H, D) projections and on a strided view of
+    them, through ``ops.flash_attention``."""
     gen = torch.Generator(device=cuda_device).manual_seed(4)
 
     def bhsd(x):
@@ -224,7 +232,11 @@ def test_cuda_flash_attention_matches_plain(cuda_device):
                                    kv_len=10)),
         (2, 1, 1, 4, 2, 128, dict(causal=True)),
         (1, 33, 70, 4, 2, 112, dict(causal=False)),
+        (1, 300, 300, 4, 4, 256, dict(causal=True)),
+        (1, 200, 200, 4, 2, 80, dict(causal=True, sliding_window=50)),
     ]
+    key = {torch.float32: "flash_attention_f32",
+           torch.bfloat16: "flash_attention"}
     for B, Sq, Sk, H, KV, D, kw in cases:
         q = torch.randn(B, Sq, H, D, generator=gen, device=cuda_device)
         k = torch.randn(B, Sk, KV, D, generator=gen, device=cuda_device)
@@ -233,7 +245,9 @@ def test_cuda_flash_attention_matches_plain(cuda_device):
             qd, kd, vd = (x.to(dt) for x in (q, k, v))
             want = fa.flash_attention_plain(
                 *(bhsd(x).float() for x in (qd, kd, vd)), **kw)
+            ops.reset_launch_counts()
             got = fa.flash_attention_bshd_cuda(qd, kd, vd, **kw)
+            assert ops.launch_counts()[key[dt]] == 1
             assert got.dtype == dt and got.shape == q.shape
             ok, err = flash_limit(bhsd(got), want)
             assert ok, (B, Sq, Sk, H, KV, D, kw, dt, err)
@@ -241,12 +255,20 @@ def test_cuda_flash_attention_matches_plain(cuda_device):
     q = torch.randn(2, 80, 8, 64, generator=gen, device=cuda_device)
     k = torch.randn(2, 80, 2, 64, generator=gen, device=cuda_device)
     v = torch.randn(2, 80, 2, 64, generator=gen, device=cuda_device)
-    ops.reset_launch_counts()
-    got = ops.flash_attention(q[:, :, ::2], k, v, causal=True)
-    assert ops.launch_counts()["flash_attention"] == 1
-    ok, err = flash_limit(got, fa.flash_attention_bshd_plain(q[:, :, ::2],
-                                                             k, v))
-    assert ok, err
+    for dt in (torch.float32, torch.bfloat16):
+        qd, kd, vd = (x.to(dt) for x in (q, k, v))
+        ops.reset_launch_counts()
+        got = ops.flash_attention(qd[:, :, ::2], kd, vd, causal=True)
+        assert ops.launch_counts()[key[dt]] == 1
+        ok, err = flash_limit(got, fa.flash_attention_bshd_plain(
+            qd[:, :, ::2].float(), kd.float(), vd.float()))
+        assert ok, (dt, err)
+    # the Hopper kernel's layout check: no fallback, a ValueError
+    buf = torch.zeros(q.numel() + 8, dtype=torch.bfloat16,
+                      device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_bshd_cuda(buf[1:1 + q.numel()].view(q.shape), kd,
+                                     vd)
 
 
 @pytest.mark.cuda
@@ -270,7 +292,7 @@ def test_cuda_serving_matches_cpu(cuda_device):
         ops.reset_launch_counts()
         lg, cg = api.prefill(gparams, cfg, {"tokens": toks.to(cuda_device)},
                              20, use_pallas=True)
-        assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+        assert ops.launch_counts()["flash_attention_f32"] == cfg.num_layers
         lc, cc = api.prefill(params, cfg, {"tokens": toks}, 20,
                              use_pallas=True)
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=1e-5)

@@ -239,7 +239,8 @@ def test_launch_counter_counts_kernel_launches_only():
                                    "neighbor_mix": 0,
                                    "neighbor_mix_stepped": 0,
                                    "robust_reduce": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0,
+                                   "flash_attention_f32": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -195,6 +195,33 @@ def test_greedy_generate_matches_jax(setup, use_pallas):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_decode_past_the_cache_jax_clamps_port_refuses():
+    """Reduced Qwen3, a prompt of 8 tokens prefilled into 8 cache slots,
+    then one decode step. JAX clamps the row index (it overwrites the last
+    row) and gives finite logits at pos 9; the port's ``generate`` refuses
+    the call before prefill, since its in-place write would fault on the
+    card. One more slot is enough for both, and they agree there."""
+    jcfg, tcfg = _cfgs("qwen3-1.7b")
+    assert not tcfg.sliding_window
+    params = jax.device_get(japi.init_params(jax.random.PRNGKey(0), jcfg))
+    tparams = interop.params_from_jax(params)
+    toks = np.random.RandomState(6).randint(
+        0, jcfg.vocab_size, (B, 8)).astype(np.int32)
+    logits, cache = _jprefill(jcfg, params, toks, 8)
+    assert int(cache["pos"]) == 8 and cache["k"].shape[2] == 8
+    tok = np.argmax(logits, axis=-1).astype(np.int32)
+    logits, cache = jax.jit(lambda p, c, t: japi.decode_step(
+        p, jcfg, c, t))(params, cache, tok)
+    assert int(cache["pos"]) == 9
+    assert np.isfinite(np.asarray(logits)).all()
+    with torch.no_grad(), pytest.raises(ValueError, match="cache_len 8"):
+        serve.generate(tparams, tcfg, torch.from_numpy(toks), 1, 8)
+    with torch.no_grad():
+        got = serve.generate(tparams, tcfg, torch.from_numpy(toks), 1, 9)
+    want = jserve.generate(params, jcfg, jnp.asarray(toks), 1, 9)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_sampling_is_seeded():
     _, tcfg = _cfgs("qwen3-1.7b")
     tparams = api.init_params(torch.Generator().manual_seed(0), tcfg, "cpu")
