@@ -88,7 +88,29 @@ Phases (any failure raises and the script exits non-zero):
    launches, counted), finite logits, flash against plain prefill and
    decode against one forward (teacher forcing) within a bf16 limit,
    prefill ms, decode steps/s and tokens/s, peak memory, and one decode
-   step and one prefill profiled.
+   step and one prefill profiled;
+11. E1, the paper's acceptance, on the card: E1's CNN (hw=12) for 2 meta
+   steps of M-AVG with L=4, K=4, B=8 on the card and on the CPU from the
+   same params and CPU-drawn batches, packed and per-leaf, f32 with TF32
+   off, every loss and plane within rtol 1e-5 / atol 1e-6
+   (fused_momentum_broadcast, sgd_apply and block_momentum counted); then
+   ``repro_torch.benchmarks.convergence.main(quick=True, device="cuda")``:
+   the MLP, the CNN and the tiny transformer as K-AVG and M-AVG, samples
+   to target, speedup and whether each arm reached its target, with E1
+   (M-AVG needs at most 1.1x K-AVG's samples) asserted where the
+   reference asserts it;
+12. the checkpoint at full width: Qwen3-1.7B, widths unchanged, depth cut
+   to 6 of 28 layers, flat dense M-AVG with L=2 (the .npz is serialised in
+   host memory, so the host holds about twice the state), K=4, B=8, S=64,
+   2 meta steps; ``save_state`` of the 9.81 GB state into a temporary
+   directory under ``build/`` (removed afterwards), ``verify_checkpoint``,
+   a restore in place into a fresh Trainer (every plane bitwise equal, the
+   device memory allocated before, after and at its peak printed), one
+   more step from the resumed and the uninterrupted trainer (losses
+   within rtol 1e-5: ATen's embedding backward is not deterministic on
+   the card), a corrupt save that verify refuses and a torn save that
+   ``latest_verified_checkpoint`` skips; the save, verify and load
+   seconds and GB/s.
 
 The second-to-last line is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every phase
@@ -96,6 +118,7 @@ passed.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -212,6 +235,22 @@ def max_err(torch, got, want) -> float:
 def windows(rows: int):
     for r0 in range(0, rows, WINDOW_ROWS):
         yield slice(r0, min(r0 + WINDOW_ROWS, rows))
+
+
+@contextlib.contextmanager
+def full_f32(torch):
+    """Full float32 matmuls and convolutions on the card, as on the CPU,
+    for a card-vs-CPU parity check; the TF32 flags a user's run sees come
+    back after it."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
 
 
 def free(torch):
@@ -1373,9 +1412,6 @@ def card_vs_cpu(torch, ops) -> tuple[dict, dict]:
     from repro_torch.topology import make_topology
     from repro_torch.utils.tree import tree_leaves, tree_map
 
-    # full float32 matmuls on the card, as on the CPU
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
                               dtype="float32")
     gen = torch.Generator().manual_seed(0)
@@ -1542,8 +1578,6 @@ def robust_card_vs_cpu(torch, ops) -> dict:
     from repro_torch.topology import make_topology
     from repro_torch.utils.tree import tree_leaves, tree_map
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
                               dtype="float32")
     gen = torch.Generator().manual_seed(1)
@@ -1968,6 +2002,257 @@ def serving_full_width(torch, ops) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 11: E1, the paper's acceptance, on the card
+# ---------------------------------------------------------------------------
+
+E1_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def cnn_card_vs_cpu(torch, ops, packed: bool) -> dict:
+    """E1's CNN (hw=12), M-AVG, L=4, K=4, B=8, 2 meta steps on the card
+    and on the CPU from the same params and CPU-drawn batches, TF32 off;
+    per-step losses and every plane within E1_TOL. Returns the card run's
+    launch counts."""
+    from repro_torch.benchmarks.convergence import CNN_HW as hw
+    from repro_torch.configs.base import MAvgConfig
+    from repro_torch.core.meta import init_state, make_meta_step
+    from repro_torch.data import classif_batch_fn
+    from repro_torch.models.simple import cnn_init, cnn_loss
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    P, K, B = 4, 4, 8
+    params = cnn_init(torch.Generator().manual_seed(0), hw=hw, device="cpu")
+    bf = classif_batch_fn(hw * hw * 3, 10, P, K, B, device="cpu")
+    batches = []
+    for i in range(2):
+        b = bf(torch.Generator().manual_seed(1 + i), i)
+        batches.append({"x": b["x"].reshape(P, K, B, hw, hw, 3),
+                        "y": b["y"]})
+    cfg = MAvgConfig(algorithm="mavg", num_learners=P, k_steps=K,
+                     learner_lr=0.1, momentum=0.7, packed=packed)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        state = init_state(tree_map(lambda x: x.to(dev), params), cfg)
+        step = make_meta_step(cnn_loss, cfg)
+        ops.reset_launch_counts()
+        losses = []
+        for b in batches:
+            state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+            losses.append(m["loss"])
+        losses = [float(x) for x in losses]
+        runs[dev] = (losses, state, ops.launch_counts())
+    (cl, cs, cc), (gl, gs, gc) = runs["cpu"], runs["cuda"]
+    assert sum(cc.values()) == 0, cc
+    torch.testing.assert_close(torch.tensor(gl), torch.tensor(cl), **E1_TOL)
+    worst = 0.0
+    for field in ("global_params", "momentum", "learners"):
+        for a, b in zip(tree_leaves(getattr(gs, field)),
+                        tree_leaves(getattr(cs, field))):
+            torch.testing.assert_close(a.cpu(), b, **E1_TOL)
+            worst = max(worst, float((a.cpu() - b).abs().max()))
+    n_leaves = len(tree_leaves(params))
+    want = (dict(NO_LAUNCHES, fused_momentum_broadcast=2, sgd_apply=2 * K * P)
+            if packed else
+            dict(NO_LAUNCHES, block_momentum=2 * n_leaves,
+                 sgd_apply=2 * K * P * n_leaves))
+    assert gc == want, (gc, want)
+    print(f"  CNN {'packed' if packed else 'per-leaf'}: losses card "
+          f"{[round(x, 6) for x in gl]} cpu {[round(x, 6) for x in cl]}; "
+          f"max |card - cpu| over the planes {worst:.3e} (limit rtol 1e-5, "
+          f"atol 1e-6); card launches "
+          f"{ {k: v for k, v in gc.items() if v} }")
+    return gc
+
+
+def e1_on_the_card(torch, ops) -> dict:
+    """Phase 11. The CNN card vs CPU (packed and per-leaf), then
+    ``convergence.main(quick=True, device="cuda")``, counted. Returns the
+    launch counts summed over the phase."""
+    from repro_torch.benchmarks import convergence
+
+    total = dict(NO_LAUNCHES)
+    with full_f32(torch):
+        for packed in (True, False):
+            for k, v in cnn_card_vs_cpu(torch, ops, packed).items():
+                total[k] += v
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows, summaries = convergence.main(
+        quick=True, device="cuda", log=lambda s: print("  " + s))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    print(f"  E1 quick on the card in {seconds:.2f} s; launches {counts}")
+    # every arm runs packed flat M-AVG / K-AVG: one fused meta update a
+    # meta step and one SGD apply a local step of a learner
+    meta = sum(kw["steps"] for _, _, kw, _ in convergence.cases(True)) * 2
+    local = sum(kw["steps"] * kw["P"] * kw["K"]
+                for _, _, kw, _ in convergence.cases(True)) * 2
+    assert counts == dict(NO_LAUNCHES, fused_momentum_broadcast=meta,
+                          sgd_apply=local), counts
+    for r in rows:
+        assert math.isfinite(r[3]) and math.isfinite(r[4]), r
+    for s in summaries:
+        print(f"  E1 {s['model']}: samples to {s['target']}: K-AVG "
+              f"{s['k_stt']}, M-AVG {s['m_stt']}, speedup "
+              f"{s['speedup']}, reached K-AVG {s['kavg_reached']} M-AVG "
+              f"{s['mavg_reached']}, asserted {s['asserted']}")
+    for k, v in counts.items():
+        total[k] += v
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the checkpoint at full width
+# ---------------------------------------------------------------------------
+
+CKPT_L, CKPT_STEPS = 2, 2
+
+
+def checkpoint_full_width(torch, ops) -> dict:
+    """Phase 12. Qwen3-1.7B, every width unchanged, depth cut to DEPTH
+    layers, flat dense M-AVG, L=2, K=4, B=8, S=64, 2 meta steps; then save,
+    verify, restore in place into a fresh Trainer (bitwise, no second
+    state on the card), one more step from both, and the corrupt and torn
+    save faults. Returns the training run's launch counts."""
+    import tempfile
+
+    from repro_torch.checkpoint import (
+        CheckpointVerifyError,
+        latest_verified_checkpoint,
+        save_state,
+        verify_checkpoint,
+    )
+    from repro_torch.checkpoint.npz import (
+        CRC_SUFFIX,
+        _entries,
+        _entry_crc,
+        _host,
+    )
+    from repro_torch.configs.base import MAvgConfig, TrainConfig, get_config
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data import uniform_batch_fn
+    from repro_torch.models import api
+    from repro_torch.optim import warmup_cosine
+
+    full = get_config("qwen3-1.7b")
+    cfg = dataclasses.replace(full, num_layers=DEPTH)
+    k, batch, seq = 4, 8, 64
+    print(f"  config: {full.name} widths unchanged, depth cut "
+          f"{full.num_layers} -> {cfg.num_layers} layers; flat dense M-AVG, "
+          f"L={CKPT_L}, K={k}, B={batch}, S={seq}")
+    tcfg = TrainConfig(
+        model=cfg, mavg=MAvgConfig(algorithm="mavg", num_learners=CKPT_L,
+                                   k_steps=k),
+        batch_per_learner=batch, seq_len=seq, meta_steps=CKPT_STEPS)
+
+    def trainer():
+        return Trainer(
+            tcfg, lambda p, b: api.loss_fn(p, cfg, b),
+            init_params_fn=lambda gen: api.init_params(gen, cfg, "cuda"),
+            batch_fn=uniform_batch_fn(cfg, CKPT_L, k, batch, seq),
+            lr_schedule=warmup_cosine(LR, 5, CKPT_STEPS + 1), device="cuda",
+        )
+
+    def planes(state):
+        return [(key, x) for key, x in _entries(state)
+                if isinstance(x, torch.Tensor)]
+
+    live = trainer()
+    spec = live.state.spec
+    ops.reset_launch_counts()
+    live.run(log=lambda s: print("  " + s))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts == dict(NO_LAUNCHES, fused_momentum_broadcast=CKPT_STEPS,
+                          sgd_apply=CKPT_STEPS * k * CKPT_L), counts
+    state_bytes = sum(x.numel() * x.element_size()
+                      for _, x in planes(live.state))
+    print(f"  state: {spec.rows} rows x 128, {len(planes(live.state))} "
+          f"entries, {state_bytes / 1e9:.2f} GB; launches "
+          f"{ {key: v for key, v in counts.items() if v} }")
+    work = Path(tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        path = save_state(str(work), live.state, CKPT_STEPS)
+        save_s = time.perf_counter() - t0
+        nbytes = Path(path).stat().st_size
+        t0 = time.perf_counter()
+        verify_checkpoint(path)
+        verify_s = time.perf_counter() - t0
+
+        resumed = trainer()
+        before = planes(resumed.state)
+        assert not torch.equal(before[0][1], planes(live.state)[0][1])
+        ptrs = [x.data_ptr() for _, x in before]
+        torch.cuda.synchronize()
+        alloc0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        resumed.restore(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        alloc1 = torch.cuda.memory_allocated()
+        peak = torch.cuda.max_memory_allocated()
+        assert [x.data_ptr() for _, x in planes(resumed.state)] == ptrs
+        assert peak - alloc0 < 64 << 20, (alloc0, alloc1, peak)
+        assert resumed.state.step == live.state.step == CKPT_STEPS
+        for (key, a), (_, b) in zip(planes(live.state),
+                                    planes(resumed.state)):
+            assert a.dtype == b.dtype and torch.equal(a, b), key
+        print(f"  save {save_s:.2f} s ({nbytes / 1e9:.3f} GB on disk, "
+              f"{nbytes / 1e9 / save_s:.3f} GB/s); verify {verify_s:.2f} s "
+              f"({nbytes / 1e9 / verify_s:.3f} GB/s); load {load_s:.2f} s "
+              f"({nbytes / 1e9 / load_s:.3f} GB/s)")
+        # where a save's time goes: the device-to-host copies, and one
+        # CRC32 pass (the sidecar's; zipfile makes a second one)
+        t0 = time.perf_counter()
+        host = [_host(key, x)[0] for key, x in _entries(live.state)]
+        d2h_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for arr in host:
+            _entry_crc(arr)
+        crc_s = time.perf_counter() - t0
+        del host
+        print(f"  of a save: device-to-host copies {d2h_s:.2f} s "
+              f"({state_bytes / 1e9 / d2h_s:.3f} GB/s), one CRC32 pass "
+              f"{crc_s:.2f} s ({state_bytes / 1e9 / crc_s:.3f} GB/s)")
+        print(f"  restore in place: device memory allocated {alloc0 / 1e9:.3f} "
+              f"GB before, {alloc1 / 1e9:.3f} GB after, peak during the load "
+              f"{peak / 1e9:.3f} GB; every plane bitwise equal to the saved "
+              f"state")
+        a = live.run(1, log=None)[-1]["loss"]
+        b = resumed.run(1, log=None)[-1]["loss"]
+        assert math.isclose(a, b, rel_tol=1e-5), (a, b)
+        print(f"  one more step: uninterrupted loss {a:.6f}, resumed "
+              f"{b:.6f} (|rel diff| {abs(a - b) / abs(a):.2e}, limit 1e-5)")
+        del resumed
+        free(torch)
+
+        bad = save_state(str(work), live.state, CKPT_STEPS + 2,
+                         fault="corrupt")
+        try:
+            verify_checkpoint(bad)
+        except CheckpointVerifyError as e:
+            print(f"  corrupt save refused: {str(e).split(': ', 1)[1]}")
+        else:
+            raise AssertionError("a corrupt save passed verify_checkpoint")
+        Path(bad).unlink()
+        Path(bad + CRC_SUFFIX).unlink()
+        torn = save_state(str(work), live.state, CKPT_STEPS + 3, fault="torn")
+        assert not Path(torn + CRC_SUFFIX).exists()
+        got = latest_verified_checkpoint(str(work))
+        assert got == path, (got, path)
+        print(f"  torn save ({Path(torn).stat().st_size / 1e9:.3f} GB, no "
+              f"sidecar) skipped: latest verified is {Path(got).name}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del live
+    free(torch)
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2075,10 +2360,11 @@ def main() -> int:
     comm_counts = compressed_full_width(torch, ops)
 
     print("phase 6: card vs CPU, qwen3-1.7b.reduced() float32")
-    leaf_counts, topo_counts = card_vs_cpu(torch, ops)
-    print("phase 6, robust: card vs CPU, qwen3-1.7b.reduced() float32, "
-          f"L={L}, 3 meta steps")
-    robust_card_vs_cpu(torch, ops)
+    with full_f32(torch):
+        leaf_counts, topo_counts = card_vs_cpu(torch, ops)
+        print("phase 6, robust: card vs CPU, qwen3-1.7b.reduced() float32, "
+              f"L={L}, 3 meta steps")
+        robust_card_vs_cpu(torch, ops)
 
     from repro_torch.configs.base import (
         CommConfig,
@@ -2124,11 +2410,22 @@ def main() -> int:
     robust_counts = robust_full_width(torch, ops)
 
     print("phase 10: serving, card vs CPU on reduced configs (float32)")
-    f32_flash_launches = serving_card_vs_cpu(torch, ops)
+    with full_f32(torch):
+        f32_flash_launches = serving_card_vs_cpu(torch, ops)
     print(f"phase 10: serving full-width Qwen3-1.7B, 28 layers, B={SERVE_B}, "
           f"{SERVE_PROMPT}-token prompt, {SERVE_NEW} greedy tokens, flash "
           f"prefill")
     serve_counts = serving_full_width(torch, ops)
+
+    print("phase 11: E1 on the card: the CNN card vs CPU (M-AVG, L=4, K=4, "
+          "packed and per-leaf), then convergence.main(quick=True)")
+    e1_counts = e1_on_the_card(torch, ops)
+    print(f"phase 12: the checkpoint at full width ({DEPTH} layers), flat "
+          f"dense M-AVG, L={CKPT_L}: save, verify, restore in place, resume")
+    ckpt_counts = checkpoint_full_width(torch, ops)
+    for name in ("fused_momentum_broadcast", "sgd_apply", "block_momentum"):
+        assert e1_counts[name] > 0, (name, e1_counts)
+    assert ckpt_counts["fused_momentum_broadcast"] > 0, ckpt_counts
 
     # each kernel's launches in the run of the path it serves: the dense
     # and compressed full-width runs, the reduced per-leaf runs, the gossip

@@ -1,0 +1,82 @@
+"""Shared helpers of the port's benchmark runners: the teacher-
+classification MLP run and the samples-to-target metric, as in the JAX
+package's ``benchmarks/common.py``."""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import MAvgConfig
+from repro_torch.core.meta import init_state, make_meta_step
+from repro_torch.data import classif_batch_fn, classif_eval_set
+from repro_torch.models.simple import mlp_accuracy, mlp_init, mlp_loss
+from repro_torch.pack import unpack_params
+from repro_torch.utils.rng import seeded_generator
+
+D_IN, CLASSES, HIDDEN = 32, 10, 64
+
+
+def train_curve(loss_fn: Callable, cfg: MAvgConfig, params, batch_at,
+                steps: int) -> tuple[list[float], object]:
+    """Drive ``steps`` meta steps of ``make_meta_step(loss_fn, cfg)`` from
+    ``params`` on the batches ``batch_at(i)``; returns the per-step mean
+    local losses (read back once, at the end) and the final state."""
+    state = init_state(params, cfg)
+    step = make_meta_step(loss_fn, cfg)
+    losses = []
+    for i in range(steps):
+        state, m = step(state, batch_at(i))
+        losses.append(m["loss"])
+    return [float(x) for x in torch.stack(losses).tolist()], state
+
+
+def seeded_batches(batch_fn: Callable, seed: int, device) -> Callable:
+    """``batch_at(i)``: ``batch_fn`` on a generator keyed on (seed, i), the
+    port's counterpart of ``fold_in(PRNGKey(seed), i)``."""
+    return lambda i: batch_fn(seeded_generator(device, seed, i), i)
+
+
+def run_mlp(algorithm: str, *, P: int, K: int, mu: float, lr: float = 0.2,
+            steps: int = 60, batch: int = 16, seed: int = 0, device="cuda",
+            params: Optional[dict] = None,
+            batch_at: Optional[Callable] = None,
+            eval_set: Optional[dict] = None):
+    """Train the teacher-classification MLP with dense averaging on the
+    flat topology; returns (losses, val_acc).
+
+    ``params``, ``batch_at(i)`` and ``eval_set`` replace the port's own
+    initial params, batches and evaluation set (a parity test passes
+    JAX's, carried over with ``repro_torch.interop.params_from_jax``); by
+    default they are drawn from generators seeded on ``seed`` on
+    ``device``.
+    """
+    cfg = MAvgConfig(algorithm=algorithm, num_learners=P, k_steps=K,
+                     learner_lr=lr, momentum=mu)
+    if params is None:
+        params = mlp_init(seeded_generator(device, seed), D_IN, HIDDEN,
+                          CLASSES, device=device)
+    if batch_at is None:
+        batch_at = seeded_batches(
+            classif_batch_fn(D_IN, CLASSES, P, K, batch, device=device),
+            seed + 1, device)
+    losses, state = train_curve(mlp_loss, cfg, params, batch_at, steps)
+    if eval_set is None:
+        eval_set = classif_eval_set(D_IN, CLASSES, device=device)
+    with torch.no_grad():
+        acc = float(mlp_accuracy(unpack_params(state), eval_set))
+    return losses, acc
+
+
+def samples_to_target(losses, target: float, P: int, K: int, batch: int):
+    """First sample count at which the running-min loss crosses target.
+
+    This is the paper's speed-up metric (Lemma 4): M-AVG reaches a target
+    with fewer samples than K-AVG. Returns None if never reached.
+    """
+    best = float("inf")
+    for i, l in enumerate(losses):
+        best = min(best, l)
+        if best <= target:
+            return (i + 1) * P * K * batch
+    return None

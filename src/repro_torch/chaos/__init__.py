@@ -2,10 +2,10 @@
 # §13): a seeded, replayable FaultSchedule compiled from a frozen
 # ChaosConfig, and the injectors of the data (NaN/Inf batches), comm
 # (payload scale and bit-flip) and topology (crash windows onto the elastic
-# membership) layers. Straggle faults (the async server) and save faults
-# (the verified checkpoint chain) are compiled but raise where they would
-# be consumed: ROADMAP Queue 1, items 6-7. Recovery (the supervisor) is not
-# ported either.
+# membership) layers; the save faults go to the checkpoint writer through
+# the Trainer. Straggle faults (the async server) are compiled but raise
+# where they would be consumed: ROADMAP Queue 1, item 6. Recovery (the
+# supervisor) is not ported either (item 7).
 from repro_torch.chaos.config import (
     FAULT_KINDS,
     STANDARD_KINDS,

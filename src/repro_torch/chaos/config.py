@@ -25,13 +25,13 @@ Fault kinds, by the layer they perturb:
                           elastic membership mask for ``duration`` steps.
   straggle                the async server's step-time profile; the async
                           server is not ported (ROADMAP Queue 1, item 6).
-  torn_save / corrupt_save  the verified checkpoint chain; not ported
-                          (ROADMAP Queue 1, item 7).
+  torn_save / corrupt_save  checkpoint (``repro_torch.checkpoint``): the
+                          save at ``step`` is torn (truncated, no sidecar)
+                          or corrupted (one byte flipped after the save).
 
 The port compiles every kind into ``FaultSchedule``'s arrays, as JAX
-does, and raises NotImplementedError where an unported kind would be
-consumed (``inject.apply_chaos`` for straggle, the Trainer for save
-faults).
+does, and raises NotImplementedError where the unported straggle kind
+would be consumed (``inject.apply_chaos``).
 
 ``sticky``: a non-sticky fault is *transient*: it fires only on the first
 attempt (retry ``salt`` 0). A sticky fault re-fires on every retry.
@@ -165,7 +165,7 @@ def standard_chaos(num_learners: int, meta_steps: int, *, seed: int = 0,
     land in the first half so a supervised run has room to recover, the
     horizon covers the whole run so the crash schedule never wraps.
     ``kinds`` selects a subset (CLI ``--chaos-faults``); the port takes
-    crash, nan and payload, and raises on straggle and torn_save."""
+    crash, nan, payload and torn_save, and raises on straggle."""
     assert num_learners >= 2, num_learners
     assert meta_steps >= 8, (
         f"the standard chaos schedule needs >= 8 meta steps to place its "

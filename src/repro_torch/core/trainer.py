@@ -1,15 +1,20 @@
-"""Minimal training driver: model init, data, meta step, metric history.
+"""The training loop: model init, data, meta step, metric history and the
+checkpoint cadence.
 
-The JAX package's ``core/trainer.py`` without telemetry sinks or
-checkpointing (ROADMAP Queue 1, items 3 and 8). Metrics stay on the device
+The JAX package's ``core/trainer.py`` without telemetry sinks (ROADMAP
+Queue 1, item 8) or the supervisor (item 7). Metrics stay on the device
 between ``log_every`` boundaries; a flush reads them back once and adds
-host-side throughput.
+host-side throughput. With ``TrainConfig.checkpoint_dir`` and
+``checkpoint_every`` set, the state is saved (``repro_torch.checkpoint``)
+after every ``checkpoint_every``-th meta step, keeping the
+``checkpoint_keep`` newest verified snapshots; ``restore`` loads one back
+into the live state, in place.
 
 Fault injection (``repro_torch.chaos``) is wired as in JAX: the config
 transform (crash windows -> elastic membership) before the topology is
-built, the batch poisoner around ``batch_fn`` and the payload corruptor
-into the meta step. Save faults need the verified checkpoint chain, which
-is not ported: a schedule that holds one raises. Robust telemetry
+built, the batch poisoner around ``batch_fn``, the payload corruptor
+into the meta step, and the save faults (torn_save, corrupt_save) into
+the checkpoint writer. Robust telemetry
 (``repro_torch.robust``): each flush moves the ``robust_*`` metrics out of
 the step records into ``robust_records``, and the inline quarantine masks
 a persistently anomalous learner out of the membership schedule.
@@ -23,6 +28,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import load_state, save_state
 from repro_torch.configs.base import MAvgConfig, TrainConfig
 from repro_torch.core.meta import init_state, make_meta_step
 from repro_torch.robust import ROBUST_METRIC_PREFIX
@@ -48,6 +54,7 @@ class Trainer:
         self.lr_schedule = lr_schedule
         self.device = torch.device(device)
         chaos_corruptor = None
+        self._chaos_schedule = None
         if train_cfg.chaos is not None:
             from repro_torch.chaos import (
                 FaultSchedule,
@@ -60,11 +67,7 @@ class Trainer:
                                     salt=train_cfg.data_salt)
             schedule = FaultSchedule(train_cfg.chaos, self.mcfg.num_learners,
                                      salt=train_cfg.data_salt)
-            if schedule.save_faults:
-                raise NotImplementedError(
-                    "chaos torn_save/corrupt_save faults need the verified "
-                    "checkpoint chain, which is not ported yet (ROADMAP "
-                    "Queue 1, item 7)")
+            self._chaos_schedule = schedule
             self.batch_fn = wrap_batch_fn(batch_fn, schedule)
             if schedule.any_payload_faults:
                 chaos_corruptor = PayloadCorruptor(schedule)
@@ -136,7 +139,20 @@ class Trainer:
                         f"{m['meta_steps_per_sec']:.2f} steps/s "
                         f"{m['samples_per_sec']:.0f} samples/s "
                         f"({m['elapsed_s']:.1f}s)")
+            every = self.cfg.checkpoint_every
+            if self.cfg.checkpoint_dir and every and (step + 1) % every == 0:
+                sched = self._chaos_schedule
+                save_state(
+                    self.cfg.checkpoint_dir, self.state, step + 1,
+                    keep=self.cfg.checkpoint_keep,
+                    fault=None if sched is None else sched.save_fault(step + 1),
+                )
         return self.history
+
+    def restore(self, path):
+        """Load the checkpoint at ``path`` into the live state, in place;
+        the next ``run`` continues from its step."""
+        self.state = load_state(path, self.state)
 
     # ------------------------------------------------------------------
     # robust telemetry + inline quarantine

@@ -22,11 +22,20 @@ aggregation (``repro_torch.robust``: ``--robust-trim``, ``--robust-clip``,
 ``--robust-clip-window``, ``--robust-no-score``,
 ``--robust-quarantine-after``), ``--finite-guard`` the in-step NaN/Inf
 barrier, and ``--chaos`` the standard fault schedule
-(``repro_torch.chaos``: ``--chaos-seed``, ``--chaos-faults``). The flags
-mean what they mean in the JAX launcher. Its other flags (async, obs,
-checkpoints, the supervisor) are not ported yet; ``--topology async`` and
-``--supervise`` are refused, and so are the straggle and torn_save fault
-kinds.
+(``repro_torch.chaos``: ``--chaos-seed``, ``--chaos-faults``).
+``--checkpoint-dir`` saves the state every ``--checkpoint-every`` meta
+steps (``repro_torch.checkpoint``, the JAX package's file format), keeping
+the ``--checkpoint-keep`` newest verified snapshots; ``--resume`` restores
+the newest verified snapshot there (else the newest) before training, so
+a port run resumes a JAX run's checkpoint and the other way round. The
+flags mean what they mean in the JAX launcher. Its other flags (async,
+obs, the supervisor) are not ported yet; ``--topology async`` and
+``--supervise`` are refused, and so is the straggle fault kind.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --steps 4 --checkpoint-dir build/ck --checkpoint-every 2
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --steps 2 --checkpoint-dir build/ck --checkpoint-every 2 --resume
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ import argparse
 import torch
 
 from repro_torch.chaos import STANDARD_KINDS, standard_chaos
+from repro_torch.checkpoint import latest_checkpoint, latest_verified_checkpoint
 from repro_torch.configs.base import (
     AVERAGING_ALGOS,
     COMM_SCHEMES,
@@ -106,8 +116,8 @@ def main(argv=None) -> None:
                     help="seed of the standard chaos schedule")
     ap.add_argument("--chaos-faults", default=None,
                     help="comma subset of the standard fault kinds "
-                         "(crash,nan,payload; straggle and torn_save are "
-                         "not ported); default all")
+                         "(crash,nan,payload,torn_save; straggle is not "
+                         "ported); default all")
     ap.add_argument("--robust", default=None, choices=ROBUST_ESTIMATORS,
                     help="robust meta aggregation: the coordinate-wise "
                          "trimmed mean or median in place of the learner "
@@ -128,6 +138,17 @@ def main(argv=None) -> None:
     ap.add_argument("--finite-guard", action="store_true",
                     help="in-step NaN/Inf barrier: a poisoned learner is "
                          "reset to the global params before the mix")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=10,
+                    help="checkpoint cadence in meta steps (with "
+                         "--checkpoint-dir)")
+    ap.add_argument("--checkpoint-keep", type=int, default=0,
+                    help="keep only the N newest verified checkpoints "
+                         "(0 = keep all)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest VERIFIED checkpoint from "
+                         "--checkpoint-dir (torn/corrupt snapshots are "
+                         "skipped) before training")
     ap.add_argument("--supervise", action="store_true",
                     help="supervised rollback recovery (not ported)")
     ap.add_argument("--device", default="cuda",
@@ -139,8 +160,8 @@ def main(argv=None) -> None:
             "(ROADMAP Queue 1, item 6)")
     if args.supervise:
         raise NotImplementedError(
-            "--supervise: the supervisor and its verified checkpoint chain "
-            "are not ported yet (ROADMAP Queue 1, item 7)")
+            "--supervise: the supervisor's rollback is not ported yet "
+            "(ROADMAP Queue 1, item 7)")
     chaos_cfg = None
     if args.chaos:
         kinds = (tuple(k.strip() for k in args.chaos_faults.split(","))
@@ -192,7 +213,10 @@ def main(argv=None) -> None:
                           group_k=group_k, elastic=elastic))
     tcfg = TrainConfig(model=cfg, mavg=mcfg, batch_per_learner=args.batch,
                        seq_len=args.seq, meta_steps=args.steps,
-                       chaos=chaos_cfg)
+                       chaos=chaos_cfg, checkpoint_dir=args.checkpoint_dir,
+                       checkpoint_every=(args.checkpoint_every
+                                         if args.checkpoint_dir else 0),
+                       checkpoint_keep=args.checkpoint_keep)
     shape = (cfg, args.learners, args.k, args.batch, args.seq)
     batch_fn = (uniform_batch_fn(*shape) if args.full
                 else lm_batch_fn(*shape, device=device))
@@ -207,6 +231,13 @@ def main(argv=None) -> None:
         lr_schedule=warmup_cosine(args.lr, 5, args.steps),
         device=device,
     )
+    if args.resume:
+        ckpt = (latest_verified_checkpoint(args.checkpoint_dir or "")
+                or latest_checkpoint(args.checkpoint_dir or ""))
+        if ckpt is None:
+            raise SystemExit("--resume: no checkpoint in --checkpoint-dir")
+        trainer.restore(ckpt)
+        print(f"resumed from {ckpt}")
     history = trainer.run()
     line = (f"\nfinal train loss {history[-1]['loss']:.4f}  "
             f"samples {history[-1]['samples']}")

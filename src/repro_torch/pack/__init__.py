@@ -24,6 +24,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from functools import reduce
 
+import numpy as np
 import torch
 
 from repro_torch.utils.tree import tree_leaves, tree_paths, tree_unflatten
@@ -43,6 +44,17 @@ def _dtype(name) -> torch.dtype:
 def dtype_name(dt: torch.dtype) -> str:
     """'float32' / 'bfloat16' — the names JAX's PackSpec records."""
     return str(dt).removeprefix("torch.")
+
+
+def numpy_dtype(dt) -> np.dtype:
+    """The numpy dtype that holds a torch dtype, a dtype name or a numpy
+    dtype on the host: bfloat16, which numpy lacks, as raw 16-bit words
+    ``V2``."""
+    if isinstance(dt, torch.dtype):
+        dt = dtype_name(dt)
+    if isinstance(dt, str) and dt == "bfloat16":
+        return np.dtype("V2")
+    return np.dtype(dt)
 
 
 @dataclass(frozen=True)
@@ -141,6 +153,29 @@ class PackSpec:
                 .to(target)
             )
         return tree_unflatten(self.paths, leaves)
+
+    def pack_numpy(self, leaves, dtype=None) -> np.ndarray:
+        """Host-side pack of numpy leaves (the checkpoint's legacy per-leaf
+        restore): the leaves may carry any shared leading stack axes
+        (L / G / tau) before each recorded leaf shape. bfloat16, which
+        numpy lacks, packs as raw 16-bit words (``np.dtype("V2")``, the
+        dtype a bf16 leaf has in a JAX ``.npz``)."""
+        dt = numpy_dtype(self.dtype if dtype is None else dtype)
+        lead = tuple(leaves[0].shape[:leaves[0].ndim - len(self.shapes[0])])
+        buf = np.zeros(lead + (self.total,), dt)
+        # numpy assigns no void (V2) elements: copy their words as uint16
+        raw = buf.view(np.uint16) if dt.kind == "V" else buf
+        for arr, off, size, shape in zip(leaves, self.offsets, self.sizes,
+                                         self.shapes):
+            if tuple(arr.shape) != lead + tuple(shape):
+                raise ValueError(f"leaf of shape {arr.shape}, expected "
+                                 f"{lead + tuple(shape)}")
+            if (arr.dtype.kind == "V") != (dt.kind == "V"):
+                raise ValueError(f"cannot pack {arr.dtype} leaves into a "
+                                 f"{dt} buffer")
+            src = arr.view(np.uint16) if dt.kind == "V" else arr
+            raw[..., off:off + size] = src.reshape(lead + (-1,))
+        return buf.reshape(lead + (self.rows, LANES))
 
     # ------------------------------------------------------------------
     def layout_dict(self) -> dict:

@@ -308,3 +308,125 @@ def test_cuda_serving_matches_cpu(cuda_device):
                              use_pallas=True)
         want = serve.generate(params, cfg, toks, 6, 24, use_pallas=True)
         assert torch.equal(got.cpu(), want)
+
+
+def _no_tf32():
+    """Full float32 matmuls and convolutions on the card, as on the CPU;
+    returns the previous flags."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "per-leaf"])
+def test_cuda_cnn_meta_steps_match_cpu(cuda_device, packed):
+    """On the card: two M-AVG meta steps of E1's CNN (hw=12, L=2, K=2)
+    against the CPU from the same params and CPU-drawn batches, TF32 off,
+    within rtol 1e-5 / atol 1e-6, through the meta kernels."""
+    from repro_torch.configs.base import MAvgConfig
+    from repro_torch.core.meta import init_state, make_meta_step
+    from repro_torch.data import classif_batch_fn
+    from repro_torch.models.simple import cnn_init, cnn_loss
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    prev = _no_tf32()
+    try:
+        gen = torch.Generator().manual_seed(0)
+        params = cnn_init(gen, hw=12, device="cpu")
+        bf = classif_batch_fn(12 * 12 * 3, 10, 2, 2, 8, device="cpu")
+        batches = [bf(torch.Generator().manual_seed(1 + i), i)
+                   for i in range(2)]
+        batches = [{"x": b["x"].reshape(2, 2, 8, 12, 12, 3), "y": b["y"]}
+                   for b in batches]
+        cfg = MAvgConfig(algorithm="mavg", num_learners=2, k_steps=2,
+                         learner_lr=0.1, momentum=0.7, packed=packed)
+        runs = {}
+        for dev in ("cpu", cuda_device):
+            state = init_state(tree_map(lambda x: x.to(dev), params), cfg)
+            step = make_meta_step(cnn_loss, cfg)
+            ops.reset_launch_counts()
+            losses = []
+            for b in batches:
+                state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+                losses.append(float(m["loss"]))
+            runs[str(dev)] = (losses, state, ops.launch_counts())
+        (cl, cs, cc), (gl, gs, gc) = runs["cpu"], runs["cuda"]
+        torch.testing.assert_close(torch.tensor(gl), torch.tensor(cl),
+                                   rtol=1e-5, atol=1e-6)
+        for field in ("global_params", "momentum", "learners"):
+            for a, b in zip(tree_leaves(getattr(gs, field)),
+                            tree_leaves(getattr(cs, field))):
+                torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+        assert sum(cc.values()) == 0
+        assert gc["sgd_apply"] > 0
+        assert gc["fused_momentum_broadcast" if packed
+                  else "block_momentum"] > 0
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_cuda_checkpoint_round_trip(cuda_device, tmp_path, compute_dtype):
+    """On the card: a state saved after one meta step verifies, restores
+    in place into a fresh state on the card bitwise, and the next step
+    from both gives the same loss."""
+    from repro_torch.checkpoint import load_state, save_state
+    from repro_torch.checkpoint import verify_checkpoint
+    from repro_torch.checkpoint.npz import _entries
+    from repro_torch.configs.base import MAvgConfig
+    from repro_torch.core.meta import init_state, make_meta_step
+    from repro_torch.models.simple import mlp_init, mlp_loss
+
+    cfg = MAvgConfig(algorithm="mavg", num_learners=2, k_steps=2,
+                     learner_lr=0.1, momentum=0.7,
+                     compute_dtype=compute_dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def batch():
+        return {"x": torch.randn(2, 2, 4, 8, generator=gen,
+                                 device=cuda_device),
+                "y": torch.randint(0, 4, (2, 2, 4), generator=gen,
+                                   device=cuda_device)}
+
+    def fresh(seed):
+        g = torch.Generator(device=cuda_device).manual_seed(seed)
+        return init_state(mlp_init(g, 8, 16, 4, device=cuda_device), cfg)
+
+    step = make_meta_step(mlp_loss, cfg)
+    state, _ = step(fresh(1), batch())
+    path = save_state(str(tmp_path), state, 1)
+    verify_checkpoint(path)
+    template = fresh(2)
+    ptrs = [x.data_ptr() for _, x in _entries(template)
+            if isinstance(x, torch.Tensor)]
+    restored = load_state(path, template)
+    assert restored.step == 1
+    for (k, a), (_, b) in zip(_entries(state), _entries(restored)):
+        if isinstance(a, torch.Tensor):
+            assert b.is_cuda and a.dtype == b.dtype and torch.equal(a, b), k
+    assert [x.data_ptr() for _, x in _entries(restored)
+            if isinstance(x, torch.Tensor)] == ptrs
+    b = batch()
+    _, m1 = step(state, b)
+    _, m2 = step(restored, b)
+    torch.testing.assert_close(m2["loss"], m1["loss"], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_bigram_table_on_the_generators_device(cuda_device):
+    """The bigram stream builds its table on the generator's device."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import bigram_table, lm_batch_fn
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    assert bigram_table(gen, 16).device.type == "cuda"
+    cfg = get_config("qwen3-1.7b").reduced()
+    b = lm_batch_fn(cfg, 2, 2, 2, 8, device=cuda_device)(
+        torch.Generator(device=cuda_device).manual_seed(1), 0)
+    assert b["tokens"].device.type == "cuda"
+    assert b["tokens"].shape == (2, 2, 2, 8)

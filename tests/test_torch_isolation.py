@@ -1,5 +1,6 @@
-"""The port stands alone: it imports no JAX and nothing of ``repro``, and
-its configs equal the JAX package's field for field."""
+"""The port stands alone: it imports no JAX, nothing of ``repro``, nothing
+of the root ``benchmarks`` package (which imports JAX) and no
+``ml_dtypes``, and its configs equal the JAX package's field for field."""
 import dataclasses
 import os
 import re
@@ -16,8 +17,9 @@ from repro_torch.configs import base as tbase  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)",
-                       re.MULTILINE)
+FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro|benchmarks|ml_dtypes)"
+    r"(?:\.|\s|$)", re.MULTILINE)
 
 
 def test_no_jax_or_repro_import_in_sources():
@@ -37,9 +39,11 @@ def test_importing_every_module_loads_no_jax():
         "repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 20 else 0)\n"
+        "('jax', 'jaxlib', 'repro', 'benchmarks', 'ml_dtypes'))\n"
+        "subs = {'repro_torch.benchmarks.convergence', "
+        "'repro_torch.checkpoint.npz', 'repro_torch.examples.quickstart'}\n"
+        "print(len(names), bad, sorted(subs - set(names)))\n"
+        "sys.exit(1 if bad or len(names) < 20 or subs - set(names) else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
