@@ -110,7 +110,33 @@ Phases (any failure raises and the script exits non-zero):
    within rtol 1e-5: ATen's embedding backward is not deterministic on
    the card), a corrupt save that verify refuses and a torn save that
    ``latest_verified_checkpoint`` skips; the save, verify and load
-   seconds and GB/s.
+   seconds and GB/s;
+13. telemetry (``repro_torch.obs``) and supervised recovery:
+   (a) phase 4's configuration (full-width, full-depth Qwen3-1.7B, flat
+   dense M-AVG, L=4, K=4, B=8, S=64) for 4 meta steps with the JSONL sink,
+   the ``obs.*`` spans, the torch profiler and the health watchdogs on and
+   log_every=2: the host reads the metric ring once per flush (2 flushes),
+   ``tools/check_telemetry.py`` accepts the log (run as a subprocess),
+   ``trace.json`` holds the dispatch and flush spans, the torch trace is
+   written, no alert fires; 2 steps with the profiler off before and 2
+   after give the unprofiled meta step with telemetry on, printed beside
+   phase 4's;
+   (b) ``profile_phases`` on phase 12's state (6 layers, L=2; a clone of
+   the full-depth L=4 state would not fit the card): the whole step, the
+   local phase and the meta mix, median and IQR, and
+   ``measured_peak_gbps``; (c) the Supervisor on phase 12's configuration
+   with the depth cut further, to 1 of 28 layers (widths unchanged, L=2,
+   K=4, B=8, S=64: the run saves four snapshots, verifies two and loads
+   one on the host, and at 6 layers the phase took 262 s), with the finite
+   guard, a checkpoint every 2 steps, log_every=1 and the watchdogs, a NaN
+   batch on learner 0 at step 3 of 6 (the token batches carry a
+   per-sequence loss weight of ones, the float leaf the NaN poisoner
+   writes into): the run reaches step 6 with every plane finite, the
+   first fault is ``nonfinite_loss`` on learner 0, the first recovery is
+   attempt 1 with a rollback, the log passes the checker, the peak device
+   memory stays under twice the state and at most 256 MB of the failed
+   attempt is still allocated when the retry's trainer is built (no
+   second state), and the seconds from the halt to the resumed step.
 
 The second-to-last line is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every phase
@@ -1093,7 +1119,9 @@ def check_flash_attention(torch, fa) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
-def full_width_training(torch, ops) -> dict:
+def full_width_training(torch, ops) -> tuple[dict, float]:
+    """Phase 4. Returns the launch counts and the last unprofiled meta
+    step's wall time in ms."""
     from repro_torch.configs.base import MAvgConfig, TrainConfig, get_config
     from repro_torch.core.trainer import Trainer
     from repro_torch.data import uniform_batch_fn
@@ -1142,10 +1170,11 @@ def full_width_training(torch, ops) -> dict:
           f"({steps / seconds:.3f} meta steps/s; last step alone "
           f"{history[-1]['meta_steps_per_sec']:.3f} meta steps/s, "
           f"{history[-1]['samples_per_sec']:.1f} samples/s)")
-    profile_meta_step(torch, trainer, 1e3 / history[-1]["meta_steps_per_sec"])
+    step_ms = 1e3 / history[-1]["meta_steps_per_sec"]
+    profile_meta_step(torch, trainer, step_ms)
     del trainer, state
     free(torch)
-    return counts
+    return counts, step_ms
 
 
 NO_LAUNCHES = dict(fused_momentum_broadcast=0, block_momentum=0,
@@ -2253,6 +2282,308 @@ def checkpoint_full_width(torch, ops) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: telemetry on the dense main path, attribution, supervised
+# recovery
+# ---------------------------------------------------------------------------
+
+OBS_STEPS, OBS_MORE = 4, 2
+# 13c's depth: every width of Qwen3-1.7B, 1 of its 28 layers. The
+# supervised run saves four snapshots, verifies two and loads one, all on
+# the host at ~0.3 GB/s; at phase 12's 6 layers (9.81 GB) the phase took
+# 262 s on the card, at 1 layer the state is 5.78 GB
+SUP_DEPTH, SUP_STEPS = 1, 6
+
+
+def check_telemetry(path: Path) -> str:
+    """``tools/check_telemetry.py`` on a run log, as a subprocess; raises
+    unless it exits 0."""
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "check_telemetry.py"),
+         str(path)], capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    return out.stdout.strip()
+
+
+def telemetry_full_width(torch, ops, phase4_ms: float) -> dict:
+    """Phase 13a. Phase 4's configuration (full-width, full-depth
+    Qwen3-1.7B, flat dense M-AVG, L=4, K=4, B=8, S=64) with the JSONL
+    sink, the spans, the torch profiler and the health watchdogs on,
+    log_every=2: OBS_MORE steps with the profiler off, OBS_STEPS profiled
+    steps, OBS_MORE more with the profiler off (the unprofiled step time
+    before and after a profile). Returns the launch counts of the
+    profiled run."""
+    import tempfile
+
+    from repro_torch.configs.base import (
+        MAvgConfig,
+        ObsConfig,
+        TrainConfig,
+        get_config,
+    )
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data import uniform_batch_fn
+    from repro_torch.models import api
+    from repro_torch.optim import warmup_cosine
+
+    cfg = get_config("qwen3-1.7b")
+    k, batch, seq = 4, 8, 64
+    work = Path(tempfile.mkdtemp(prefix="obs_", dir=ROOT / "build"))
+    run_dir = work / "run"
+    try:
+        tcfg = TrainConfig(
+            model=cfg, mavg=MAvgConfig(algorithm="mavg", num_learners=L,
+                                       k_steps=k),
+            batch_per_learner=batch, seq_len=seq, meta_steps=OBS_STEPS,
+            log_every=2,
+            obs=ObsConfig(sink="jsonl", run_dir=str(run_dir), trace=True,
+                          profiler=True, health=True))
+        trainer = Trainer(
+            tcfg, lambda p, b: api.loss_fn(p, cfg, b),
+            init_params_fn=lambda gen: api.init_params(gen, cfg, "cuda"),
+            batch_fn=uniform_batch_fn(cfg, L, k, batch, seq),
+            lr_schedule=warmup_cosine(LR, 5, OBS_STEPS + 2 * OBS_MORE),
+            device="cuda")
+        profiled = trainer.obs_cfg
+        unprofiled = dataclasses.replace(profiled, profiler=False)
+
+        def window(label):
+            # OBS_MORE unprofiled steps with the sink, spans and watchdogs
+            # on: one flush window, so its rate is the steps' mean
+            trainer.obs_cfg = unprofiled
+            first = len(trainer.history)
+            out = trainer.run(OBS_MORE, log=None)[first:]
+            trainer.obs_cfg = profiled
+            ms = 1e3 / out[-1]["meta_steps_per_sec"]
+            print(f"  unprofiled meta step with telemetry on, {label}: "
+                  f"{ms:.1f} ms (mean of steps {out[0]['meta_step']}-"
+                  f"{out[-1]['meta_step']})")
+            return ms
+
+        before_ms = window("before the profiled run")
+        syncs = trainer._mb.host_syncs
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        history = trainer.run(log=None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        assert counts == dict(NO_LAUNCHES, fused_momentum_broadcast=OBS_STEPS,
+                              sgd_apply=OBS_STEPS * k * L), counts
+        # log_every=2 sizes the ring to 2 rows: a flush when it fills
+        # after 2 steps, and the final one
+        assert trainer._mb.buf.is_cuda
+        assert trainer._mb.host_syncs - syncs == 2, trainer._mb.host_syncs
+        history = history[OBS_MORE:]
+        assert [h["meta_step"] for h in history] == list(
+            range(OBS_MORE, OBS_MORE + OBS_STEPS))
+        losses = [h["loss"] for h in history]
+        assert all(math.isfinite(x) for x in losses), losses
+        assert trainer._monitor.alerts == [], trainer._monitor.alerts
+        names = {e["name"] for e in json.load(
+            open(run_dir / "trace.json"))["traceEvents"]}
+        assert {"obs.dispatch", "obs.host_flush", "obs.sink_append"} <= \
+            names, names
+        tt = [p for p in (run_dir / "torch_trace").iterdir()
+              if p.stat().st_size > 0]
+        assert tt, "the torch trace directory is empty"
+        spans = trainer.tracer.summary()
+        print(f"  {OBS_STEPS} profiled meta steps in {seconds:.2f} s; "
+              f"host reads of the metric ring "
+              f"{trainer._mb.host_syncs - syncs} (flushes 2); alerts none; "
+              f"losses "
+              f"{[round(x, 4) for x in losses]}")
+        print("  spans: " + ", ".join(
+            f"{n} {v['count']}x {v['mean_s'] * 1e3:.2f} ms"
+            for n, v in sorted(spans.items())))
+        print(f"  torch trace: {', '.join(p.name for p in tt)} "
+              f"({sum(p.stat().st_size for p in tt) / 1e6:.1f} MB)")
+        after_ms = window("after the profiled run")
+        trainer.close()
+        print("  " + check_telemetry(run_dir / "run.jsonl"))
+        print(f"  unprofiled meta step with telemetry on {before_ms:.1f} ms "
+              f"before the profiled run, {after_ms:.1f} ms after it; phase "
+              f"4, telemetry off: {phase4_ms:.1f} ms (its last step)")
+        del trainer
+        free(torch)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
+def attribution_on_the_card(torch) -> None:
+    """Phase 13b. ``profile_phases`` on phase 12's state (Qwen3-1.7B
+    widths, DEPTH layers, flat dense M-AVG, L=2, K=4, B=8, S=64): the
+    whole step, the local phase and the meta mix, each timed on one clone
+    of the state (a full-depth L=4 state would not fit twice)."""
+    from repro_torch.configs.base import MAvgConfig, get_config
+    from repro_torch.core.meta import init_state
+    from repro_torch.data import uniform_batch_fn
+    from repro_torch.models import api
+    from repro_torch.obs import measured_peak_gbps, profile_phases
+    from repro_torch.utils.rng import seeded_generator
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=DEPTH)
+    k = 4
+    mcfg = MAvgConfig(algorithm="mavg", num_learners=CKPT_L, k_steps=k)
+    state = init_state(api.init_params(seeded_generator("cuda", 0, 0), cfg,
+                                       "cuda"), mcfg)
+    batches = uniform_batch_fn(cfg, CKPT_L, k, 8, 64)(
+        seeded_generator("cuda", 0, 1, 0), 0)
+    peak = measured_peak_gbps()
+    peak_1g = measured_peak_gbps(1 << 30)
+    rows = profile_phases(lambda p, b: api.loss_fn(p, cfg, b), mcfg, state,
+                          batches, iters=5, warmup=2, peak_gbps=peak)
+    assert [r["op"] for r in rows] == ["phase:step", "phase:local",
+                                       "phase:meta_mix"], rows
+    for r in rows:
+        assert r["backend"] == "cuda", r
+        assert math.isfinite(r["median_us"]) and r["median_us"] > 0, r
+        print(f"  {r['op']}: median {r['median_us']:.1f} us, IQR "
+              f"{r['iqr_us']:.1f} us ({r['iters']} timed, {r['warmup']} "
+              f"warm-up)")
+    print(f"  measured_peak_gbps: {peak:.1f} GB/s (triad over 64 MiB), "
+          f"{peak_1g:.1f} GB/s (over 1 GiB)")
+    assert state.step == 0  # the live state was not stepped
+    del state, batches
+    free(torch)
+
+
+def supervised_recovery(torch, ops) -> dict:
+    """Phase 13c. Qwen3-1.7B widths, depth cut to SUP_DEPTH layers, flat
+    dense M-AVG, L=2, K=4, B=8, S=64, the finite guard, a checkpoint every
+    2 steps, log_every=1, the health watchdogs; a NaN batch on learner 0 at
+    step 3 of SUP_STEPS, under the Supervisor. The token batches carry a
+    per-sequence loss weight (ones, f32): the float leaf the NaN poisoner
+    writes into. Returns the launch counts of the whole supervised run."""
+    import tempfile
+
+    from repro_torch.chaos import ChaosConfig, FaultSpec
+    from repro_torch.configs.base import (
+        MAvgConfig,
+        ObsConfig,
+        TrainConfig,
+        get_config,
+    )
+    from repro_torch.core.supervisor import Supervisor
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data import uniform_batch_fn
+    from repro_torch.models import api
+    from repro_torch.obs import HealthHalt
+    from repro_torch.optim import warmup_cosine
+
+    full = get_config("qwen3-1.7b")
+    cfg = dataclasses.replace(full, num_layers=SUP_DEPTH)
+    k, batch, seq = 4, 8, 64
+    tokens = uniform_batch_fn(cfg, CKPT_L, k, batch, seq)
+
+    def batch_fn(gen, step):
+        b = tokens(gen, step)
+        b["weight"] = torch.ones(CKPT_L, k, batch, device="cuda")
+        return b
+
+    def loss_fn(p, b):
+        loss, aux = api.loss_fn(p, cfg, b)
+        return loss * b["weight"].mean(), aux
+
+    chaos = ChaosConfig(seed=0, horizon=SUP_STEPS, faults=(
+        FaultSpec("nan_batch", step=3, learner=0),))
+    work = Path(tempfile.mkdtemp(prefix="sup_", dir=ROOT / "build"))
+    marks: dict[str, float] = {}
+    attempts = []
+
+    def make_trainer(plan):
+        attempts.append(plan.attempt)
+        if plan.attempt:  # the failed attempt's state must be gone by now
+            marks["retry_entry"] = torch.cuda.memory_allocated() - marks[
+                "alloc0"]
+        tr = Trainer(
+            TrainConfig(
+                model=cfg,
+                mavg=MAvgConfig(algorithm="mavg", num_learners=CKPT_L,
+                                k_steps=k, finite_guard=True),
+                batch_per_learner=batch, seq_len=seq, meta_steps=SUP_STEPS,
+                log_every=1, checkpoint_dir=str(work / "ckpt"),
+                checkpoint_every=2, chaos=chaos, data_salt=plan.data_salt,
+                obs=ObsConfig(sink="jsonl", run_dir=str(work / "run"),
+                              health=True)),
+            loss_fn,
+            init_params_fn=lambda gen: api.init_params(gen, cfg, "cuda"),
+            batch_fn=batch_fn,
+            lr_schedule=warmup_cosine(LR * plan.lr_scale, 5, SUP_STEPS),
+            device="cuda")
+        run = tr.run
+
+        def timed_run(*a, **kw):
+            try:
+                return run(*a, **kw)
+            except HealthHalt:
+                marks["halt"] = time.perf_counter()
+                marks["peak0"] = (torch.cuda.max_memory_allocated()
+                                  - marks["alloc0"])
+                torch.cuda.reset_peak_memory_stats()
+                raise
+
+        tr.run = timed_run
+        return tr
+
+    def log(line):
+        if "halt" in marks and "resumed" not in marks and \
+                not line.startswith("[supervisor]"):
+            marks["resumed"] = time.perf_counter()
+        print("  " + line)
+
+    try:
+        free(torch)
+        marks["alloc0"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        sup = Supervisor(make_trainer, target_steps=SUP_STEPS,
+                         checkpoint_dir=str(work / "ckpt"))
+        trainer, history = sup.run(log=log)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak1 = torch.cuda.max_memory_allocated() - marks["alloc0"]
+        peak = max(marks["peak0"], peak1)
+        state = trainer.state
+        state_bytes = sum(x.numel() * x.element_size() for x in (
+            state.global_params, state.momentum, state.learners))
+        trainer.close()
+        assert state.step == SUP_STEPS, state.step
+        for name in ("global_params", "momentum", "learners"):
+            assert bool(torch.isfinite(getattr(state, name)).all()), name
+        faults = [r for r in sup.records if r["kind"] == "fault"]
+        recoveries = [r for r in sup.records if r["kind"] == "recovery"]
+        assert faults and faults[0]["fault"] == "nonfinite_loss", faults
+        assert faults[0]["learner"] == 0, faults
+        assert recoveries and recoveries[0]["attempt"] == 1, recoveries
+        assert "rollback" in recoveries[0]["policy"], recoveries
+        assert attempts == [0, 1], attempts
+        assert peak < 2 * state_bytes, (peak, state_bytes)
+        assert marks["retry_entry"] < 256 << 20, marks
+        print("  " + check_telemetry(work / "run" / "run.jsonl"))
+        f, r = faults[0], recoveries[0]
+        print(f"  fault {f['fault']} on learner {f['learner']} at meta_step "
+              f"{f['meta_step']}; recovery attempt {r['attempt']}, "
+              f"{r['policy']}, resumed at meta_step {r['meta_step']} from "
+              f"{Path(r['resume_path']).name}")
+        print(f"  halt to resumed step {marks['resumed'] - marks['halt']:.2f}"
+              f" s; the supervised run {seconds:.2f} s for {SUP_STEPS} "
+              f"target steps ({len(history)} step records)")
+        print(f"  device memory above the start: peak {marks['peak0'] / 1e9:.3f}"
+              f" GB in attempt 0, {peak1 / 1e9:.3f} GB in attempt 1, against "
+              f"a state of {state_bytes / 1e9:.3f} GB (limit twice the "
+              f"state); {marks['retry_entry'] / 1e6:.1f} MB still allocated "
+              f"when the retry's trainer was built (limit 256 MB)")
+        del trainer, state
+        free(torch)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2353,7 +2684,7 @@ def main() -> int:
               f"library {r['library_ms']}")
 
     print("phase 4: full-width Qwen3-1.7B M-AVG trainer, dense")
-    dense_counts = full_width_training(torch, ops)
+    dense_counts, dense_step_ms = full_width_training(torch, ops)
 
     print(f"phase 5: full-width Qwen3-1.7B M-AVG trainer, int8 + error "
           f"feedback, L={L_COMM}")
@@ -2426,6 +2757,21 @@ def main() -> int:
     for name in ("fused_momentum_broadcast", "sgd_apply", "block_momentum"):
         assert e1_counts[name] > 0, (name, e1_counts)
     assert ckpt_counts["fused_momentum_broadcast"] > 0, ckpt_counts
+
+    print(f"phase 13a: telemetry on the dense main path: full-width "
+          f"Qwen3-1.7B, 28 layers, L={L}, JSONL sink, spans, torch "
+          f"profiler, health, log_every=2, {OBS_STEPS} meta steps")
+    obs_counts = telemetry_full_width(torch, ops, dense_step_ms)
+    print(f"phase 13b: attribution (profile_phases) on phase 12's state "
+          f"({DEPTH} layers, L={CKPT_L})")
+    attribution_on_the_card(torch)
+    print(f"phase 13c: supervised recovery at full width ({SUP_DEPTH} "
+          f"layers), L={CKPT_L}, finite guard, nan_batch on learner 0 at "
+          f"step 3 of {SUP_STEPS}")
+    sup_counts = supervised_recovery(torch, ops)
+    for counts in (obs_counts, sup_counts):
+        assert counts["fused_momentum_broadcast"] > 0, counts
+        assert counts["sgd_apply"] > 0, counts
 
     # each kernel's launches in the run of the path it serves: the dense
     # and compressed full-width runs, the reduced per-leaf runs, the gossip

@@ -4,8 +4,8 @@
 # (payload scale and bit-flip) and topology (crash windows onto the elastic
 # membership) layers; the save faults go to the checkpoint writer through
 # the Trainer. Straggle faults (the async server) are compiled but raise
-# where they would be consumed: ROADMAP Queue 1, item 6. Recovery (the
-# supervisor) is not ported either (item 7).
+# where they would be consumed: ROADMAP Queue 1, item 6. Recovery is the
+# supervisor's (core/supervisor.py).
 from repro_torch.chaos.config import (
     FAULT_KINDS,
     STANDARD_KINDS,

@@ -36,10 +36,10 @@ Where the port departs from JAX:
     not fit one card. JAX's functional load returns a new state. Every
     entry's presence and shape is checked before the first copy, so a
     refused checkpoint leaves the template untouched.
-  * The port has no ``repro.obs`` (ROADMAP Queue 1, item 8), so nothing in
-    it makes a run manifest: ``save_state(manifest=None)`` writes no
-    ``manifest.json``, and the loader ignores a JAX directory's manifest
-    (it is not part of the snapshot).
+  * ``manifest.json`` is written when ``save_state`` is given a manifest
+    (the Trainer passes its ``repro_torch.obs`` run manifest, as in JAX);
+    the loader ignores it in either package's directory (it is not part
+    of the snapshot).
   * The npz is serialised in memory as in JAX, but written from the
     buffer without copying it again, so the host holds about twice the
     state rather than three times.

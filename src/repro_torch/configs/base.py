@@ -669,13 +669,11 @@ class ObsConfig:
     trace            phase span timers (dispatch / host_flush /
                      checkpoint_io / sink) + Chrome-trace export to
                      ``run_dir/trace.json`` at the end of each run
-    profiler         capture a jax.profiler device trace of the run into
-                     ``run_dir/jax_trace`` (best-effort; needs profiler
-                     support in the jax build)
-    cost_analysis    record the compiled meta step's measured HBM /
-                     peak-state / flops numbers (roofline.hlo_cost
-                     .jit_cost) into the run manifest — one extra AOT
-                     compile of the step at first dispatch
+    profiler         capture a torch.profiler trace of the run (CPU and,
+                     on the card, its kernels) into ``run_dir/torch_trace``
+    cost_analysis    the compiled meta step's cost in the run manifest
+                     (JAX: roofline.hlo_cost.jit_cost). Not ported: the
+                     port's Trainer refuses it (ROADMAP Queue 1, item 10)
     health           run-health watchdogs (obs.health): declarative rules
                      evaluated over each flushed metric window, emitting
                      structured ``alert`` records into the sink. Consumes
@@ -684,12 +682,10 @@ class ObsConfig:
     health_halt      fatal rules (NaN loss, divergence) halt the run with
                      a resumable checkpoint + HealthHalt; False records
                      the alerts but never stops
-    attribution      measured-vs-modeled phase attribution (obs.profile):
-                     at init, steady-state-time the jitted step / local
-                     phase / meta mix against their compiled-HLO modeled
-                     bytes and record achieved-GB/s rows into the sink —
-                     a few extra untimed compiles + timing iterations
-                     before step 0, nothing in the loop
+    attribution      phase attribution (obs.profile): before step 0,
+                     steady-state-time the meta step / local phase / meta
+                     mix on a clone of the state and record the rows into
+                     the sink; nothing in the loop
     """
 
     sink: str = "none"

@@ -1,27 +1,41 @@
-"""The training loop: model init, data, meta step, metric history and the
-checkpoint cadence.
+"""The training loop: model init, data, meta step, telemetry, the
+checkpoint cadence and the health halt (the JAX package's
+``core/trainer.py``).
 
-The JAX package's ``core/trainer.py`` without telemetry sinks (ROADMAP
-Queue 1, item 8) or the supervisor (item 7). Metrics stay on the device
-between ``log_every`` boundaries; a flush reads them back once and adds
-host-side throughput. With ``TrainConfig.checkpoint_dir`` and
-``checkpoint_every`` set, the state is saved (``repro_torch.checkpoint``)
-after every ``checkpoint_every``-th meta step, keeping the
-``checkpoint_keep`` newest verified snapshots; ``restore`` loads one back
-into the live state, in place.
+Telemetry (``repro_torch.obs``, DESIGN.md §11): every per-step scalar the
+meta step returns is written into a ``MetricsBuffer`` ring on the state's
+device, so the host reads no metric between ``log_every`` boundaries: one
+device-to-host read per flush window is the only sync. Flushed records,
+with host-side wall-clock throughput, land in ``self.history`` and, when
+``TrainConfig.obs`` selects a sink, in a structured run log under a run
+manifest. ``obs.trace`` times the ``obs.*`` phases and exports a Chrome
+trace, ``obs.profiler`` a ``torch.profiler`` trace, ``obs.health``
+watches the flushed windows (a fatal rule saves a resumable checkpoint
+and raises ``HealthHalt``), and ``obs.attribution`` times the step, the
+local phase and the meta mix once before step 0. ``obs.cost_analysis``
+is refused: XLA's cost model has no counterpart here yet (ROADMAP Queue 1,
+item 10).
+
+With ``TrainConfig.checkpoint_dir`` and ``checkpoint_every`` set, the
+state is saved (``repro_torch.checkpoint``, with the run manifest) after
+every ``checkpoint_every``-th meta step, keeping the ``checkpoint_keep``
+newest verified snapshots; ``restore`` loads one back into the live
+state, in place, and the next run appends to the same run log.
 
 Fault injection (``repro_torch.chaos``) is wired as in JAX: the config
 transform (crash windows -> elastic membership) before the topology is
 built, the batch poisoner around ``batch_fn``, the payload corruptor
 into the meta step, and the save faults (torn_save, corrupt_save) into
-the checkpoint writer. Robust telemetry
-(``repro_torch.robust``): each flush moves the ``robust_*`` metrics out of
-the step records into ``robust_records``, and the inline quarantine masks
-a persistently anomalous learner out of the membership schedule.
+the checkpoint writer. ``TrainConfig.data_salt`` (a supervisor retry)
+redraws the data stream. Robust telemetry (``repro_torch.robust``): each
+flush moves the ``robust_*`` metrics out of the step records into
+``robust`` records, and the inline quarantine masks a persistently
+anomalous learner out of the membership schedule.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, Optional
 
@@ -31,6 +45,17 @@ import torch
 from repro_torch.checkpoint import load_state, save_state
 from repro_torch.configs.base import MAvgConfig, TrainConfig
 from repro_torch.core.meta import init_state, make_meta_step
+from repro_torch.obs import (
+    HealthHalt,
+    MetricsBuffer,
+    Tracer,
+    make_monitor,
+    make_sink,
+    measured_peak_gbps,
+    metric_keys,
+    profile_phases,
+    run_manifest,
+)
 from repro_torch.robust import ROBUST_METRIC_PREFIX
 from repro_torch.utils.rng import seeded_generator
 
@@ -47,8 +72,14 @@ class Trainer:
     ):
         from repro_torch.topology import make_topology
 
+        if train_cfg.obs.cost_analysis:
+            raise NotImplementedError(
+                "ObsConfig.cost_analysis: the compiled-step cost model "
+                "(roofline.hlo_cost.jit_cost) is not ported yet (ROADMAP "
+                "Queue 1, item 10)")
         self.cfg = train_cfg
         self.mcfg: MAvgConfig = train_cfg.mavg
+        self.obs_cfg = train_cfg.obs
         self.loss_fn = loss_fn
         self.batch_fn = batch_fn
         self.lr_schedule = lr_schedule
@@ -81,78 +112,200 @@ class Trainer:
         self._step_fn = make_meta_step(loss_fn, self.mcfg,
                                        topology=self._topology,
                                        chaos=chaos_corruptor)
+        # telemetry is built at the first step (the metric keys come from
+        # its returned metrics)
+        self._mb: Optional[MetricsBuffer] = None
+        self._sink = None
+        self.manifest: Optional[dict] = None
+        self.tracer = Tracer(self.obs_cfg.trace)
+        self._restored = False
         self.history: list[dict] = []
+        # health watchdogs: they read only flushed host floats, so a
+        # healthy run is bitwise identical with them on
+        self._monitor = (make_monitor(halt=self.obs_cfg.health_halt)
+                         if self.obs_cfg.health else None)
+        self.attribution: list[dict] = []
         # inline quarantine: a host-side streak counter over the flushed
         # per-learner anomaly scores
         self.robust_records: list[dict] = []
         self.quarantined: dict[int, int] = {}  # learner -> quarantine step
         self._anomaly_streak = None
 
+    # ------------------------------------------------------------------
+    # telemetry assembly (once per Trainer, at the first step)
+    # ------------------------------------------------------------------
+
+    def _init_obs(self, metrics):
+        """Build the metric ring, the manifest and the sink from the first
+        step's returned ``metrics``: the port runs eagerly, so the metric
+        keys are known once a step has run (JAX finds them with
+        ``jax.eval_shape`` before its first dispatch)."""
+        obs = self.obs_cfg
+        self._mkeys = metric_keys(metrics)
+        capacity = obs.buffer_capacity or max(self.cfg.log_every, 1)
+        self._mb = MetricsBuffer(self._mkeys, capacity, device=self.device)
+        self.manifest = run_manifest(
+            train_cfg=self.cfg, mcfg=self.mcfg,
+            spec=getattr(self.state, "spec", None), device=self.device)
+        if obs.sink != "none" and self._sink is None:
+            self._sink = make_sink(obs.sink, obs.run_dir,
+                                   resume=self._restored)
+            self._sink.open_run(self.manifest)
+
+    def _attribute(self, batches, lr):
+        """The phase attribution rows, once before step 0 (on a clone of the
+        state; the live state is untouched). Best-effort telemetry, as in
+        JAX: a failure leaves ``attribution`` empty."""
+        try:
+            self.attribution = profile_phases(
+                self.loss_fn, self.mcfg, self.state, batches, lr,
+                iters=5, warmup=2,
+                peak_gbps=measured_peak_gbps(device=self.device),
+            )
+        except Exception:  # attribution is best-effort telemetry
+            self.attribution = []
+
+    # ------------------------------------------------------------------
+    # driving loop
+    # ------------------------------------------------------------------
+
     def run(self, meta_steps: Optional[int] = None, log=print):
-        """Drive ``meta_steps`` meta steps; returns ``history`` (one dict
-        of floats per step, with throughput over its flush window)."""
+        """Drive ``meta_steps`` meta steps; returns ``history``.
+
+        Metrics stay on the device until a ``log_every`` boundary (or the
+        end of the run): each step writes one row of the ``MetricsBuffer``
+        ring, and only a flush pays one device-to-host read. ``history``
+        holds one dict of floats per step, with the wall-clock throughput
+        (``meta_steps_per_sec``, ``samples_per_sec``, ``elapsed_s``) of its
+        flush window. The step updates the state in place, so the loop
+        works off the returned state only.
+        """
         n = meta_steps if meta_steps is not None else self.cfg.meta_steps
-        start = self.state.step
+        run_t0 = time.time()
+        start = int(self.state.step)
+        self._last_flush_t = run_t0
         samples_per_block = self.mcfg.k_steps * self.cfg.batch_per_learner
         samples_per_meta = self.mcfg.num_learners * samples_per_block
-        run_t0 = last_t = time.perf_counter()
-        pending: list[tuple[int, float, dict]] = []
 
         def flush():
-            nonlocal last_t
-            if not pending:
+            if self._mb is None or not self._mb.count:
                 return
-            recs = [
-                {"meta_step": s, "lr": lr,
-                 **{k: float(v) for k, v in m.items()}}
-                for s, lr, m in pending
-            ]  # float() waits for the device: the window's one sync
-            now = time.perf_counter()
-            msps = len(recs) / max(now - last_t, 1e-9)
-            last_t = now
+            with self.tracer.span("obs.host_flush"):
+                recs = self._mb.flush()
+            now = time.time()
+            dt = max(now - self._last_flush_t, 1e-9)
+            self._last_flush_t = now
+            msps = len(recs) / dt
             robust_rows = self._extract_robust(recs)
             for r in recs:
-                r["samples"] = (self._topology.work_completed(r["meta_step"])
+                s = r["meta_step"]
+                r["samples"] = (self._topology.work_completed(s)
                                 * samples_per_block)
                 r["meta_steps_per_sec"] = msps
                 r["samples_per_sec"] = msps * samples_per_meta
                 r["elapsed_s"] = now - run_t0
-            self.history.extend(recs)
-            pending.clear()
+                self.history.append(r)
             self._observe_robust(robust_rows)
+            alerts = (self._monitor.observe(recs)
+                      if self._monitor is not None else ())
+            if self._sink is not None:
+                with self.tracer.span("obs.sink_append"):
+                    for r in recs:
+                        self._sink.append(r)
+                    for rb in robust_rows:
+                        self._sink.append(rb)
+                    for a in alerts:
+                        self._sink.append(a)
+                    self._sink.flush()
 
-        for i in range(n):
-            step = start + i
-            batches = self.batch_fn(
-                seeded_generator(self.device, self.cfg.seed, 1, step), step
-            )
-            lr = (self.lr_schedule(step) if self.lr_schedule
-                  else np.float32(self.mcfg.learner_lr))
-            self.state, metrics = self._step_fn(self.state, batches, lr=lr)
-            pending.append((step, float(lr), metrics))
-            if step % self.cfg.log_every == 0 or i == n - 1:
-                flush()
-                if log:
-                    m = self.history[-1]
-                    log(f"[{self.mcfg.algorithm}] meta_step={step} "
-                        f"loss={m['loss']:.4f} gnorm={m['grad_norm']:.3f} "
-                        f"{m['meta_steps_per_sec']:.2f} steps/s "
-                        f"{m['samples_per_sec']:.0f} samples/s "
-                        f"({m['elapsed_s']:.1f}s)")
-            every = self.cfg.checkpoint_every
-            if self.cfg.checkpoint_dir and every and (step + 1) % every == 0:
-                sched = self._chaos_schedule
-                save_state(
-                    self.cfg.checkpoint_dir, self.state, step + 1,
-                    keep=self.cfg.checkpoint_keep,
-                    fault=None if sched is None else sched.save_fault(step + 1),
-                )
+        def maybe_halt(step):
+            # raised only from in-loop flush boundaries (never from the
+            # finally-flush: a halt must not mask a real traceback)
+            if self._monitor is None or not self._monitor.halt_requested:
+                return
+            alert = self._monitor.halt_alert
+            ckpt_dir = self.cfg.checkpoint_dir or (
+                os.path.join(self.obs_cfg.run_dir, "halt_ckpt")
+                if self.obs_cfg.run_dir else None)
+            path = None
+            if ckpt_dir:
+                with self.tracer.span("obs.checkpoint_io"):
+                    path = save_state(ckpt_dir, self.state, step + 1,
+                                      manifest=self.manifest)
+            raise HealthHalt(alert, path)
+
+        # the session closes open spans, stops the profiler and exports the
+        # Chrome traces on any exit, the final flush's spans included
+        run_dir = self.obs_cfg.run_dir
+        export_path = (os.path.join(run_dir, "trace.json")
+                       if self.obs_cfg.trace and run_dir else None)
+        profiler_dir = (os.path.join(run_dir, "torch_trace")
+                        if self.obs_cfg.profiler and run_dir else None)
+        with self.tracer.session(export_path, profiler_dir):
+            try:
+                for i in range(n):
+                    step = start + i
+                    batches = self.batch_fn(self._data_generator(step), step)
+                    lr = (self.lr_schedule(step) if self.lr_schedule
+                          else np.float32(self.mcfg.learner_lr))
+                    if self._mb is None and self.obs_cfg.attribution:
+                        self._attribute(batches, lr)
+                    if self._mb is not None and self._mb.full:
+                        flush()  # ring smaller than the log window
+                        maybe_halt(step - 1)
+                    with self.tracer.span("obs.dispatch"):
+                        self.state, metrics = self._step_fn(
+                            self.state, batches, lr=lr)
+                        if self._mb is None:
+                            self._init_obs(metrics)
+                            if self._sink is not None:
+                                for row in self.attribution:
+                                    self._sink.append(row)
+                        self._mb.append(metrics, step)
+                    del metrics
+                    if log and step % self.cfg.log_every == 0:
+                        flush()
+                        maybe_halt(step)
+                        m = self.history[-1]
+                        log(f"[{self.mcfg.algorithm}] meta_step={step} "
+                            f"loss={m['loss']:.4f} "
+                            f"gnorm={m.get('grad_norm', 0):.3f} "
+                            f"{m['meta_steps_per_sec']:.2f} steps/s "
+                            f"{m['samples_per_sec']:.0f} samples/s "
+                            f"({time.time() - run_t0:.1f}s)")
+                    every = self.cfg.checkpoint_every
+                    if (self.cfg.checkpoint_dir and every
+                            and (step + 1) % every == 0):
+                        sched = self._chaos_schedule
+                        with self.tracer.span("obs.checkpoint_io"):
+                            save_state(
+                                self.cfg.checkpoint_dir, self.state, step + 1,
+                                manifest=self.manifest,
+                                keep=self.cfg.checkpoint_keep,
+                                fault=(None if sched is None
+                                       else sched.save_fault(step + 1)),
+                            )
+                flush()  # the final (possibly partial) log window
+                maybe_halt(start + n - 1)
+            finally:
+                flush()  # metrics of completed steps survive an interrupt
+                if self._sink is not None:
+                    self._sink.flush()
         return self.history
+
+    def _data_generator(self, step: int):
+        """The data stream's generator for meta step ``step``; a nonzero
+        ``data_salt`` (a supervisor retry) redraws it."""
+        salt = self.cfg.data_salt
+        return seeded_generator(self.device, self.cfg.seed, 1, step,
+                                *((salt,) if salt else ()))
 
     def restore(self, path):
         """Load the checkpoint at ``path`` into the live state, in place;
-        the next ``run`` continues from its step."""
+        the next ``run`` continues from its step, and a sink opened after
+        the restore appends to the existing run log."""
         self.state = load_state(path, self.state)
+        self._restored = True
 
     # ------------------------------------------------------------------
     # robust telemetry + inline quarantine
@@ -239,3 +392,17 @@ class Trainer:
                 "quarantine membership leaves a row with no learner present")
         self.state = dataclasses.replace(
             self.state, topo={**topo, "membership": torch.from_numpy(m)})
+
+    def emit(self, record: dict):
+        """Append one structured record to the run's telemetry sink (the
+        supervisor's fault/recovery records ride the same log as the step
+        rows). No-op when no sink is open."""
+        if self._sink is not None:
+            self._sink.append(record)
+            self._sink.flush()
+
+    def close(self):
+        """Flush and close the telemetry sink (idempotent)."""
+        if self._sink is not None:
+            self._sink.close()
+            self._sink = None

@@ -27,15 +27,26 @@ barrier, and ``--chaos`` the standard fault schedule
 steps (``repro_torch.checkpoint``, the JAX package's file format), keeping
 the ``--checkpoint-keep`` newest verified snapshots; ``--resume`` restores
 the newest verified snapshot there (else the newest) before training, so
-a port run resumes a JAX run's checkpoint and the other way round. The
-flags mean what they mean in the JAX launcher. Its other flags (async,
-obs, the supervisor) are not ported yet; ``--topology async`` and
-``--supervise`` are refused, and so is the straggle fault kind.
+a port run resumes a JAX run's checkpoint and the other way round.
+``--obs-sink jsonl|csv|memory`` writes the structured run log
+(``repro_torch.obs``) into ``--run-dir``, ``--trace`` the phase spans'
+Chrome trace there, ``--profiler`` a ``torch.profiler`` trace,
+``--obs-health`` the health watchdogs (``--obs-no-halt`` keeps fatal
+rules from halting) and ``--obs-attribution`` the phase timing rows.
+``--supervise`` wraps the run in the rollback supervisor
+(``core/supervisor.py``: ``--supervise-retries``,
+``--supervise-quarantine``, ``--supervise-readmit``; it needs
+``--checkpoint-dir``). The flags mean what they mean in the JAX launcher.
+Not ported yet, and refused: ``--topology async`` and the straggle fault
+kind (ROADMAP Queue 1, item 6), and ``--obs-cost`` (item 10).
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --steps 4 --checkpoint-dir build/ck --checkpoint-every 2
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --steps 2 --checkpoint-dir build/ck --checkpoint-every 2 --resume
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --steps 4 --obs-sink jsonl --run-dir build/run --trace --obs-health
+  python tools/check_telemetry.py build/run/run.jsonl
 """
 from __future__ import annotations
 
@@ -49,15 +60,22 @@ from repro_torch.configs.base import (
     AVERAGING_ALGOS,
     COMM_SCHEMES,
     GOSSIP_GRAPHS,
+    OBS_SINKS,
     ROBUST_ESTIMATORS,
     TOPOLOGIES,
     CommConfig,
     ElasticConfig,
     MAvgConfig,
+    ObsConfig,
     RobustConfig,
     TopologyConfig,
     TrainConfig,
     get_config,
+)
+from repro_torch.core.supervisor import (
+    RecoveryPlan,
+    RecoveryPolicy,
+    Supervisor,
 )
 from repro_torch.core.trainer import Trainer
 from repro_torch.data import lm_batch_fn, lm_eval_set, uniform_batch_fn
@@ -149,8 +167,47 @@ def main(argv=None) -> None:
                     help="restore the latest VERIFIED checkpoint from "
                          "--checkpoint-dir (torn/corrupt snapshots are "
                          "skipped) before training")
+    ap.add_argument("--obs-sink", default="none", choices=OBS_SINKS,
+                    help="structured run log sink (repro_torch.obs): "
+                         "per-step telemetry records under a run manifest")
+    ap.add_argument("--run-dir", default=None,
+                    help="run-log / trace directory (required for the "
+                         "jsonl and csv sinks)")
+    ap.add_argument("--trace", action="store_true",
+                    help="phase span timers + Chrome-trace export to "
+                         "<run-dir>/trace.json")
+    ap.add_argument("--profiler", action="store_true",
+                    help="capture a torch.profiler trace into "
+                         "<run-dir>/torch_trace")
+    ap.add_argument("--obs-cost", action="store_true",
+                    help="the compiled step's cost in the manifest (not "
+                         "ported: ROADMAP Queue 1, item 10)")
+    ap.add_argument("--obs-health", action="store_true",
+                    help="run-health watchdogs over the flushed metric "
+                         "windows: alerts in the run log, fatal rules halt "
+                         "with a resumable checkpoint")
+    ap.add_argument("--obs-no-halt", action="store_true",
+                    help="demote fatal health rules to warn: record "
+                         "alerts, never stop the run")
+    ap.add_argument("--obs-attribution", action="store_true",
+                    help="phase attribution rows (obs.profile), timed once "
+                         "before step 0")
     ap.add_argument("--supervise", action="store_true",
-                    help="supervised rollback recovery (not ported)")
+                    help="wrap the run in core.supervisor.Supervisor: on a "
+                         "health halt / checkpoint-verify failure, roll "
+                         "back to the last verified snapshot and retry "
+                         "with recovery policies (requires "
+                         "--checkpoint-dir)")
+    ap.add_argument("--supervise-retries", type=int, default=3,
+                    help="supervisor retry budget before RecoveryExhausted")
+    ap.add_argument("--supervise-quarantine", type=int, default=0,
+                    help="probation window (meta steps) a suspect learner "
+                         "is quarantined from membership after rollback "
+                         "(0 = never)")
+    ap.add_argument("--supervise-readmit", type=int, default=1,
+                    help="quarantine hysteresis: clean probation windows a "
+                         "quarantined learner must sit out before "
+                         "readmission (total mask = window * this)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -158,10 +215,13 @@ def main(argv=None) -> None:
         raise NotImplementedError(
             "--topology async: the async server is not ported yet "
             "(ROADMAP Queue 1, item 6)")
-    if args.supervise:
-        raise NotImplementedError(
-            "--supervise: the supervisor's rollback is not ported yet "
-            "(ROADMAP Queue 1, item 7)")
+    if args.obs_cost:
+        raise SystemExit(
+            "--obs-cost: the compiled-step cost model (roofline.hlo_cost) is "
+            "not ported yet (ROADMAP Queue 1, item 10)")
+    if args.supervise and not args.checkpoint_dir:
+        raise SystemExit("--supervise needs --checkpoint-dir (the "
+                         "verified rollback chain lives there)")
     chaos_cfg = None
     if args.chaos:
         kinds = (tuple(k.strip() for k in args.chaos_faults.split(","))
@@ -198,25 +258,6 @@ def main(argv=None) -> None:
                       seed=args.elastic_seed)
         if args.elastic_period > 0 else None
     )
-    mcfg = MAvgConfig(algorithm=args.algorithm, num_learners=args.learners,
-                      k_steps=args.k, learner_lr=args.lr,
-                      momentum=args.momentum,
-                      finite_guard=args.finite_guard, robust=robust,
-                      comm=CommConfig(
-                          scheme=args.comm, k_frac=args.comm_k_frac,
-                          error_feedback=not args.no_error_feedback),
-                      topology=TopologyConfig(
-                          kind=args.topology, groups=args.groups,
-                          outer_every=args.outer_every,
-                          outer_momentum=args.outer_momentum,
-                          graph=args.gossip_graph, outer_comm=outer_comm,
-                          group_k=group_k, elastic=elastic))
-    tcfg = TrainConfig(model=cfg, mavg=mcfg, batch_per_learner=args.batch,
-                       seq_len=args.seq, meta_steps=args.steps,
-                       chaos=chaos_cfg, checkpoint_dir=args.checkpoint_dir,
-                       checkpoint_every=(args.checkpoint_every
-                                         if args.checkpoint_dir else 0),
-                       checkpoint_keep=args.checkpoint_keep)
     shape = (cfg, args.learners, args.k, args.batch, args.seq)
     batch_fn = (uniform_batch_fn(*shape) if args.full
                 else lm_batch_fn(*shape, device=device))
@@ -224,21 +265,63 @@ def main(argv=None) -> None:
     def loss_fn(params, batch):
         return model_api.loss_fn(params, cfg, batch)
 
-    trainer = Trainer(
-        tcfg, loss_fn,
-        init_params_fn=lambda gen: model_api.init_params(gen, cfg, device),
-        batch_fn=batch_fn,
-        lr_schedule=warmup_cosine(args.lr, 5, args.steps),
-        device=device,
-    )
-    if args.resume:
-        ckpt = (latest_verified_checkpoint(args.checkpoint_dir or "")
-                or latest_checkpoint(args.checkpoint_dir or ""))
-        if ckpt is None:
-            raise SystemExit("--resume: no checkpoint in --checkpoint-dir")
-        trainer.restore(ckpt)
-        print(f"resumed from {ckpt}")
-    history = trainer.run()
+    def make_trainer(plan: RecoveryPlan) -> Trainer:
+        mcfg = MAvgConfig(
+            algorithm=args.algorithm, num_learners=args.learners,
+            k_steps=args.k, learner_lr=args.lr,
+            momentum=args.momentum * plan.momentum_scale,
+            finite_guard=args.finite_guard, robust=robust,
+            comm=CommConfig(scheme=args.comm, k_frac=args.comm_k_frac,
+                            error_feedback=not args.no_error_feedback),
+            topology=TopologyConfig(
+                kind=args.topology, groups=args.groups,
+                outer_every=args.outer_every,
+                outer_momentum=args.outer_momentum,
+                graph=args.gossip_graph, outer_comm=outer_comm,
+                group_k=group_k, elastic=elastic))
+        tcfg = TrainConfig(
+            model=cfg, mavg=mcfg,
+            batch_per_learner=args.batch, seq_len=args.seq,
+            meta_steps=args.steps, chaos=chaos_cfg,
+            data_salt=plan.data_salt, checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=(args.checkpoint_every
+                              if args.checkpoint_dir else 0),
+            checkpoint_keep=args.checkpoint_keep,
+            obs=ObsConfig(sink=args.obs_sink, run_dir=args.run_dir,
+                          trace=args.trace, profiler=args.profiler,
+                          health=args.obs_health,
+                          health_halt=not args.obs_no_halt,
+                          attribution=args.obs_attribution))
+        return Trainer(
+            tcfg, loss_fn,
+            init_params_fn=lambda gen: model_api.init_params(gen, cfg,
+                                                             device),
+            batch_fn=batch_fn,
+            lr_schedule=warmup_cosine(args.lr * plan.lr_scale, 5,
+                                      args.steps),
+            device=device,
+        )
+
+    if args.supervise:
+        sup = Supervisor(
+            make_trainer, target_steps=args.steps,
+            checkpoint_dir=args.checkpoint_dir,
+            policy=RecoveryPolicy(
+                max_retries=args.supervise_retries,
+                quarantine_steps=args.supervise_quarantine,
+                readmit_clean_windows=args.supervise_readmit))
+        trainer, history = sup.run()
+    else:
+        trainer = make_trainer(RecoveryPlan())
+        if args.resume:
+            ckpt = (latest_verified_checkpoint(args.checkpoint_dir or "")
+                    or latest_checkpoint(args.checkpoint_dir or ""))
+            if ckpt is None:
+                raise SystemExit("--resume: no checkpoint in "
+                                 "--checkpoint-dir")
+            trainer.restore(ckpt)
+            print(f"resumed from {ckpt}")
+        history = trainer.run()
     line = (f"\nfinal train loss {history[-1]['loss']:.4f}  "
             f"samples {history[-1]['samples']}")
     last = history[-1]
@@ -264,6 +347,7 @@ def main(argv=None) -> None:
             loss, _ = loss_fn(unpack_params(trainer.state), eval_batch)
         line += f"  eval loss {float(loss):.4f}"
     print(line)
+    trainer.close()
 
 
 if __name__ == "__main__":

@@ -373,7 +373,9 @@ def test_unported_faults_raise():
                           JPARAMS),
                       batch_fn=lambda g, s: None, device="cpu")
     assert trainer._chaos_schedule.save_fault(2) == "torn"
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+    # the supervisor is ported now: --supervise is refused only without
+    # the checkpoint chain it rolls back through, with JAX's message
+    with pytest.raises(SystemExit, match="--supervise needs --checkpoint-dir"):
         launch_train.main(["--device", "cpu", "--supervise"])
     with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
         launch_train.main(["--device", "cpu", "--chaos", "--steps", "8",

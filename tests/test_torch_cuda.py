@@ -430,3 +430,120 @@ def test_cuda_bigram_table_on_the_generators_device(cuda_device):
         torch.Generator(device=cuda_device).manual_seed(1), 0)
     assert b["tokens"].device.type == "cuda"
     assert b["tokens"].shape == (2, 2, 2, 8)
+
+
+@pytest.mark.cuda
+def test_cuda_telemetry_run_reads_once_per_flush(cuda_device, tmp_path):
+    """Three reduced Qwen3 meta steps on the card with the JSONL sink: the
+    ring lies on the card, the host reads it once per flush, and the log
+    passes tools/check_telemetry.py."""
+    import importlib.util
+    import json
+    import os
+
+    from repro_torch.configs.base import (
+        MAvgConfig,
+        ObsConfig,
+        TrainConfig,
+        get_config,
+    )
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data import uniform_batch_fn
+    from repro_torch.models import api
+
+    cfg = get_config("qwen3-1.7b").reduced()
+    run_dir = str(tmp_path / "run")
+    tcfg = TrainConfig(
+        model=cfg, mavg=MAvgConfig(algorithm="mavg", num_learners=2,
+                                   k_steps=2),
+        batch_per_learner=2, seq_len=16, meta_steps=3, log_every=2,
+        obs=ObsConfig(sink="jsonl", run_dir=run_dir, trace=True,
+                      health=True))
+    trainer = Trainer(
+        tcfg, lambda p, b: api.loss_fn(p, cfg, b),
+        init_params_fn=lambda gen: api.init_params(gen, cfg, cuda_device),
+        batch_fn=uniform_batch_fn(cfg, 2, 2, 2, 16), device=cuda_device)
+    history = trainer.run(log=None)
+    trainer.close()
+    assert trainer._mb.buf.is_cuda
+    assert trainer._mb.host_syncs == 2  # steps 0-1 (ring full), then 2
+    assert [h["meta_step"] for h in history] == [0, 1, 2]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "check_telemetry", os.path.join(root, "tools", "check_telemetry.py"))
+    ct = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ct)
+    schema = ct.load_schema(os.path.join(root, "tools",
+                                         "telemetry_schema.json"))
+    assert ct.check_file(os.path.join(run_dir, "run.jsonl"), schema) == []
+    man = json.loads(open(os.path.join(run_dir, "run.jsonl")).readline())
+    assert man["backend"] == "cuda" and man["jax_version"] is None
+    assert man["devices"][0] == torch.cuda.get_device_name(0)
+
+
+@pytest.mark.cuda
+def test_cuda_supervised_recovery_ends_finite(cuda_device, tmp_path):
+    """A NaN batch on learner 0 at step 3 halts the MLP run on the card;
+    the supervisor rolls back to step 2 and the retry ends finite."""
+    from repro_torch.chaos import ChaosConfig, FaultSpec
+    from repro_torch.configs.base import MAvgConfig, ObsConfig, TrainConfig
+    from repro_torch.core.supervisor import Supervisor
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data.synthetic import classif_batch_fn
+    from repro_torch.models.simple import mlp_init, mlp_loss
+
+    ckpt = str(tmp_path / "ck")
+    chaos = ChaosConfig(seed=0, horizon=6, faults=(
+        FaultSpec("nan_batch", step=3, learner=0),))
+
+    def make(plan):
+        return Trainer(
+            TrainConfig(
+                model=None,
+                mavg=MAvgConfig(algorithm="mavg", num_learners=2, k_steps=2,
+                                learner_lr=0.1 * plan.lr_scale,
+                                momentum=0.6, finite_guard=True),
+                batch_per_learner=4, meta_steps=6, log_every=1,
+                checkpoint_dir=ckpt, checkpoint_every=2, chaos=chaos,
+                data_salt=plan.data_salt,
+                obs=ObsConfig(sink="jsonl", run_dir=str(tmp_path / "run"),
+                              health=True)),
+            mlp_loss,
+            init_params_fn=lambda gen: mlp_init(gen, 8, 16, 4,
+                                                device=cuda_device),
+            batch_fn=classif_batch_fn(8, 4, 2, 2, 4, device=cuda_device),
+            device=cuda_device)
+
+    sup = Supervisor(make, target_steps=6, checkpoint_dir=ckpt)
+    trainer, _ = sup.run(log=None)
+    trainer.close()
+    assert trainer.state.step == 6
+    for x in (trainer.state.global_params, trainer.state.momentum,
+              trainer.state.learners):
+        assert x.is_cuda and bool(torch.isfinite(x).all())
+    kinds = [(r["kind"], r.get("fault"), r.get("learner"), r["meta_step"])
+             for r in sup.records]
+    assert kinds[:2] == [("fault", "nonfinite_loss", 0, 4),
+                         ("recovery", None, None, 2)]
+
+
+@pytest.mark.cuda
+def test_cuda_profile_clone_refuses_what_does_not_fit(cuda_device,
+                                                      monkeypatch):
+    """``profile_phases`` times a clone of the state; a clone that would
+    not fit the card's free memory raises instead of running out of
+    memory mid-profile."""
+    from repro_torch.configs.base import MAvgConfig
+    from repro_torch.core.meta import init_state
+    from repro_torch.models.simple import mlp_init
+    from repro_torch.obs import profile
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    state = init_state(mlp_init(g, 8, 16, 4, device=cuda_device),
+                       MAvgConfig(num_learners=2, k_steps=2))
+    assert profile.clone_state(state).global_params.is_cuda
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d=None: (0, 0))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda d=None: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda d=None: 0)
+    with pytest.raises(ValueError, match="does not fit"):
+        profile.clone_state(state)
