@@ -9,9 +9,10 @@ Phases (any failure raises and the script exits non-zero):
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, started together); each kernel's registers and
-   spills, and whether the bf16 flash-attention kernel's SASS holds
-   HGMMA (wgmma) and UTMALDG (TMA) instructions (``cuobjdump -sass``
-   where the toolkit has it, else "not checked");
+   spills, and whether the flash-attention kernels' SASS holds HGMMA
+   (wgmma) and UTMALDG (TMA) instructions (``cuobjdump -sass`` where the
+   toolkit has it, else "not checked"): the f32 kernel's HGMMA all on
+   TF32 operands, and no local memory (LDL/STL) nor spill in it;
 3. each kernel against its plain PyTorch version at the main paths'
    shapes, the full Qwen3-1.7B packed plane (13,441,992 x 128): the meta
    kernels with L=4, the wire-compression kernels (quantize, dequantize at
@@ -33,16 +34,18 @@ Phases (any failure raises and the script exits non-zero):
    could take (bytes over 3.35 TB/s or flops over 67 TFLOP/s, whichever is
    larger); sgd_apply's times interleaved with torch.add's (kernel, add,
    add, kernel). Then flash_attention, which is not bitwise (another
-   summation order), bf16 through the Hopper kernel (TMA, wgmma) and f32
-   through the CUDA-core kernel: against the plain version's f32 result
-   on the same inputs, to 1e-5 + 1e-4 |plain| in f32 and one bf16 ulp in
-   bf16, at the serving prefill's shape (Qwen3-1.7B heads, B=8, S=512,
-   causal, bf16), a long prefill (B=4, S=4096, bf16 and f32), the 524k
-   variant's window (B=1, S=16384, window 8192, compared in windows of
-   queries) and the mask and shape cases; its bound counts the visible
-   (q, k) pairs' matmul flops over the BF16 tensor-core or f32 rate, and
-   its library call is scaled_dot_product_attention (timed only; with an
-   explicit boolean mask for the window);
+   summation order), bf16 through the bf16 Hopper kernel (TMA, wgmma) and
+   f32 through the 3xTF32 one (TMA, TF32 wgmma): against the plain
+   version's f32 result on the same inputs, to 1e-5 + 1e-4 |plain| in f32
+   and one bf16 ulp in bf16, at the serving prefill's shape (Qwen3-1.7B
+   heads, B=8, S=512, causal, bf16 and f32), a long prefill (B=4,
+   S=4096, bf16 and f32), the 524k variant's window (B=1, S=16384,
+   window 8192, compared in windows of queries) and the mask and shape
+   cases; its bound counts the visible (q, k) pairs' matmul flops over
+   the BF16 tensor-core rate, or three times them over the TF32 rate
+   (the f32 CUDA cores' bound printed beside it), and its library call
+   is scaled_dot_product_attention (timed only; with an explicit
+   boolean mask for the window);
 4. the dense main path: the port's Trainer on the full-width, full-depth
    Qwen3-1.7B, M-AVG with L=4, K=4, B=8, S=64, 3 meta steps from random
    weights on uniform random tokens, with the kernel launch counters
@@ -88,7 +91,12 @@ Phases (any failure raises and the script exits non-zero):
    launches, counted), finite logits, flash against plain prefill and
    decode against one forward (teacher forcing) within a bf16 limit,
    prefill ms, decode steps/s and tokens/s, peak memory, and one decode
-   step and one prefill profiled;
+   step and one prefill profiled; then (10c) the same model and request
+   in f32 compute (TF32 off for cuBLAS): one prefill launches the f32
+   flash kernel exactly 28 times, finite logits, flash vs plain prefill
+   logits within a relative RMS error of 1e-4, 64 greedy tokens through
+   ``generate``, prefill ms, peak memory and one prefill profiled (the
+   flash kernel's share, the idle share);
 11. E1, the paper's acceptance, on the card: E1's CNN (hw=12) for 2 meta
    steps of M-AVG with L=4, K=4, B=8 on the card and on the CPU from the
    same params and CPU-drawn batches, packed and per-leaf, f32 with TF32
@@ -160,6 +168,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+TF32_FLOPS_PER_S = 494.7e12  # H100 SXM, dense TF32 tensor cores
 L = 4  # learners on the dense main path
 L_COMM = 2  # learners on the compressed main path
 MU, ETA, LR = 0.7, 1.0, 0.01
@@ -174,7 +183,7 @@ PC_REPLACES = "src/repro/kernels/pack_update.py:126"
 ROBUST_SOURCE = "src/repro_torch/kernels/csrc/robust_kernels.cu"
 RR_REPLACES = "src/repro/kernels/robust_reduce.py:57"
 ATTENTION_SOURCE = "src/repro_torch/kernels/csrc/attention_hopper.cu"
-ATTENTION_F32_SOURCE = "src/repro_torch/kernels/csrc/attention_kernels.cu"
+ATTENTION_F32_SOURCE = "src/repro_torch/kernels/csrc/attention_hopper_f32.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention.py:80"
 BF16_FLOPS_PER_S = 989.4e12  # H100 SXM, dense BF16 tensor cores
 DEPTH = 6  # layers of the full-width topology runs (of 28)
@@ -962,8 +971,11 @@ def flash_limit(torch, got, plain32) -> tuple[bool, float, float, float]:
 def flash_bound(torch, fa, B, Sq, Sk, H, KV, D, dtype, **kw):
     """The least time of one call: the bytes (q, k, v read once, the output
     written once) over 3.35 TB/s, or the matmul flops of the visible (q, k)
-    pairs of this call's mask (4 D per pair and head) over the peak of the
-    input type (dense BF16 tensor cores, or f32), whichever is larger."""
+    pairs of this call's mask (4 D per pair and head) over the tensor
+    cores' rate for the input type, whichever is larger: dense BF16, or
+    for f32 three TF32 products per matmul (the 3xTF32 split that keeps
+    f32's precision). Returns (ms, "bytes" or "operations", and for f32
+    the bound on the f32 CUDA cores, else None)."""
     mask = fa.visible(torch.arange(Sq, device="cuda"),
                       torch.arange(Sk, device="cuda"),
                       causal=kw.get("causal", True),
@@ -974,9 +986,14 @@ def flash_bound(torch, fa, B, Sq, Sk, H, KV, D, dtype, **kw):
     size = 2 if dtype == torch.bfloat16 else 4
     nbytes = (2 * B * H * Sq + 2 * B * KV * Sk) * D * size
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    if dtype == torch.bfloat16:
+        t_ops, cores = flops / BF16_FLOPS_PER_S * 1e3, None
+    else:
+        t_ops = 3 * flops / TF32_FLOPS_PER_S * 1e3
+        cores = max(t_bytes, flops / F32_FLOPS_PER_S * 1e3)
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", cores
+    return t_ops, "operations", cores
 
 
 def flash_case(torch, fa, B, Sq, Sk, H, KV, D, dtype, *, rows=None,
@@ -1046,11 +1063,13 @@ def flash_case(torch, fa, B, Sq, Sk, H, KV, D, dtype, *, rows=None,
                 qt, kt, vt, attn_mask=mask, enable_gqa=True), warmup=1,
                 iters=3)
             del mask
-        rec["bound_ms"], rec["bound_by"] = flash_bound(
+        rec["bound_ms"], rec["bound_by"], cores = flash_bound(
             torch, fa, B, Sq, Sk, H, KV, D, dtype, **kw)
+        on_cores = ("" if cores is None else
+                    f" (3xTF32; {cores:.3f} ms on the f32 CUDA cores)")
         print(f"    kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} "
               f"ms, SDPA {rec['library_ms']} ms, bound "
-              f"{rec['bound_ms']:.3f} ms by {rec['bound_by']}")
+              f"{rec['bound_ms']:.3f} ms by {rec['bound_by']}{on_cores}")
         del qt, kt, vt
     del q, k, v, got
     free(torch)
@@ -1059,18 +1078,21 @@ def flash_case(torch, fa, B, Sq, Sk, H, KV, D, dtype, *, rows=None,
 
 def check_flash_attention(torch, fa) -> list[dict]:
     """flash_attention against its plain version: the serving prefill's
-    shape (Qwen3-1.7B heads, B=8, S=512, causal, bf16: the Hopper record's
-    times), a long prefill (B=4, S=4096, causal, bf16, and f32: the f32
-    record's times), the 524k variant's window (B=1, S=16384, window 8192,
-    bf16, compared in windows of 2048 queries), and the mask and shape
-    cases (non-causal, window + prefix, kv_len < Sk down to 0, D = 64, 80,
-    112 and 256, causal D = 256, a D = 80 window, n_rep 1, 2, 4 and 5/5
-    heads, S = 96 and 1, Sq != Sk), in f32 and bf16. Returns the records
-    of the Hopper (bf16) and the CUDA-core (f32) kernel."""
+    shape (Qwen3-1.7B heads, B=8, S=512, causal, bf16: the bf16 record's
+    times; and f32, timed), a long prefill (B=4, S=4096, causal, bf16, and
+    f32: the f32 record's times), the 524k variant's window (B=1,
+    S=16384, window 8192, bf16, compared in windows of 2048 queries), and
+    the mask and shape cases (non-causal, window + prefix, kv_len < Sk
+    down to 0, D = 64, 80, 112 and 256, causal D = 256, a D = 80 window,
+    n_rep 1, 2, 4 and 5/5 heads, S = 96 and 1, Sq != Sk), in f32 and
+    bf16. Returns the records of the bf16 and the f32 (3xTF32) Hopper
+    kernel."""
     bf16, f32 = torch.bfloat16, torch.float32
     main = flash_case(torch, fa, 8, 512, 512, 16, 8, 128, bf16, timed=True,
                       causal=True)
-    errs = {bf16: [main["max_abs_err"]], f32: []}
+    serve32 = flash_case(torch, fa, 8, 512, 512, 16, 8, 128, f32,
+                         timed=True, causal=True)
+    errs = {bf16: [main["max_abs_err"]], f32: [serve32["max_abs_err"]]}
     long = {dt: flash_case(torch, fa, 4, 4096, 4096, 16, 8, 128, dt,
                            rows=1024, timed=True, causal=True)
             for dt in (bf16, f32)}
@@ -1369,8 +1391,8 @@ class PhasePeaks:
 KERNEL_CLASSES = (
     ("port kernels", ("momentum_kernel", "sgd_kernel", "chunk_quant_kernel",
                       "dequant_kernel", "neighbor_mix_kernel",
-                      "robust_reduce_kernel", "flash_attention_kernel",
-                      "flash_hopper_kernel")),
+                      "robust_reduce_kernel", "flash_hopper_kernel",
+                      "flash_hopper_f32_kernel")),
     ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
     ("copy/cast", ("copy", "Cat")),
 )
@@ -1883,11 +1905,12 @@ def serving_card_vs_cpu(torch, ops) -> int:
     return launches
 
 
-def profile_call(torch, label, fn, wall_ms: float) -> None:
+def profile_call(torch, label, fn, wall_ms: float, focus=None) -> None:
     """One call of ``fn`` under torch.profiler: kernel time by class and by
     name, and the device's idle share against ``wall_ms``, the wall time
-    of the same call unprofiled (the profiler slows the host). Reports
-    "not measured" if the profiler saw no device time."""
+    of the same call unprofiled (the profiler slows the host), and with
+    ``focus`` the share of the kernels whose names hold it. Reports "not
+    measured" if the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1928,6 +1951,12 @@ def profile_call(torch, label, fn, wall_ms: float) -> None:
     for e in kernels[:12]:
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms "
               f"{e.count:6d}x  {e.key[:90]}")
+    if focus is not None:
+        hit = [e for e in kernels if focus in e.key]
+        ms = sum(e.self_device_time_total for e in hit) / 1e3
+        print(f"    {focus}: {ms:.2f} ms in {sum(e.count for e in hit)} "
+              f"launches, {ms / busy_ms:.3f} of kernel time, "
+              f"{ms / wall_ms:.3f} of the unprofiled call")
 
 
 def serving_full_width(torch, ops) -> dict:
@@ -2027,6 +2056,94 @@ def serving_full_width(torch, ops) -> dict:
                      lambda: api.prefill(params, cfg, batch, cache_len,
                                          use_pallas=True), prefill_ms)
     del params, cache
+    free(torch)
+    return counts
+
+
+# f32 compute at full depth, flash vs plain attention in the prefill: the
+# kernel's 3xTF32 products against cuBLAS's f32 ones (TF32 off), the same
+# function in another summation order; a relative RMS error of the logits
+# of at most 1e-4 (PERF.md section 2)
+F32_RMS = 1e-4
+
+
+def serving_full_width_f32(torch, ops) -> dict:
+    """Phase 10c: phase 10b's model and request in f32 compute: full-width,
+    full-depth Qwen3-1.7B (``dtype="float32"``), params from a seeded
+    generator on the card, B=8, a 512-token prompt, TF32 off for cuBLAS.
+    Checked: one prefill launches the f32 flash kernel exactly 28 times and
+    nothing else of the port, finite logits, flash vs plain-attention
+    prefill logits within F32_RMS, 64 greedy tokens through ``generate``
+    (28 launches). Timed: the median of 3 prefills, the peak device
+    memory of the generate run, one prefill profiled (the flash kernel's
+    share, the idle share). Returns the launch counts of one prefill."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), dtype="float32")
+    B, S0, new = SERVE_B, SERVE_PROMPT, SERVE_NEW
+    cache_len = S0 + new + 8
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, "cuda")
+    prompt = torch.randint(
+        0, cfg.vocab_size, (B, S0), device="cuda", dtype=torch.int32,
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    batch = {"tokens": prompt}
+    print(f"  params {torch.cuda.memory_allocated() / 1e9:.2f} GB f32, "
+          f"{cfg.num_layers} layers, compute {cfg.dtype}")
+    with torch.no_grad(), full_f32(torch):
+        plain_logits, _ = api.prefill(params, cfg, batch, cache_len)
+        ops.reset_launch_counts()
+        flash_logits, _ = api.prefill(params, cfg, batch, cache_len,
+                                      use_pallas=True)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        print(f"  one prefill's launches: {counts}")
+        assert counts == dict(NO_LAUNCHES,
+                              flash_attention_f32=cfg.num_layers), counts
+        assert bool(torch.isfinite(flash_logits).all()), "non-finite logits"
+        rms = float((flash_logits - plain_logits).norm()
+                    / plain_logits.norm())
+        mx = float((flash_logits - plain_logits).abs().max())
+        print(f"  prefill logits, flash vs plain attention: relative RMS "
+              f"error {rms:.3e} (limit {F32_RMS}), max |diff| {mx:.3e} "
+              f"(largest |logit| {float(plain_logits.abs().max()):.3f})")
+        assert rms <= F32_RMS, rms
+        del plain_logits, flash_logits
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tokens = serve.generate(params, cfg, prompt, new, cache_len,
+                                use_pallas=True)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        gen_counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        assert gen_counts == dict(NO_LAUNCHES,
+                                  flash_attention_f32=cfg.num_layers)
+        assert tokens.shape == (B, new) and tokens.dtype == torch.int32
+        prefill_times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            api.prefill(params, cfg, batch, cache_len, use_pallas=True)
+            torch.cuda.synchronize()
+            prefill_times.append((time.perf_counter() - t0) * 1e3)
+        prefill_ms = statistics.median(prefill_times)
+        print(f"  prefill {prefill_ms:.1f} ms ({B * S0 / prefill_ms * 1e3:.0f}"
+              f" prompt tokens/s; runs {[round(t, 1) for t in prefill_times]})"
+              f"; generate {new} tokens {gen_s:.2f} s ({B * new / gen_s:.1f} "
+              f"tokens/s); peak device memory {peak / 1e9:.2f} GB "
+              f"({peak / 2**30:.2f} GiB)")
+        assert peak < 80e9, peak
+        profile_call(torch, "prefill (f32 flash)",
+                     lambda: api.prefill(params, cfg, batch, cache_len,
+                                         use_pallas=True), prefill_ms,
+                     focus="flash_hopper_f32_kernel")
+    del params
     free(torch)
     return counts
 
@@ -2616,11 +2733,13 @@ def main() -> int:
           f"(nvcc {lib.build_s:.2f} s)")
     # each kernel's registers and spills; the 64 instantiations of the
     # robust-reduce kernel (L = 1..16, 1 or 4 coordinates a thread, f32 or
-    # bf16), the 5 of the f32 flash-attention kernel and the 5 of the bf16
+    # bf16), the 5 of the bf16 flash-attention kernel and the 5 of the f32
     # one (one a head dim; registers at launch: setmaxnreg then gives the
-    # producer warpgroup 24 and the consumers 240) in one line each
-    grouped = ("robust_reduce_kernel", "flash_attention_kernel",
-               "flash_hopper_kernel")
+    # bf16 kernel's producer warpgroup 24 and its consumers 240, the f32
+    # kernel's 56 and 224 where it has two consumer warpgroups) in one
+    # line each
+    grouped = ("robust_reduce_kernel", "flash_hopper_kernel",
+               "flash_hopper_f32_kernel")
     entry, regs, spills = "", {g: [] for g in grouped}, {g: [] for g in
                                                          grouped}
     for line in lib.build_log.splitlines():
@@ -2642,6 +2761,8 @@ def main() -> int:
             print(f"  {group}: {len(regs[group])} instantiations, "
                   f"{min(regs[group])}-{max(regs[group])} registers, "
                   f"{'no stack and no spills' if unspilled else spills[group]}")
+            if group == "flash_hopper_f32_kernel":
+                assert unspilled, spills[group]
     sass = sass_ops(lib.path, "flash_hopper_kernel", ("HGMMA", "UTMALDG"))
     if sass is None:
         print("  flash_hopper_kernel SASS: not checked (no cuobjdump)")
@@ -2649,6 +2770,21 @@ def main() -> int:
         print(f"  flash_hopper_kernel SASS: {sass['functions']} functions, "
               f"{sass['HGMMA']} HGMMA (wgmma) and {sass['UTMALDG']} UTMALDG "
               f"(TMA load) instructions")
+    # the f32 kernel's products run on the TF32 tensor cores, and nothing
+    # of it lives in local memory
+    sass = sass_ops(lib.path, "flash_hopper_f32_kernel",
+                    ("HGMMA", "x8.F32.TF32", "UTMALDG", "LDL", "STL"))
+    if sass is None:
+        print("  flash_hopper_f32_kernel SASS: not checked (no cuobjdump)")
+    else:
+        print(f"  flash_hopper_f32_kernel SASS: {sass['functions']} "
+              f"functions, {sass['HGMMA']} HGMMA (wgmma), of them "
+              f"{sass['x8.F32.TF32']} on TF32 operands, {sass['UTMALDG']} "
+              f"UTMALDG, "
+              f"{sass['LDL']} LDL and {sass['STL']} STL (local memory)")
+        assert sass["functions"] == 5 and sass["HGMMA"] > 0, sass
+        assert sass["x8.F32.TF32"] == sass["HGMMA"], sass
+        assert sass["LDL"] == sass["STL"] == 0, sass
 
     print("phase 3: kernels vs plain versions at the main path's shapes")
     rows = make_pack_spec(api.init_params(
@@ -2742,11 +2878,16 @@ def main() -> int:
 
     print("phase 10: serving, card vs CPU on reduced configs (float32)")
     with full_f32(torch):
-        f32_flash_launches = serving_card_vs_cpu(torch, ops)
+        print(f"  f32 flash launches in the two reduced prefills: "
+              f"{serving_card_vs_cpu(torch, ops)}")
     print(f"phase 10: serving full-width Qwen3-1.7B, 28 layers, B={SERVE_B}, "
           f"{SERVE_PROMPT}-token prompt, {SERVE_NEW} greedy tokens, flash "
           f"prefill")
     serve_counts = serving_full_width(torch, ops)
+    print(f"phase 10c: serving full-width Qwen3-1.7B in f32, 28 layers, "
+          f"B={SERVE_B}, {SERVE_PROMPT}-token prompt, {SERVE_NEW} greedy "
+          f"tokens, f32 flash prefill")
+    f32_serve_counts = serving_full_width_f32(torch, ops)
 
     print("phase 11: E1 on the card: the CNN card vs CPU (M-AVG, L=4, K=4, "
           "packed and per-leaf), then convergence.main(quick=True)")
@@ -2777,8 +2918,8 @@ def main() -> int:
     # and compressed full-width runs, the reduced per-leaf runs, the gossip
     # run (whose time-varying graph takes the stepped entry), the reduced
     # gossip runs on static or elastic-masked matrices, the robust run, the
-    # full-width serving run (bf16 flash) and the reduced f32 serving runs
-    # (f32 flash)
+    # full-width serving run (bf16 flash) and one prefill of the
+    # full-width f32 serving run (f32 flash)
     launches = dict(
         fused_momentum_broadcast=dense_counts["fused_momentum_broadcast"],
         sgd_apply=dense_counts["sgd_apply"],
@@ -2791,7 +2932,7 @@ def main() -> int:
         neighbor_mix_stepped=gossip_counts["neighbor_mix_stepped"],
         robust_reduce=robust_counts["robust_reduce"],
         flash_attention=serve_counts["flash_attention"],
-        flash_attention_f32=f32_flash_launches)
+        flash_attention_f32=f32_serve_counts["flash_attention_f32"])
     for r in records:
         r.update(route="cuda", launches=launches[r["name"]])
         assert r["launches"] > 0, r

@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "meta_kernels.cu", CSRC / "comm_kernels.cu",
            CSRC / "topology_kernels.cu", CSRC / "robust_kernels.cu",
-           CSRC / "attention_kernels.cu", CSRC / "attention_hopper.cu")
+           CSRC / "attention_hopper.cu", CSRC / "attention_hopper_f32.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_kernels.so"
 # --fmad=false: no multiply-add contraction anywhere, so the kernels round
@@ -51,11 +51,11 @@ SIGNATURES = {
     "repro_neighbor_mix": (_P, _P, _P, _I32, _I64, _I32, _P),
     "repro_robust_reduce": (_P, _P, _I32, _I64, _I32, _I32, _I32, _P),
     # q, k, v, o; B, H, KV, Sq, Sk, D; the (batch, seq, head) strides of
-    # q, k, v and o; causal, window, prefix, kv_len, skip; scale: float32
-    # on the CUDA cores, bfloat16 on the tensor cores
-    "repro_flash_attention": (
-        _P, _P, _P, _P, *(_I32,) * 6, *(_I64,) * 12, *(_I32,) * 5, _F32, _P),
+    # q, k, v and o; causal, window, prefix, kv_len, skip; scale: bfloat16
+    # and float32 (3xTF32), both on the tensor cores
     "repro_flash_attention_hopper": (
+        _P, _P, _P, _P, *(_I32,) * 6, *(_I64,) * 12, *(_I32,) * 5, _F32, _P),
+    "repro_flash_attention_hopper_f32": (
         _P, _P, _P, _P, *(_I32,) * 6, *(_I64,) * 12, *(_I32,) * 5, _F32, _P),
 }
 

@@ -5,13 +5,13 @@
 // It replaces the JAX package's Pallas TPU kernel:
 //   repro_flash_attention_hopper  <- src/repro/kernels/flash_attention.py
 //                                    flash_attention_bhsd
-// for bfloat16 operands. float32 operands keep the CUDA-core kernel of
-// attention_kernels.cu.
+// for bfloat16 operands. float32 operands take attention_hopper_f32.cu
+// (3xTF32 products on the tensor cores).
 //
-// The function is the TPU kernel's, as attention_kernels.cu states it: s =
-// (q . k) * scale in f32; a masked score is the finite -1e30 (kpos < kv_len;
-// causal qpos >= kpos; window qpos - kpos < window, OR-ed with kpos < prefix
-// when a prefix is set; positions absolute, from 0); the running max starts
+// The function is the TPU kernel's: s = (q . k) * scale in f32; a masked
+// score is the finite -1e30 (kpos < kv_len; causal qpos >= kpos; window
+// qpos - kpos < window, OR-ed with kpos < prefix when a prefix is set;
+// positions absolute, from 0); the running max starts
 // at -1e30, so a row that no key sees ends as the mean of all Sk rows of V;
 // keys past Sk score -inf; p stays f32 for the PV product (to about 16 bits
 // here, see below); the result is acc / max(l, 1e-30), cast once to bf16.
@@ -60,12 +60,13 @@
 //   D contiguous, an MN-major B operand: the transpose bit of 16-bit wgmma.
 //   p is then carried to about 16 bits (relative error 2^-17), and the PV
 //   tensor work doubles: 1.5x the useful flops in all.
-// * Skipped tiles: the rule of attention_kernels.cu. Where every query row
-//   sees a key (the wrapper decides: kv_len >= 1, and with a window and no
-//   prefix, Sq - 1 < kv_len - 1 + window), a block visits only keys below
-//   its last row (causal), below kv_len, and from its first row's window
-//   start on (no prefix); otherwise every tile, so that a row no key sees
-//   keeps the mean of V. kernels/flash_attention.py::kv_tile_starts is
+// * Skipped tiles: a tile masked for every row of a block adds exactly 0
+//   once a visible tile has set the row's max, or is wiped (alpha = 0)
+//   after; so where every query row sees a key (the wrapper decides:
+//   kv_len >= 1, and with a window and no prefix, Sq - 1 < kv_len - 1 +
+//   window), a block visits only keys below its last row (causal), below
+//   kv_len, and from its first row's window start on (no prefix);
+//   otherwise every tile, so that a row no key sees keeps the mean of V. kernels/flash_attention.py::kv_tile_starts is
 //   the same range in Python, held to the mask by a CPU test.
 // * The epilogue divides by max(l, 1e-30) and stores bf16 pairs straight
 //   from the accumulator registers, skipping rows past Sq and columns past

@@ -19,28 +19,35 @@ product (by design, in both packages).
 Bound by bytes at the serving prefill (B=8, S=512) and by operations from
 S of a few thousand on: 4 B H Sq Sk D flops (times the visible share of
 the (Sq, Sk) square) against (q + k + v + o) bytes. The CUDA route splits
-by dtype, one kernel each, and there is no fallback between them:
+by dtype, one Hopper kernel each, and there is no fallback between them:
 
-* bfloat16 goes to the Hopper kernel (``csrc/attention_hopper.cu``,
-  ``repro_flash_attention_hopper``): one CTA of three warpgroups per (b h,
+* bfloat16 goes to ``csrc/attention_hopper.cu``
+  (``repro_flash_attention_hopper``): one CTA of three warpgroups per (b h,
   tile of 128 queries), TMA loads of Q once and of K/V tiles of
   ``hopper_block_k(D)`` keys into a 2-stage ring, ``wgmma`` on the tensor
   cores for QK^T and for PV, with p split into two bf16 parts so that the
-  PV product keeps p to about 16 bits (the f32 p of the reference). TMA
-  reads the operands through tensor maps over their (batch, seq, head)
-  strides, so a base must be 16-byte aligned and a stride a multiple of 8
-  elements (``tma_strides`` checks and raises ``ValueError``).
-* float32 goes to the CUDA-core kernel (``csrc/attention_kernels.cu``,
-  ``repro_flash_attention``): one block of 128 threads per (b h, tile of
-  64 queries; 32 for D = 256), K/V tiles of 32 keys in shared memory,
-  f32 FMAs; in f32 it beats PyTorch's SDPA.
+  PV product keeps p to about 16 bits (the f32 p of the reference).
+* float32 goes to ``csrc/attention_hopper_f32.cu``
+  (``repro_flash_attention_hopper_f32``), on the tensor cores too: the
+  TF32 ``wgmma`` multiplies 11-bit mantissas, so every f32 operand is split
+  into two TF32 parts, x = hi + lo, and each matmul takes three products,
+  hi hi + hi lo + lo hi ("3xTF32"), which keeps a product to about 21 bits
+  and the result within the f32 limit of the plain version (one TF32
+  product does not). One CTA per (b h, tile of ``hopper_f32_block_q(D)``
+  queries), K/V tiles of ``HOPPER_F32_BLOCK_K`` keys; a producer
+  warpgroup loads them by TMA and converts them (hi and lo of K, and V
+  transposed, since a 32-bit ``wgmma`` operand must be K-major).
 
-Both read the (B, S, H, D) projections through their strides (no transpose
-copy), take any Sq and Sk, and skip kv tiles that are masked for every row
-of a block only where that leaves the result unchanged
-(``kv_tile_starts``). Both are compiled for the head dims of the repo's
-configs, 64, 80, 112, 128 and 256, and refuse any other. CPU tensors take
-the plain version; ``chip_smoke.py`` holds the kernels to it on the card.
+TMA reads the operands through tensor maps over their (batch, seq, head)
+strides, so a base must be 16-byte aligned and a stride a multiple of 16
+bytes, 8 bf16 or 4 f32 elements (``tma_strides`` checks and raises
+``ValueError``). Both kernels read the (B, S, H, D) projections as they
+are (no transpose copy), take any Sq and Sk, and skip kv tiles that are
+masked for every row of a block only where that leaves the result
+unchanged (``kv_tile_starts``). Both are compiled for the head dims of the
+repo's configs, 64, 80, 112, 128 and 256, and refuse any other. CPU
+tensors take the plain version; ``chip_smoke.py`` holds the kernels to it
+on the card.
 
 There is no gradient: the Pallas kernel has no VJP and no trainer sets
 ``use_pallas``. Both routes run inside ``FlashAttentionFn``, whose backward
@@ -59,9 +66,10 @@ NEG_INF = -1e30  # the masked score (finite, as the Pallas kernel's)
 HEAD_DIMS = (64, 80, 112, 128, 256)  # the configs' head dims, compiled
 
 HOPPER_BLOCK_Q = 128  # query rows of a CTA of the Hopper kernel
+HOPPER_F32_BLOCK_K = 32  # keys of a K/V tile of the f32 Hopper kernel
 
-# kernel launches by ``flash_attention_bshd_cuda``: the Hopper (bf16)
-# kernel adds one to LAUNCHES, the CUDA-core (f32) kernel to F32_LAUNCHES
+# kernel launches by ``flash_attention_bshd_cuda``: the bf16 kernel adds
+# one to LAUNCHES, the f32 kernel to F32_LAUNCHES
 LAUNCHES = 0
 F32_LAUNCHES = 0
 
@@ -176,6 +184,12 @@ def hopper_block_k(D: int) -> int:
     return 64 if D > 128 else 128
 
 
+def hopper_f32_block_q(D: int) -> int:
+    """Query rows of a CTA of the f32 Hopper kernel: 128 (two consumer
+    warpgroups), or 64 at D = 256, whose shared memory holds one."""
+    return 64 if D > 128 else 128
+
+
 def kv_tile_starts(q0, *, Sq, Sk, block_k, causal, sliding_window,
                    prefix_global, kv_len, skip, block_q=HOPPER_BLOCK_Q):
     """The first key of each kv tile that the query tile ``[q0, q0 +
@@ -195,21 +209,23 @@ def kv_tile_starts(q0, *, Sq, Sk, block_k, causal, sliding_window,
 
 
 def tma_strides(name, x):
-    """The (batch, seq, head) strides of a bf16 operand of the Hopper
-    kernel, as its tensor map takes them: raises ``ValueError`` unless the
-    base is 16-byte aligned and every stride of a dim longer than 1 a
-    multiple of 8 elements (16 bytes). A dim of length 1 gets the stride a
-    contiguous layout would give it, since its own is never used."""
+    """The (batch, seq, head) strides of an operand of the Hopper kernels,
+    as their tensor maps take them: raises ``ValueError`` unless the base
+    is 16-byte aligned and every stride of a dim longer than 1 a multiple
+    of 16 bytes (8 bf16 or 4 f32 elements). A dim of length 1 gets the
+    stride a contiguous layout would give it, since its own is never
+    used."""
     if x.data_ptr() % 16:
         raise ValueError(f"{name}: the base address {x.data_ptr():#x} is "
-                         f"not 16-byte aligned (the Hopper kernel reads "
+                         f"not 16-byte aligned (the Hopper kernels read "
                          f"through TMA)")
+    unit = 16 // x.element_size()
     sizes, strides = x.shape[:3], list(x.stride()[:3])
-    bad = [st for n, st in zip(sizes, strides) if n > 1 and st % 8]
+    bad = [st for n, st in zip(sizes, strides) if n > 1 and st % unit]
     if bad:
         raise ValueError(f"{name}: strides {tuple(strides)} are not "
-                         f"multiples of 8 elements (the Hopper kernel reads "
-                         f"through TMA)")
+                         f"multiples of {unit} elements (the Hopper kernels "
+                         f"read through TMA)")
     # in the tensor map's order (head, seq, batch), each from the one inside
     inner = x.shape[3]
     for dim in (2, 1, 0):
@@ -223,10 +239,9 @@ def flash_attention_bshd_cuda(q, k, v, *, causal=True, sliding_window=0,
                               prefix_global=0, kv_len=None, scale=None):
     """The kernel on (B, Sq, H, D) q and (B, Sk, KV, D) k, v CUDA tensors,
     any strides with a contiguous head dim (the model's projections are
-    read as they are), D one of ``HEAD_DIMS`` -> a new contiguous
-    (B, Sq, H, D) tensor in q's dtype. bfloat16 launches the Hopper kernel
-    (its operands as ``tma_strides`` takes them), float32 the CUDA-core
-    kernel."""
+    read as they are; ``tma_strides`` checks them), D one of ``HEAD_DIMS``
+    -> a new contiguous (B, Sq, H, D) tensor in q's dtype. bfloat16
+    launches the bf16 Hopper kernel, float32 the 3xTF32 one."""
     global LAUNCHES, F32_LAUNCHES
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -241,26 +256,23 @@ def flash_attention_bshd_cuda(q, k, v, *, causal=True, sliding_window=0,
         raise ValueError(f"empty attention: B={B}, Sq={Sq}, Sk={Sk}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check(name, x, q.dtype, q.device)
-    hopper = q.dtype == torch.bfloat16
-    if hopper:
-        strides = [s for name, x in (("q", q), ("k", k), ("v", v))
-                   for s in tma_strides(name, x)]
-    else:
-        strides = [s for x in (q, k, v) for s in x.stride()[:3]]
+    strides = [s for name, x in (("q", q), ("k", k), ("v", v))
+               for s in tma_strides(name, x)]
     kv_len = Sk if kv_len is None else kv_len
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
     lib = build.library()
     with torch.cuda.device(q.device):
         lib.call(
-            "repro_flash_attention_hopper" if hopper
-            else "repro_flash_attention", q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), B, H, KV, Sq, Sk, D, *strides,
-            *out.stride()[:3], int(causal), int(sliding_window),
+            "repro_flash_attention_hopper" if bf16
+            else "repro_flash_attention_hopper_f32", q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV, Sq, Sk, D,
+            *strides, *out.stride()[:3], int(causal), int(sliding_window),
             int(prefix_global), int(kv_len),
             int(_skip_is_exact(Sq, kv_len, sliding_window, prefix_global)),
             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    if hopper:
+    if bf16:
         LAUNCHES += 1
     else:
         F32_LAUNCHES += 1

@@ -315,7 +315,7 @@ def launch_counts() -> dict[str, int]:
     counts each launch once, under ``neighbor_mix`` or, when it came
     through the stepped entry, under ``neighbor_mix_stepped``; flash
     attention under ``flash_attention`` (the bf16 Hopper kernel) or
-    ``flash_attention_f32`` (the f32 CUDA-core kernel)."""
+    ``flash_attention_f32`` (the f32 Hopper kernel, 3xTF32)."""
     return {
         "fused_momentum_broadcast": _fm.LAUNCHES,
         "block_momentum": _bm.LAUNCHES,

@@ -208,8 +208,8 @@ def flash_limit(got, plain32):
 @pytest.mark.cuda
 def test_cuda_flash_attention_matches_plain(cuda_device):
     """On the card: the flash kernels against the plain version's f32
-    result on the same inputs, bf16 through the Hopper kernel and f32
-    through the CUDA-core kernel (each counted under its own key), in the
+    result on the same inputs, bf16 through the bf16 Hopper kernel and f32
+    through the 3xTF32 one (each counted under its own key), in the
     mask and shape cases of the JAX kernel tests plus a causal D = 256 and
     a D = 80 window, on (B, S, H, D) projections and on a strided view of
     them, through ``ops.flash_attention``."""
@@ -269,6 +269,53 @@ def test_cuda_flash_attention_matches_plain(cuda_device):
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa.flash_attention_bshd_cuda(buf[1:1 + q.numel()].view(q.shape), kd,
                                      vd)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_f32_phase3_cases(cuda_device):
+    """On the card: the f32 (3xTF32) Hopper kernel in ``chip_smoke.py``
+    phase 3's small f32 cases, at the f32 limit of the plain version, one
+    ``flash_attention_f32`` launch each and no bf16 one; a stride of 2
+    elements is refused before launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+
+    def bhsd(x):
+        return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[3])
+
+    cases = [  # (B, Sq, Sk, H, KV, D, kwargs)
+        (2, 96, 96, 4, 2, 64, dict(causal=False)),
+        (2, 128, 128, 4, 2, 64, dict(causal=True, sliding_window=32,
+                                     prefix_global=8)),
+        (2, 128, 128, 4, 2, 64, dict(causal=True, sliding_window=16,
+                                     prefix_global=4)),
+        (2, 128, 128, 8, 2, 64, dict(causal=True, kv_len=77)),
+        (2, 64, 64, 4, 2, 64, dict(causal=True, kv_len=0)),
+        (1, 64, 64, 4, 2, 64, dict(causal=True, sliding_window=16,
+                                   kv_len=10)),
+        (2, 64, 64, 4, 1, 80, dict(causal=True)),
+        (1, 200, 200, 4, 2, 80, dict(causal=True, sliding_window=50)),
+        (1, 96, 96, 5, 5, 64, dict(causal=True)),
+        (1, 128, 128, 4, 4, 256, dict(causal=False)),
+        (1, 300, 300, 4, 4, 256, dict(causal=True)),
+        (2, 1, 1, 16, 8, 128, dict(causal=True)),
+        (1, 33, 70, 4, 2, 112, dict(causal=False)),
+        (1, 100, 60, 4, 2, 128, dict(causal=True, sliding_window=8)),
+    ]
+    for B, Sq, Sk, H, KV, D, kw in cases:
+        q = torch.randn(B, Sq, H, D, generator=gen, device=cuda_device)
+        k = torch.randn(B, Sk, KV, D, generator=gen, device=cuda_device)
+        v = torch.randn(B, Sk, KV, D, generator=gen, device=cuda_device)
+        ops.reset_launch_counts()
+        got = fa.flash_attention_bshd_cuda(q, k, v, **kw)
+        counts = ops.launch_counts()
+        assert counts["flash_attention_f32"] == 1
+        assert counts["flash_attention"] == 0
+        want = fa.flash_attention_plain(*(bhsd(x) for x in (q, k, v)), **kw)
+        ok, err = flash_limit(bhsd(got), want)
+        assert ok, (B, Sq, Sk, H, KV, D, kw, err)
+    wide = torch.zeros(2, 16, 4, 66, device=cuda_device)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 4"):
+        fa.flash_attention_bshd_cuda(wide, wide, wide)
 
 
 @pytest.mark.cuda
