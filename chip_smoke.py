@@ -145,6 +145,24 @@ Phases (any failure raises and the script exits non-zero):
    memory stays under twice the state and at most 256 MB of the failed
    attempt is still allocated when the retry's trainer is built (no
    second state), and the seconds from the halt to the resumed step.
+14. the async bounded-staleness server (``repro_torch.topology.
+   async_server``): (a) on ``qwen3-1.7b.reduced()`` in f32, L=4, K=2,
+   8 ticks, card against CPU within rtol/atol 1e-5 with the fired counts
+   and staleness equal: the mavg server on (1, 1, 2, 4), tau 3, packed
+   and per-leaf; eamsgd; downpour at tau 2; the server with the robust
+   clip and the finite guard under learner 3's sticky corruption; with
+   elastic membership; under a straggle fault; then the uniform profile
+   against flat on the card, bitwise, packed and per-leaf; (b) Qwen3-1.7B
+   at full width, 6 layers, L=4, K=4, B=8, S=64 through the Trainer: the
+   mavg server on (1, 1, 2, 4), tau 3, for 12 ticks (staleness <= 3 and
+   fired counts equal to the host replay on every tick, sgd_apply
+   launched K times a completed block, no fused launch, every plane and
+   anchor finite, peak < 80 GB; the median tick, completed blocks a
+   second and one tick profiled with the mix's share), eamsgd for 4
+   ticks with the same checks, and the uniform profile for 2 ticks
+   bitwise equal to flat (one fused launch a tick); (c) E4, the async
+   bench and the chaos bench in quick mode, with the reference's
+   assertions.
 
 The second-to-last line is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every phase
@@ -154,8 +172,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -289,6 +309,9 @@ def full_f32(torch):
 
 
 def free(torch):
+    # a phase's trainer can sit in a reference cycle (a wrapped bound
+    # method), so collect before the cache is emptied
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1936,7 +1959,9 @@ def profile_call(torch, label, fn, wall_ms: float, focus=None) -> None:
           f"idle share {1 - busy_ms / wall_ms:.3f}")
     for e in on_device:
         if e.key.startswith("obs."):
-            print(f"    {e.key} device span {e.device_time_total / 1e3:.1f} ms")
+            print(f"    {e.key} device span {e.device_time_total / 1e3:.1f} ms "
+                  f"({e.device_time_total / 1e3 / wall_ms:.3f} of the "
+                  f"unprofiled call)")
     booked = {name: [0.0, 0] for name, _ in KERNEL_CLASSES}
     booked["other elementwise/reduce"] = [0.0, 0]
     for e in kernels:
@@ -2701,6 +2726,339 @@ def supervised_recovery(torch, ops) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the async bounded-staleness server, its aliases, the straggle
+# fault and the paper's E4 baseline comparison
+# ---------------------------------------------------------------------------
+
+ASYNC_PROFILE = (1, 1, 2, 4)  # ticks per K-step block, learners 0-3
+ASYNC_TAU = 3
+ASYNC_TICKS = 12  # learner 3 (start clock -3) fires at ticks 6 and 10
+
+
+def blocks_per_tick(topology, ticks: int) -> list[int]:
+    """The blocks each tick completes, from the server's host replay."""
+    done = [topology.work_completed(i) for i in range(ticks)]
+    return [b - a for a, b in zip([0] + done, done)]
+
+
+def async_card_vs_cpu(torch, ops) -> dict:
+    """Phase 14a: qwen3-1.7b.reduced() in f32, L=4, K=2, card against CPU
+    over 2 x max(profile) ticks: the async mavg server on (1, 1, 2, 4),
+    tau 3, packed and per-leaf; eamsgd; downpour at tau 2; the server
+    under the sticky corruption of learner 3 with the robust clip and the
+    finite guard; with elastic membership; under a straggle fault. Planes
+    within rtol 1e-5 / atol 1e-5, fired counts and staleness equal. Then
+    the uniform profile against the flat topology on the card, bitwise,
+    packed and per-leaf. Returns the card's launches summed."""
+    from repro_torch.chaos import (
+        ChaosConfig,
+        FaultSchedule,
+        FaultSpec,
+        PayloadCorruptor,
+        apply_chaos,
+    )
+    from repro_torch.configs.base import (
+        AsyncConfig,
+        ElasticConfig,
+        MAvgConfig,
+        RobustConfig,
+        TopologyConfig,
+        get_config,
+    )
+    from repro_torch.core.meta import init_state, make_meta_step
+    from repro_torch.models import api
+    from repro_torch.topology import make_topology
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                              dtype="float32")
+    gen = torch.Generator().manual_seed(2)
+    params = api.init_params(gen, cfg, "cpu")
+    K, ticks = 2, 2 * max(ASYNC_PROFILE)
+    batches = [{"tokens": t, "labels": t} for t in (
+        torch.randint(0, cfg.vocab_size, (L, K, 2, 16), generator=gen)
+        for _ in range(ticks))]
+    loss_fn = lambda p, b: api.loss_fn(p, cfg, b)  # noqa: E731
+    n_leaves = len(tree_leaves(params))
+
+    def run(mcfg, device, chaos, n=ticks):
+        topology = make_topology(mcfg)
+        state = init_state(tree_map(lambda x: x.to(device), params), mcfg,
+                           topology=topology)
+        cor = (None if chaos is None else
+               PayloadCorruptor(FaultSchedule(chaos, mcfg.num_learners)))
+        step = make_meta_step(loss_fn, mcfg, topology=topology, chaos=cor)
+        ops.reset_launch_counts()
+        metrics = []
+        for b in batches[:n]:
+            state, m = step(state, tree_map(lambda x: x.to(device), b))
+            metrics.append({k: float(v) for k, v in m.items()})
+        counts = ops.launch_counts()
+        planes = [state.global_params, state.momentum, state.learners] + [
+            v for k, v in sorted((state.topo or {}).items())
+            if k != "membership"]
+        return ([x.cpu() for t in planes if t is not None
+                 for x in tree_leaves(t)], metrics, counts, topology)
+
+    base = dict(algorithm="mavg", num_learners=L, k_steps=K, learner_lr=0.1,
+                momentum=0.7)
+    skew = TopologyConfig(kind="async", server=AsyncConfig(
+        staleness=ASYNC_TAU, step_time=ASYNC_PROFILE))
+    straggle = apply_chaos(
+        MAvgConfig(**base, topology=TopologyConfig(
+            kind="async", server=AsyncConfig(staleness=1))),
+        ChaosConfig(seed=0, horizon=ticks, faults=(
+            FaultSpec("straggle", step=0, learner=1, magnitude=3.0),)))
+    assert straggle.topology.server.step_time == (1, 4, 1, 1)
+    runs = (  # (label, MAvgConfig, payload chaos)
+        ("async mavg (1,1,2,4) tau 3 packed", MAvgConfig(**base,
+                                                         topology=skew),
+         None),
+        ("async mavg (1,1,2,4) tau 3 per-leaf",
+         MAvgConfig(**base, topology=skew, packed=False), None),
+        ("eamsgd", MAvgConfig(**dict(base, algorithm="eamsgd")), None),
+        ("downpour tau 2", MAvgConfig(**dict(base, algorithm="downpour"),
+                                      staleness=2), None),
+        ("async robust clip + finite guard, learner 3 sticky corruption",
+         MAvgConfig(**base, topology=skew, finite_guard=True,
+                    robust=RobustConfig(**ROBUST)), sticky_chaos(ticks, 2)),
+        ("async (1,1,2,2) tau 2, elastic membership",
+         MAvgConfig(**base, topology=TopologyConfig(
+             kind="async", server=AsyncConfig(staleness=2,
+                                              step_time=(1, 1, 2, 2)),
+             elastic=ElasticConfig(period=4, drop_frac=0.25, seed=1))),
+         None),
+        ("async straggle fault (learner 1 +3 ticks, tau raised to 3)",
+         straggle, None),
+    )
+    total = dict(NO_LAUNCHES)
+    keys = ("fired_count", "staleness_max", "staleness_mean",
+            "staleness_p99")
+    for label, mcfg, chaos in runs:
+        cpu, cpu_m, _, topology = run(mcfg, "cpu", chaos)
+        card, card_m, counts, _ = run(mcfg, "cuda", chaos)
+        fired = blocks_per_tick(topology, ticks)
+        per_block = K * (1 if mcfg.packed else n_leaves)
+        want = dict(NO_LAUNCHES, sgd_apply=per_block * sum(fired))
+        assert counts == want, (label, counts, want)
+        total = {k: v + counts[k] for k, v in total.items()}
+        for k in keys:
+            assert [m[k] for m in card_m] == [m[k] for m in cpu_m], (label,
+                                                                     k)
+        assert [m["fired_count"] for m in card_m] == fired, label
+        # the bound holds for the step-time profile; an absent learner
+        # lags without one (drop is unbounded lag)
+        bound = mcfg.topology.server.staleness if (
+            mcfg.topology.server is not None) else mcfg.staleness
+        assert mcfg.topology.elastic is not None or all(
+            m["staleness_max"] <= bound for m in card_m), label
+        worst = 0.0
+        for c, g in zip(cpu, card):
+            torch.testing.assert_close(g, c, rtol=1e-5, atol=1e-5)
+            assert bool(torch.isfinite(g).all()), label
+            worst = max(worst, float((g.double() - c.double()).abs().max()))
+        extra = ""
+        if mcfg.robust is not None:
+            clipped = [m["robust_clipped_learners"] for m in card_m]
+            assert clipped == [m["robust_clipped_learners"] for m in cpu_m]
+            assert sum(clipped) > 0, clipped
+            extra = f"; clipped {clipped}"
+        print(f"  {label}: card == CPU to rtol=1e-5, atol=1e-5 over {ticks} "
+              f"ticks (max |diff| {worst:.3e}); fired {fired}, staleness_max "
+              f"{[m['staleness_max'] for m in card_m]}{extra}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+    for packed in (True, False):
+        flat, _, fc, _ = run(MAvgConfig(**base, packed=packed), "cuda", None,
+                             n=3)
+        uni, um, uc, _ = run(MAvgConfig(**base, packed=packed,
+                                        topology=TopologyConfig(
+                                            kind="async",
+                                            server=AsyncConfig())),
+                             "cuda", None, n=3)
+        assert fc == uc, (fc, uc)
+        assert uc["fused_momentum_broadcast" if packed
+                  else "block_momentum"] == 3 * (1 if packed else n_leaves)
+        for a, b in zip(flat, uni):  # the flat planes, then the anchors
+            assert torch.equal(a, b)
+        assert [m["fired_count"] for m in um] == [float(L)] * 3
+        print(f"  uniform profile == flat on the card, "
+              f"{'packed' if packed else 'per-leaf'}: bitwise over 3 ticks; "
+              f"launches {({k: v for k, v in uc.items() if v})}")
+    return total
+
+
+def async_full_width(torch, ops, label, mcfg, ticks) -> dict:
+    """Phase 14b: Qwen3-1.7B at full width, depth cut to DEPTH layers, the
+    async server through the Trainer (K=4, B=8, S=64, uniform tokens):
+    staleness <= tau and fired counts equal to the host replay on every
+    tick, sgd_apply launched K times a completed block, no fused launch
+    off the degenerate case, every plane finite; the median tick, blocks
+    per second, the peak device memory and one more tick profiled."""
+    from repro_torch.configs.base import TrainConfig, get_config
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data import uniform_batch_fn
+    from repro_torch.models import api
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.topology import make_topology
+
+    full = get_config("qwen3-1.7b")
+    cfg = dataclasses.replace(full, num_layers=DEPTH)
+    k, batch, seq = mcfg.k_steps, 8, 64
+    tcfg = TrainConfig(model=cfg, mavg=mcfg, batch_per_learner=batch,
+                       seq_len=seq, meta_steps=ticks)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(
+        tcfg, lambda p, b: api.loss_fn(p, cfg, b),
+        init_params_fn=lambda gen: api.init_params(gen, cfg, "cuda"),
+        batch_fn=uniform_batch_fn(cfg, mcfg.num_learners, k, batch, seq),
+        lr_schedule=warmup_cosine(LR, 5, ticks), device="cuda")
+    state = trainer.state
+    spec = state.spec
+    planes = sum(x.numel() for x in [state.global_params, state.momentum,
+                                     state.learners, state.topo["anchor"]]
+                 ) // spec.total
+    # what the phase holds beyond the state (nothing, unless an earlier
+    # phase left something on the card)
+    extra = torch.cuda.memory_allocated() - planes * spec.plane_bytes()
+    print(f"  {label}: {spec.rows} rows x 128 ({spec.plane_bytes() / 1e9:.3f}"
+          f" GB a plane), {planes} planes (w~, v, {mcfg.num_learners} "
+          f"learners, {mcfg.num_learners} anchors), "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+          f"({extra / 1e9:.2f} GB beside the planes)")
+    fired = blocks_per_tick(make_topology(mcfg), ticks)
+    peaks = PhasePeaks(torch, trainer)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = trainer.run(log=None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = peaks.stop()
+    want = dict(NO_LAUNCHES, sgd_apply=k * sum(fired))
+    print(f"  launches: {({k_: v for k_, v in counts.items() if v})} "
+          f"(K x {sum(fired)} completed blocks)")
+    assert counts == want, (label, counts, want)
+    assert [h["fired_count"] for h in history] == fired, history
+    stale = [h["staleness_max"] for h in history]
+    assert all(x <= mcfg.topology.server.staleness if mcfg.topology.server
+               else x == 0 for x in stale), stale
+    state = trainer.state
+    for name, t in (("w~", state.global_params), ("v", state.momentum),
+                    ("learners", state.learners),
+                    ("anchors", state.topo["anchor"])):
+        assert bool(torch.isfinite(t).all()), name
+    losses = [h["loss"] for h in history]
+    assert all(math.isfinite(x) for x in losses), losses
+    tick_ms = [1e3 / h["meta_steps_per_sec"] for h in history]
+    median = statistics.median(tick_ms[1:])
+    # the profiled tick (the next one) does the work of the earlier ticks
+    # that complete as many blocks; its idle share is read against their
+    # median wall time
+    profiled = blocks_per_tick(make_topology(mcfg), ticks + 1)[-1]
+    same = statistics.median(
+        ms for ms, f in zip(tick_ms[1:], fired[1:]) if f == profiled)
+    print(f"  fired per tick {fired}; staleness_max {stale}; "
+          f"staleness_p99 {[round(h['staleness_p99'], 2) for h in history]}")
+    print(f"  losses {[round(x, 4) for x in losses]} (ln V = "
+          f"{math.log(cfg.vocab_size):.4f}); every plane finite")
+    print(f"  tick ms {[round(x, 1) for x in tick_ms]}")
+    print(f"  {ticks} ticks in {seconds:.2f} s: median tick {median:.1f} ms "
+          f"(ticks 1-{ticks - 1}; tick 0 {tick_ms[0]:.1f} ms), "
+          f"{sum(fired) / seconds:.3f} completed blocks/s, "
+          f"{ticks / seconds:.3f} ticks/s; samples {history[-1]['samples']}")
+    print(f"  peak device memory {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB)"
+          "; by part: " + ", ".join(f"{n} {v / 1e9:.2f} GB"
+                                    for n, v in peaks.parts))
+    assert peak < 80e9, peak
+    profile_call(torch, f"async tick {ticks} ({profiled} blocks; against "
+                 f"the median of the earlier {profiled}-block ticks)",
+                 lambda: trainer.run(1, log=None), same)
+    trainer.close()
+    del trainer, state
+    free(torch)
+    return dict(counts, median_tick_ms=median, peak=peak,
+                blocks_per_s=sum(fired) / seconds)
+
+
+def async_uniform_full_width(torch, ops) -> None:
+    """Phase 14b, last: the uniform profile at full width (DEPTH layers,
+    L=4, K=4, B=8, S=64) for 2 ticks, bitwise equal to FlatAllReduce on
+    the same params and batches; one fused launch a tick in each."""
+    from repro_torch.configs.base import (
+        AsyncConfig,
+        MAvgConfig,
+        TopologyConfig,
+        get_config,
+    )
+    from repro_torch.core.meta import init_state, make_meta_step
+    from repro_torch.data import uniform_batch_fn
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=DEPTH)
+    base = dict(algorithm="mavg", num_learners=L, k_steps=4, learner_lr=LR,
+                momentum=MU)
+    batch_fn = uniform_batch_fn(cfg, L, 4, 8, 64)
+    loss_fn = lambda p, b: api.loss_fn(p, cfg, b)  # noqa: E731
+
+    def run(mcfg):
+        params = api.init_params(torch.Generator(device="cuda")
+                                 .manual_seed(3), cfg, "cuda")
+        state = init_state(params, mcfg)
+        del params
+        step = make_meta_step(loss_fn, mcfg)
+        ops.reset_launch_counts()
+        for t in range(2):
+            state, _ = step(state, batch_fn(
+                torch.Generator(device="cuda").manual_seed(10 + t), t))
+        torch.cuda.synchronize()
+        return state, ops.launch_counts()
+
+    flat, fc = run(MAvgConfig(**base))
+    uni, uc = run(MAvgConfig(**base, topology=TopologyConfig(
+        kind="async", server=AsyncConfig())))
+    assert fc == uc == dict(NO_LAUNCHES, fused_momentum_broadcast=2,
+                            sgd_apply=32), (fc, uc)
+    for f in ("global_params", "momentum", "learners"):
+        assert torch.equal(getattr(flat, f), getattr(uni, f)), f
+    assert torch.equal(uni.topo["anchor"][L - 1], uni.global_params)
+    print(f"  uniform profile == flat at full width ({DEPTH} layers, L={L}) "
+          f"over 2 ticks: w~, v and learners bitwise; launches "
+          f"{({k: v for k, v in uc.items() if v})} in each")
+    del flat, uni
+    free(torch)
+
+
+def async_benchmarks_on_the_card(torch, ops) -> dict:
+    """Phase 14c: E4 quick, the async bench quick and the chaos bench
+    quick on the card, each with the reference's assertions; their rows
+    printed. Returns the launches of the three."""
+    from repro_torch.benchmarks import async_bench, baselines, chaos_bench
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = baselines.main(quick=True, device="cuda")
+    print(f"  E4 quick: {({a: r[2] for a, r in results.items()})} samples "
+          f"to 1.1 ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    rows = async_bench.main(quick=True, device="cuda")
+    print(f"  async bench quick: {json.dumps(rows[-1])} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    work = ROOT / "build" / f"chaos_bench_{os.getpid()}"
+    try:
+        rows = chaos_bench.main(quick=True, device="cuda",
+                                workdir=str(work))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"  chaos bench quick: {json.dumps(rows[-1])} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    counts = ops.launch_counts()
+    print(f"  launches: {({k: v for k, v in counts.items() if v})}")
+    assert counts["sgd_apply"] > 0 and counts["fused_momentum_broadcast"] > 0
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2913,6 +3271,36 @@ def main() -> int:
     for counts in (obs_counts, sup_counts):
         assert counts["fused_momentum_broadcast"] > 0, counts
         assert counts["sgd_apply"] > 0, counts
+
+    from repro_torch.configs.base import AsyncConfig
+
+    print(f"phase 14a: the async server card vs CPU, qwen3-1.7b.reduced() "
+          f"float32, L={L}, K=2, {2 * max(ASYNC_PROFILE)} ticks")
+    with full_f32(torch):
+        async_card_vs_cpu(torch, ops)
+    print(f"phase 14b: the async server at full width ({DEPTH} layers), "
+          f"mavg on profile {ASYNC_PROFILE}, tau {ASYNC_TAU}, L={L}, K=4, "
+          f"{ASYNC_TICKS} ticks")
+    async_counts = async_full_width(
+        torch, ops, "async mavg",
+        MAvgConfig(algorithm="mavg", num_learners=L, k_steps=4,
+                   topology=TopologyConfig(kind="async", server=AsyncConfig(
+                       staleness=ASYNC_TAU, step_time=ASYNC_PROFILE))),
+        ASYNC_TICKS)
+    print(f"phase 14b: eamsgd at full width ({DEPTH} layers), L={L}, K=4, "
+          f"4 ticks")
+    async_full_width(torch, ops, "eamsgd",
+                     MAvgConfig(algorithm="eamsgd", num_learners=L,
+                                k_steps=4), 4)
+    print(f"phase 14b: the uniform profile against flat at full width "
+          f"({DEPTH} layers)")
+    async_uniform_full_width(torch, ops)
+    print("phase 14c: E4, the async bench and the chaos bench, quick, on "
+          "the card")
+    async_benchmarks_on_the_card(torch, ops)
+    print(f"  phase 14b launches on the async main path: sgd_apply "
+          f"{async_counts['sgd_apply']}, fused_momentum_broadcast "
+          f"{async_counts['fused_momentum_broadcast']}")
 
     # each kernel's launches in the run of the path it serves: the dense
     # and compressed full-width runs, the reduced per-leaf runs, the gossip

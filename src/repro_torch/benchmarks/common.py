@@ -38,12 +38,15 @@ def seeded_batches(batch_fn: Callable, seed: int, device) -> Callable:
 
 
 def run_mlp(algorithm: str, *, P: int, K: int, mu: float, lr: float = 0.2,
-            steps: int = 60, batch: int = 16, seed: int = 0, device="cuda",
-            params: Optional[dict] = None,
+            steps: int = 60, batch: int = 16, seed: int = 0,
+            local_momentum: float = 0.0, staleness: int = 1,
+            elastic_alpha: float = 0.05, device="cuda", params: Optional[dict] = None,
             batch_at: Optional[Callable] = None,
             eval_set: Optional[dict] = None):
-    """Train the teacher-classification MLP with dense averaging on the
-    flat topology; returns (losses, val_acc).
+    """Train the teacher-classification MLP with dense averaging; returns
+    (losses, val_acc). ``staleness`` is downpour's bound and
+    ``elastic_alpha`` eamsgd's coupling (both aliases onto the async
+    server); the averaging algorithms run on the flat topology.
 
     ``params``, ``batch_at(i)`` and ``eval_set`` replace the port's own
     initial params, batches and evaluation set (a parity test passes
@@ -52,7 +55,9 @@ def run_mlp(algorithm: str, *, P: int, K: int, mu: float, lr: float = 0.2,
     ``device``.
     """
     cfg = MAvgConfig(algorithm=algorithm, num_learners=P, k_steps=K,
-                     learner_lr=lr, momentum=mu)
+                     learner_lr=lr, momentum=mu,
+                     local_momentum=local_momentum, staleness=staleness,
+                     elastic_alpha=elastic_alpha)
     if params is None:
         params = mlp_init(seeded_generator(device, seed), D_IN, HIDDEN,
                           CLASSES, device=device)

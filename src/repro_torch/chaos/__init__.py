@@ -2,10 +2,9 @@
 # §13): a seeded, replayable FaultSchedule compiled from a frozen
 # ChaosConfig, and the injectors of the data (NaN/Inf batches), comm
 # (payload scale and bit-flip) and topology (crash windows onto the elastic
-# membership) layers; the save faults go to the checkpoint writer through
-# the Trainer. Straggle faults (the async server) are compiled but raise
-# where they would be consumed: ROADMAP Queue 1, item 6. Recovery is the
-# supervisor's (core/supervisor.py).
+# membership, straggler spikes onto the async step-time profile) layers;
+# the save faults go to the checkpoint writer through the Trainer. Recovery
+# is the supervisor's (core/supervisor.py).
 from repro_torch.chaos.config import (
     FAULT_KINDS,
     STANDARD_KINDS,

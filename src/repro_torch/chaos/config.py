@@ -23,15 +23,12 @@ Fault kinds, by the layer they perturb:
   finite_bitflip          stays finite: invisible to the finite guard.
   crash                   topology: the learner is removed from the
                           elastic membership mask for ``duration`` steps.
-  straggle                the async server's step-time profile; the async
-                          server is not ported (ROADMAP Queue 1, item 6).
+  straggle                the async server: the learner's step-time
+                          profile entry gains ``magnitude`` extra ticks
+                          (the staleness bound is raised to stay valid).
   torn_save / corrupt_save  checkpoint (``repro_torch.checkpoint``): the
                           save at ``step`` is torn (truncated, no sidecar)
                           or corrupted (one byte flipped after the save).
-
-The port compiles every kind into ``FaultSchedule``'s arrays, as JAX
-does, and raises NotImplementedError where the unported straggle kind
-would be consumed (``inject.apply_chaos``).
 
 ``sticky``: a non-sticky fault is *transient*: it fires only on the first
 attempt (retry ``salt`` 0). A sticky fault re-fires on every retry.
@@ -164,8 +161,7 @@ def standard_chaos(num_learners: int, meta_steps: int, *, seed: int = 0,
     payload corruption + straggle + torn save), sized to the run: faults
     land in the first half so a supervised run has room to recover, the
     horizon covers the whole run so the crash schedule never wraps.
-    ``kinds`` selects a subset (CLI ``--chaos-faults``); the port takes
-    crash, nan, payload and torn_save, and raises on straggle."""
+    ``kinds`` selects a subset (CLI ``--chaos-faults``)."""
     assert num_learners >= 2, num_learners
     assert meta_steps >= 8, (
         f"the standard chaos schedule needs >= 8 meta steps to place its "

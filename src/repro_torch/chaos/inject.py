@@ -9,9 +9,9 @@ quiet.
                      whole-plane scale and a single real bit-flip.
   apply_chaos        topology layer, a config transform: crash windows
                      become rows of an explicit elastic membership
-                     schedule. Straggle spikes perturb the async server,
-                     which is not ported (ROADMAP Queue 1, item 6): they
-                     raise.
+                     schedule, and straggle spikes land on the async
+                     server's step-time profile (with the staleness bound
+                     raised to keep the config valid).
 
 Where the port differs from JAX in execution, not in math: JAX selects the
 corrupted planes with a ``where`` over the whole (L, ...) stack and flips
@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.chaos.config import ChaosConfig
 from repro_torch.chaos.schedule import FaultSchedule
-from repro_torch.configs.base import ElasticConfig, MAvgConfig
+from repro_torch.configs.base import AsyncConfig, ElasticConfig, MAvgConfig
 from repro_torch.kernels.planes import f32, windows
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -149,34 +149,46 @@ def _crash_membership(schedule: FaultSchedule, topo_cfg) -> np.ndarray:
 
 def apply_chaos(mcfg: MAvgConfig, chaos: ChaosConfig, *,
                 salt: int = 0) -> MAvgConfig:
-    """The config-level injection: crash faults -> an explicit elastic
-    membership schedule. Without crash faults the config is returned
-    UNCHANGED (the identical object). Straggle faults raise: they perturb
-    the async server's step-time profile, which is not ported."""
+    """The config-level injections: crash faults -> an explicit elastic
+    membership schedule, straggle faults -> the async step-time profile
+    (with the staleness bound raised to stay valid). With neither fault
+    kind present the config is returned UNCHANGED (the identical
+    object)."""
     # STRUCTURE is decided at salt 0, CONTENT at the caller's salt: a retry
     # that drops a transient crash still carries the membership schedule
     schedule0 = FaultSchedule(chaos, mcfg.num_learners, salt=0)
-    if schedule0.straggle_extra.any():
-        raise NotImplementedError(
-            "chaos straggle faults perturb the async server's step-time "
-            "profile; the async server is not ported yet (ROADMAP Queue 1, "
-            "item 6)")
-    if not schedule0.any_crash_faults:
-        return mcfg
     schedule = (schedule0 if salt == 0
                 else FaultSchedule(chaos, mcfg.num_learners, salt=salt))
     t = mcfg.topology
-    if t.kind == "flat":
-        raise ValueError(
-            "chaos crash faults map onto the elastic membership mask, "
-            "which the flat topology has no mixing rows for — use "
-            "hierarchical / gossip (TopologyConfig.kind)"
+    if not (schedule0.any_crash_faults or schedule0.straggle_extra.any()):
+        return mcfg
+    if schedule0.any_crash_faults:
+        if t.kind == "flat":
+            raise ValueError(
+                "chaos crash faults map onto the elastic membership mask, "
+                "which the flat topology has no mixing rows for — use "
+                "hierarchical / gossip / async (TopologyConfig.kind)"
+            )
+        rows = _crash_membership(schedule, t)
+        elastic = t.elastic if t.elastic is not None else ElasticConfig(
+            drop_frac=0.0)
+        elastic = replace(
+            elastic, period=rows.shape[0],
+            schedule=tuple(tuple(float(v) for v in r) for r in rows),
         )
-    rows = _crash_membership(schedule, t)
-    elastic = t.elastic if t.elastic is not None else ElasticConfig(
-        drop_frac=0.0)
-    elastic = replace(
-        elastic, period=rows.shape[0],
-        schedule=tuple(tuple(float(v) for v in r) for r in rows),
-    )
-    return replace(mcfg, topology=replace(t, elastic=elastic))
+        t = replace(t, elastic=elastic)
+    if schedule0.straggle_extra.any():
+        if t.kind != "async":
+            raise ValueError(
+                "chaos straggle faults perturb the async server's "
+                "step-time profile — use TopologyConfig(kind='async')"
+            )
+        from repro_torch.topology.async_server import step_time_profile
+
+        server = t.server if t.server is not None else AsyncConfig()
+        prof = schedule.straggled_profile(
+            step_time_profile(mcfg.num_learners, server))
+        server = replace(server, step_time=prof,
+                         staleness=max(server.staleness, max(prof) - 1))
+        t = replace(t, server=server)
+    return replace(mcfg, topology=t)

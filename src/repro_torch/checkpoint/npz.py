@@ -44,8 +44,10 @@ Where the port departs from JAX:
     buffer without copying it again, so the host holds about twice the
     state rather than three times.
 
-Host topology keys (``membership``, ``robust_ring``, ``robust_count``)
-live on the CPU in the port's state and are restored there.
+Host topology keys (``membership``, ``robust_ring``, ``robust_count`` and
+the async server's int32 ``clock``, ``pull_update`` and ``updates``) live
+on the CPU in the port's state and are restored there; the async
+``anchor`` stack is a plane on the state's device.
 """
 from __future__ import annotations
 

@@ -226,7 +226,13 @@ def _local_phase(loss_fn: LossFn, learners, local_mom, batches,
         gnorm = torch.stack(gnorms).view(L, K).mean(dim=1).mean()
         return learners, local_mom, loss_l.mean(), gnorm, loss_l, None
     # sums over the active steps over their count (JAX
-    # core/meta.py:268-273); an inactive learner reports loss 0
+    # core/meta.py:268-273); an inactive learner reports loss 0, and a
+    # tick on which no learner runs (the async server's warmup) reports 0
+    if not losses:
+        zero = torch.zeros((), device=tree_leaves(learners)[0].device)
+        return (learners, local_mom, zero, zero.clone(),
+                torch.zeros((L,), device=zero.device),
+                torch.zeros((L,), dtype=torch.bool))
     losses, gnorms = torch.stack(losses), torch.stack(gnorms)
     active = max(sum(counts), 1)
     per = torch.split(losses, counts)

@@ -23,10 +23,11 @@ newest verified snapshots; ``restore`` loads one back into the live
 state, in place, and the next run appends to the same run log.
 
 Fault injection (``repro_torch.chaos``) is wired as in JAX: the config
-transform (crash windows -> elastic membership) before the topology is
-built, the batch poisoner around ``batch_fn``, the payload corruptor
-into the meta step, and the save faults (torn_save, corrupt_save) into
-the checkpoint writer. ``TrainConfig.data_salt`` (a supervisor retry)
+transform (crash windows -> elastic membership, straggle spikes -> the
+async step-time profile) before the topology is built, the batch
+poisoner around ``batch_fn``, the payload corruptor into the meta step,
+and the save faults (torn_save, corrupt_save) into the checkpoint
+writer. ``TrainConfig.data_salt`` (a supervisor retry)
 redraws the data stream. Robust telemetry (``repro_torch.robust``): each
 flush moves the ``robust_*`` metrics out of the step records into
 ``robust`` records, and the inline quarantine masks a persistently
@@ -376,7 +377,9 @@ class Trainer:
     def set_membership(self, membership):
         """Replace the elastic membership schedule in the state: new
         (period, L) 0/1 rows of the same shape, every row with a learner
-        present. Only valid on a run that has a membership schedule."""
+        present, and the async server's host mirror of it (its
+        completed-work replay) with them. Only valid on a run that has a
+        membership schedule."""
         topo = self.state.topo
         if not (isinstance(topo, dict) and "membership" in topo):
             raise ValueError(
@@ -392,6 +395,13 @@ class Trainer:
                 "quarantine membership leaves a row with no learner present")
         self.state = dataclasses.replace(
             self.state, topo={**topo, "membership": torch.from_numpy(m)})
+        if getattr(self._topology, "membership", None) is not None:
+            # the async server's completed-work replay re-simulates from
+            # tick 0 under the new schedule
+            self._topology.membership = m
+            self._topology._sim_clock = self._topology.start_clock.copy()
+            self._topology._sim_t = 0
+            self._topology._sim_cum = []
 
     def emit(self, record: dict):
         """Append one structured record to the run's telemetry sink (the

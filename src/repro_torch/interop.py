@@ -50,15 +50,17 @@ def cache_from_jax(cache, device="cpu") -> dict:
     }
 
 
-# the MetaState.topo keys of the hierarchical and gossip topologies and of
-# the robust norm clip's ring
+# the MetaState.topo keys of the hierarchical and gossip topologies, of the
+# async server and of the robust norm clip's ring
 TOPO_KEYS = frozenset({
     "params", "momentum", "residual", "membership", "group_params",
     "group_momentum", "inner_residual", "outer_residual", "robust_ring",
-    "robust_count",
+    "robust_count", "clock", "pull_update", "updates", "anchor",
 })
-# topo keys the port keeps on the host: the elastic schedule and the ring
-HOST_TOPO_KEYS = frozenset({"membership", "robust_ring", "robust_count"})
+# topo keys the port keeps on the host: the elastic schedule, the ring and
+# the async server's clocks
+HOST_TOPO_KEYS = frozenset({"membership", "robust_ring", "robust_count",
+                            "clock", "pull_update", "updates"})
 
 
 def state_from_jax(state, device="cpu") -> MetaState:
@@ -66,18 +68,18 @@ def state_from_jax(state, device="cpu") -> MetaState:
 
     Reads the fields by name; a packed state's layout comes from its
     spec's ``layout_dict()``. The flat topology's error-feedback residual
-    (``comm_residual``) is carried, and so are the hierarchical and gossip
-    buffers of ``topo`` and the robust clip's ring; the elastic
-    ``membership`` schedule and the ring stay on the host, where the
-    port's topologies read them.
+    (``comm_residual``) is carried, and so are the hierarchical, gossip and
+    async buffers of ``topo`` and the robust clip's ring; the elastic
+    ``membership`` schedule, the ring and the async clocks stay on the
+    host, where the port's topologies read them.
     """
     topo = state.topo
     if topo is not None:
         unknown = set(topo) - TOPO_KEYS
         if unknown:
-            raise NotImplementedError(
-                f"topology buffers {sorted(unknown)} belong to a topology "
-                f"that is not ported (ROADMAP Queue 1, item 6)")
+            raise ValueError(
+                f"topology buffers {sorted(unknown)} are not buffers of "
+                f"any topology of the port")
         topo = {k: _tree(v, "cpu" if k in HOST_TOPO_KEYS else device)
                 for k, v in topo.items()}
     spec = getattr(state, "spec", None)

@@ -17,7 +17,10 @@ adds L planes, so ``--full --comm int8`` fits one 80 GB card at
 through ``repro_torch.topology`` (``--groups``, ``--outer-every``,
 ``--outer-momentum``, ``--outer-comm``, ``--group-k``; ``--gossip-graph``),
 with elastic membership under ``--elastic-period``/``--elastic-drop``/
-``--elastic-seed``. ``--robust mean|trimmed|median`` turns on robust
+``--elastic-seed``; ``--topology async`` runs the bounded-staleness server
+(``--async-staleness``, ``--async-profile``, ``--async-skew``,
+``--async-update``, ``--async-decay``, ``--async-seed``), and
+``--algorithm eamsgd|downpour`` its legacy aliases. ``--robust mean|trimmed|median`` turns on robust
 aggregation (``repro_torch.robust``: ``--robust-trim``, ``--robust-clip``,
 ``--robust-clip-window``, ``--robust-no-score``,
 ``--robust-quarantine-after``), ``--finite-guard`` the in-step NaN/Inf
@@ -37,9 +40,11 @@ rules from halting) and ``--obs-attribution`` the phase timing rows.
 (``core/supervisor.py``: ``--supervise-retries``,
 ``--supervise-quarantine``, ``--supervise-readmit``; it needs
 ``--checkpoint-dir``). The flags mean what they mean in the JAX launcher.
-Not ported yet, and refused: ``--topology async`` and the straggle fault
-kind (ROADMAP Queue 1, item 6), and ``--obs-cost`` (item 10).
+Not ported yet, and refused: ``--obs-cost`` (ROADMAP Queue 1, item 10).
 
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --steps 4 --topology async --async-profile 1,1,2,4 \
+      --async-staleness 3
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --steps 4 --checkpoint-dir build/ck --checkpoint-every 2
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
@@ -57,12 +62,14 @@ import torch
 from repro_torch.chaos import STANDARD_KINDS, standard_chaos
 from repro_torch.checkpoint import latest_checkpoint, latest_verified_checkpoint
 from repro_torch.configs.base import (
-    AVERAGING_ALGOS,
+    ALGORITHMS,
+    ASYNC_UPDATES,
     COMM_SCHEMES,
     GOSSIP_GRAPHS,
     OBS_SINKS,
     ROBUST_ESTIMATORS,
     TOPOLOGIES,
+    AsyncConfig,
     CommConfig,
     ElasticConfig,
     MAvgConfig,
@@ -87,7 +94,7 @@ from repro_torch.pack import unpack_params
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b")
-    ap.add_argument("--algorithm", default="mavg", choices=AVERAGING_ALGOS)
+    ap.add_argument("--algorithm", default="mavg", choices=ALGORITHMS)
     ap.add_argument("--learners", type=int, default=4)
     ap.add_argument("--k", type=int, default=4)
     ap.add_argument("--steps", type=int, default=30)
@@ -104,7 +111,7 @@ def main(argv=None) -> None:
     ap.add_argument("--no-error-feedback", action="store_true",
                     help="disable the comm error-feedback residual")
     ap.add_argument("--topology", default="flat", choices=TOPOLOGIES,
-                    help="meta-level mixing topology (async: not ported)")
+                    help="meta-level mixing topology")
     ap.add_argument("--groups", type=int, default=1,
                     help="hierarchical: number of learner groups G")
     ap.add_argument("--outer-every", type=int, default=1,
@@ -118,6 +125,23 @@ def main(argv=None) -> None:
     ap.add_argument("--group-k", default=None,
                     help="hierarchical: comma-separated per-group local-step "
                          "counts K_g (each <= --k), e.g. --group-k 2,4")
+    ap.add_argument("--async-staleness", type=int, default=0,
+                    help="async: staleness bound tau (center updates a "
+                         "pulled copy may lag behind)")
+    ap.add_argument("--async-profile", default=None,
+                    help="async: comma-separated per-learner step-time "
+                         "profile in meta ticks, e.g. --async-profile "
+                         "1,1,2,4 (overrides --async-skew)")
+    ap.add_argument("--async-skew", type=int, default=1,
+                    help="async: slowest/fastest step-time ratio of the "
+                         "seed-generated profile (1 = uniform)")
+    ap.add_argument("--async-update", default="mavg", choices=ASYNC_UPDATES,
+                    help="async: staleness-decayed update rule")
+    ap.add_argument("--async-decay", type=float, default=None,
+                    help="async: staleness decay base (default: the block "
+                         "momentum, the mu^tau rule)")
+    ap.add_argument("--async-seed", type=int, default=0,
+                    help="async: seed assigning profile slots to learners")
     ap.add_argument("--elastic-period", type=int, default=0,
                     help="elastic membership schedule length in meta steps "
                          "(0 = everyone always present)")
@@ -134,8 +158,8 @@ def main(argv=None) -> None:
                     help="seed of the standard chaos schedule")
     ap.add_argument("--chaos-faults", default=None,
                     help="comma subset of the standard fault kinds "
-                         "(crash,nan,payload,torn_save; straggle is not "
-                         "ported); default all")
+                         "(crash,nan,payload,straggle,torn_save); default "
+                         "all")
     ap.add_argument("--robust", default=None, choices=ROBUST_ESTIMATORS,
                     help="robust meta aggregation: the coordinate-wise "
                          "trimmed mean or median in place of the learner "
@@ -211,10 +235,6 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.topology == "async":
-        raise NotImplementedError(
-            "--topology async: the async server is not ported yet "
-            "(ROADMAP Queue 1, item 6)")
     if args.obs_cost:
         raise SystemExit(
             "--obs-cost: the compiled-step cost model (roofline.hlo_cost) is "
@@ -258,6 +278,15 @@ def main(argv=None) -> None:
                       seed=args.elastic_seed)
         if args.elastic_period > 0 else None
     )
+    server = (
+        AsyncConfig(
+            staleness=args.async_staleness,
+            step_time=(tuple(int(t) for t in args.async_profile.split(","))
+                       if args.async_profile else ()),
+            skew=args.async_skew, seed=args.async_seed,
+            update=args.async_update, decay=args.async_decay)
+        if args.topology == "async" else None
+    )
     shape = (cfg, args.learners, args.k, args.batch, args.seq)
     batch_fn = (uniform_batch_fn(*shape) if args.full
                 else lm_batch_fn(*shape, device=device))
@@ -278,7 +307,7 @@ def main(argv=None) -> None:
                 outer_every=args.outer_every,
                 outer_momentum=args.outer_momentum,
                 graph=args.gossip_graph, outer_comm=outer_comm,
-                group_k=group_k, elastic=elastic))
+                group_k=group_k, elastic=elastic, server=server))
         tcfg = TrainConfig(
             model=cfg, mavg=mcfg,
             batch_per_learner=args.batch, seq_len=args.seq,
@@ -331,6 +360,9 @@ def main(argv=None) -> None:
     elif args.topology != "flat":
         line += (f"  comm_compression {last['comm_compression']:.2f}"
                  f"  consensus_dist {last['consensus_dist']:.3e}")
+    if "staleness_max" in last:
+        line += (f"  staleness_max {last['staleness_max']:.0f}"
+                 f"  fired_count {last['fired_count']:.0f}")
     if "present_count" in last:
         line += f"  present {last['present_count']:.0f}/{args.learners}"
     if "nonfinite_learners" in last:

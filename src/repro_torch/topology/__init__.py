@@ -1,7 +1,11 @@
 # Meta-level mixing topologies (the JAX package's repro.topology): who
-# averages with whom, how often. Flat, hierarchical and gossip are ported,
-# with elastic membership and robust aggregation; the async server (and
-# the eamsgd/downpour aliases onto it) is ROADMAP Queue 1, item 6.
+# averages with whom, how often: flat, hierarchical, gossip and the async
+# bounded-staleness server, with elastic membership and robust aggregation.
+from repro_torch.topology.async_server import (
+    AsyncServer,
+    resolve_async_config,
+    step_time_profile,
+)
 from repro_torch.topology.base import (
     FlatAllReduce,
     Topology,
@@ -36,12 +40,10 @@ def make_topology(cfg, reducer=None, dither=None) -> Topology:
     builds itself (``comm.quant.QuantReducer``).
     """
     kind = cfg.topology.kind
+    # the legacy downpour/eamsgd algorithms are aliases onto the async
+    # bounded-staleness server (resolve_async_config)
     if kind == "async" or cfg.algorithm in ("eamsgd", "downpour"):
-        raise NotImplementedError(
-            f"the async server (topology {kind!r}, algorithm "
-            f"{cfg.algorithm!r}; eamsgd and downpour are aliases onto it) "
-            f"is not ported yet (ROADMAP Queue 1, item 6)"
-        )
+        return AsyncServer(cfg, reducer, dither)
     if kind == "flat":
         return FlatAllReduce(cfg, reducer, dither)
     if kind == "hierarchical":
@@ -52,6 +54,7 @@ def make_topology(cfg, reducer=None, dither=None) -> Topology:
 
 
 __all__ = [
+    "AsyncServer",
     "FlatAllReduce",
     "Gossip",
     "Hierarchical",
@@ -70,4 +73,6 @@ __all__ = [
     "mixing_matrix_stack",
     "mixing_period",
     "present_edge_count",
+    "resolve_async_config",
+    "step_time_profile",
 ]

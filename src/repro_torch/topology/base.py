@@ -13,9 +13,9 @@ momentum-broadcast kernel, in place: w~ and v are overwritten, and the
 learner plane (already consumed by the reducer) receives the reset. With
 robust aggregation on (``repro_torch.robust``) the learners are scored
 and norm-clipped against w~ first, and the reducer's mean becomes the
-robust estimator. The hierarchical and gossip topologies live beside it
-(``hierarchical.py``, ``gossip.py``, ``elastic.py``); the async server is
-not ported (ROADMAP Queue 1, item 6).
+robust estimator. The hierarchical and gossip topologies and the async
+server live beside it (``hierarchical.py``, ``gossip.py``, ``elastic.py``,
+``async_server.py``).
 """
 from __future__ import annotations
 

@@ -82,6 +82,8 @@ def _pair(**kw):
             t = dict(k["topology"])
             if "elastic" in t:
                 t["elastic"] = base.ElasticConfig(**t["elastic"])
+            if "server" in t:
+                t["server"] = base.AsyncConfig(**t["server"])
             k["topology"] = base.TopologyConfig(**t)
         return base.MAvgConfig(**k)
 
@@ -317,7 +319,7 @@ def test_nan_batch_guard_keeps_state_finite_as_jax():
 
 
 # ---------------------------------------------------------------------------
-# apply_chaos: crash windows -> membership; unported kinds raise
+# apply_chaos: crash windows -> membership, straggle -> the async profile
 # ---------------------------------------------------------------------------
 
 
@@ -325,7 +327,8 @@ def test_nan_batch_guard_keeps_state_finite_as_jax():
     dict(kind="gossip", graph="ring"),
     dict(kind="hierarchical", groups=2,
          elastic=dict(period=3, drop_frac=0.25, seed=1)),
-], ids=["gossip", "hier_elastic"])
+    dict(kind="async", server=dict(staleness=2)),
+], ids=["gossip", "hier_elastic", "async"])
 def test_apply_chaos_crash_to_membership_as_jax(topo):
     faults = (dict(kind="crash", step=1, learner=2, duration=2),)
     jcfg, cfg = _pair(algorithm="mavg", num_learners=4, k_steps=K,
@@ -357,29 +360,50 @@ def test_crash_run_follows_the_membership():
 
 
 def test_unported_faults_raise():
+    """Every fault kind is ported now. Straggle spikes land on the async
+    profile (tests/test_chaos.py CH3, as JAX) and are refused, as in JAX,
+    on a topology without a step-time profile; save faults reach the
+    Trainer's checkpoint chain; --supervise needs the chain."""
     mcfg = tbase.MAvgConfig(num_learners=2, k_steps=K)
     straggle = ChaosConfig(seed=0, horizon=8, faults=(
         FaultSpec("straggle", step=0, learner=1, magnitude=3.0),))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
+    with pytest.raises(ValueError, match="kind='async'"):
         apply_chaos(mcfg, straggle)
+    jcfg, acfg = _pair(algorithm="mavg", num_learners=2, k_steps=K,
+                       topology=dict(kind="async",
+                                     server=dict(staleness=1)))
+    out = apply_chaos(acfg, straggle)
+    want = japply_chaos(jcfg, JChaosConfig(seed=0, horizon=8, faults=(
+        JFaultSpec("straggle", step=0, learner=1, magnitude=3.0),)))
+    prof = out.topology.server.step_time
+    assert prof == want.topology.server.step_time == (1, 4)
+    assert prof[1] - prof[0] == 3
+    assert out.topology.server.staleness == \
+        want.topology.server.staleness == max(prof) - 1
     torn = ChaosConfig(seed=0, horizon=8, faults=(
         FaultSpec("torn_save", step=2),))
     tcfg = tbase.TrainConfig(model=None, mavg=mcfg, batch_per_learner=B,
                              meta_steps=2, chaos=torn)
-    # save faults are ported now (the checkpoint chain): the Trainer takes
-    # them, and tests/test_torch_checkpoint.py resumes past one
+    # save faults: the Trainer takes them, and
+    # tests/test_torch_checkpoint.py resumes past one
     trainer = Trainer(tcfg, mlp_loss,
                       init_params_fn=lambda g: interop.params_from_jax(
                           JPARAMS),
                       batch_fn=lambda g, s: None, device="cpu")
     assert trainer._chaos_schedule.save_fault(2) == "torn"
-    # the supervisor is ported now: --supervise is refused only without
-    # the checkpoint chain it rolls back through, with JAX's message
+    # the supervisor is refused only without the checkpoint chain it
+    # rolls back through, with JAX's message
     with pytest.raises(SystemExit, match="--supervise needs --checkpoint-dir"):
         launch_train.main(["--device", "cpu", "--supervise"])
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
+    # the straggle kind from the launcher: refused on the flat topology,
+    # run on the async one
+    with pytest.raises(ValueError, match="kind='async'"):
         launch_train.main(["--device", "cpu", "--chaos", "--steps", "8",
                            "--chaos-faults", "straggle"])
+    launch_train.main(["--device", "cpu", "--chaos", "--steps", "8",
+                       "--learners", "2", "--k", "2", "--batch", "2",
+                       "--seq", "16", "--topology", "async",
+                       "--chaos-faults", "straggle,crash"])
 
 
 def test_launcher_runs_robust_and_chaos_on_cpu(capsys):

@@ -1,9 +1,9 @@
 """The port's checkpoint (``repro_torch.checkpoint``) against the JAX
 package's ``checkpoint/npz.py``.
 
-Part 1 mirrors ``tests/test_checkpoint.py`` on the port (all but its async
-case: the async server is not ported): the bit-identical round trip and
-resume, the momentum and error-feedback residual, the verified chain
+Part 1 mirrors ``tests/test_checkpoint.py`` on the port: the
+bit-identical round trip and resume (the async server's clocks, stamps
+and anchors halted mid-window too), the momentum and error-feedback residual, the verified chain
 (torn, corrupt, truncated, entry-set mismatch, non-finite, torn sidecar),
 retention and pruning; and the retry helper as ``tests/test_chaos.py``
 pins it.
@@ -16,8 +16,10 @@ state and JAX loads it back, bitwise again; each package's
 the same JSON (the same entries, CRCs, shapes, dtypes and npz size).
 Covered: flat dense packed and per-leaf, int8 + error feedback packed and
 per-leaf, learner-level momentum, gossip with its residual, hierarchical
-with elastic membership and an int8 + EF inner level, the robust clip's
-host ring, and bf16 learner planes. JAX cannot load a bf16 plane at all,
+with elastic membership and an int8 + EF inner level, the async server
+(its int32 clocks on the host, its anchor stack; halted mid-window,
+packed and, with elastic membership, per-leaf), the robust clip's host
+ring, and bf16 learner planes. JAX cannot load a bf16 plane at all,
 not even from its own file (numpy has no cast from the ``|V2`` words the
 plane becomes), so for bf16 the port's file is checked word for word
 against JAX's instead and JAX's failure is pinned.
@@ -190,6 +192,30 @@ def test_comm_residual_roundtrip(tmp_path, packed):
     _assert_states_equal(state, restored)
     live = state
     for i in range(3, 5):
+        live, _ = step(live, _tb(i))
+        restored, _ = step(restored, _tb(i))
+    _assert_states_equal(live, restored)
+
+
+def test_async_topo_roundtrip(tmp_path):
+    """The async server's clocks, pull stamps, update counter and anchor
+    stack: a run halted mid-window and resumed continues bit-identically
+    (a clock or anchor reset would change which learners fire and what
+    they push)."""
+    cfg = _cfg(topology=tbase.TopologyConfig(
+        kind="async", server=tbase.AsyncConfig(staleness=2,
+                                               step_time=(1, 3))))
+    step = make_meta_step(mlp_loss, cfg)
+    state = init_state(_params(2), cfg)
+    for i in range(2):
+        state, _ = step(state, _tb(i))
+    assert int(state.topo["clock"].max()) > 0  # mid-block
+    path = save_state(str(tmp_path), state, 2)
+    restored = load_state(path, init_state(_params(3), cfg))
+    _assert_states_equal(state, restored)
+    assert state.topo["clock"].dtype == torch.int32
+    live = state
+    for i in range(2, 6):
         live, _ = step(live, _tb(i))
         restored, _ = step(restored, _tb(i))
     _assert_states_equal(live, restored)
@@ -457,6 +483,16 @@ def _config(base, case):
     elif case == "robust-clip":
         kw.update(num_learners=4, robust=base.RobustConfig(
             estimator="trimmed", trim=1, clip_mult=3.0, clip_window=2))
+    elif case == "async-packed":
+        # halted mid-window: learner 1's 3-tick block is under way
+        kw.update(topology=base.TopologyConfig(
+            kind="async", server=base.AsyncConfig(staleness=2,
+                                                  step_time=(1, 3))))
+    elif case == "async-elastic-per-leaf":
+        kw.update(num_learners=4, packed=False, topology=base.TopologyConfig(
+            kind="async", server=base.AsyncConfig(staleness=3,
+                                                  step_time=(1, 2, 3, 4)),
+            elastic=base.ElasticConfig(period=3, drop_frac=0.25, seed=1)))
     elif case in ("bf16-packed", "bf16-per-leaf"):
         kw.update(compute_dtype="bfloat16", packed=case == "bf16-packed")
     else:
@@ -466,7 +502,8 @@ def _config(base, case):
 
 CASES = ["flat-packed", "flat-per-leaf", "int8-ef-packed", "int8-ef-per-leaf",
          "mlocal-packed", "gossip-int8-ef", "hierarchical-elastic",
-         "robust-clip", "bf16-packed", "bf16-per-leaf"]
+         "async-packed", "async-elastic-per-leaf", "robust-clip",
+         "bf16-packed", "bf16-per-leaf"]
 JPARAMS = jax.device_get(jmlp_init(jax.random.PRNGKey(0), D, H, C))
 
 
@@ -514,7 +551,7 @@ def test_jax_and_port_load_each_others_checkpoints(tmp_path, case):
                 got = _words(v.numpy())
             assert got.shape == want.shape, k
             np.testing.assert_array_equal(got, _words(want), err_msg=k)
-    for k in ("membership", "robust_ring", "robust_count"):
+    for k in interop.HOST_TOPO_KEYS:
         if isinstance(state.topo, dict) and k in state.topo:
             assert state.topo[k].device.type == "cpu", k
 
@@ -551,6 +588,32 @@ def test_jax_checkpoint_resumes_in_the_port(tmp_path):
     _, m = make_meta_step(mlp_loss, tcfg)(state, interop.params_from_jax(b))
     np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
                                rtol=1e-5)
+
+
+def test_jax_async_checkpoint_resumes_mid_window_in_the_port(tmp_path):
+    """JAX halts the async run mid-window and saves; the port loads the
+    file and runs on: its next four meta steps follow JAX's within rtol
+    1e-5 / atol 1e-6, with the same fired counts and staleness."""
+    jcfg, tcfg = (_config(jbase, "async-packed"),
+                  _config(tbase, "async-packed"))
+    jstate = _jax_run(jcfg)
+    path = jsave_state(str(tmp_path), jstate, 2)
+    state = load_state(path, init_state(interop.params_from_jax(JPARAMS),
+                                        tcfg))
+    jstep = jax.jit(jmake_meta_step(jmlp_loss, jcfg))
+    step = make_meta_step(mlp_loss, tcfg)
+    for i in range(4):
+        b = _batches(40 + i)
+        jstate, jm = jstep(jstate, b)
+        state, m = step(state, interop.params_from_jax(b))
+        assert m["fired_count"] == float(jm["fired_count"])
+        assert m["staleness_max"] == float(jm["staleness_max"])
+        for k in ("global_params", "momentum", "learners"):
+            np.testing.assert_allclose(
+                getattr(state, k).numpy(),
+                np.asarray(getattr(jstate, k)), rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(state.topo["clock"].numpy(),
+                                      np.asarray(jstate.topo["clock"]))
 
 
 @pytest.mark.parametrize("case", ["flat-packed", "int8-ef-packed",

@@ -594,3 +594,78 @@ def test_cuda_profile_clone_refuses_what_does_not_fit(cuda_device,
     monkeypatch.setattr(torch.cuda, "memory_allocated", lambda d=None: 0)
     with pytest.raises(ValueError, match="does not fit"):
         profile.clone_state(state)
+
+
+@pytest.mark.cuda
+def test_cuda_async_server_main_path(cuda_device):
+    """Phase 14b's assertions at the reduced model's size: the async mavg
+    server on profile (1, 1, 2, 4), tau 3, L=4, K=2, 12 ticks on the card:
+    staleness <= tau and fired counts equal to the host replay on every
+    tick, sgd_apply launched K times per completed block, no fused
+    momentum-broadcast launch on this non-degenerate path, every plane
+    finite; then the uniform profile bitwise equal to the flat topology,
+    with one fused launch a tick."""
+    import dataclasses
+
+    from repro_torch.configs.base import (
+        AsyncConfig,
+        MAvgConfig,
+        TopologyConfig,
+        get_config,
+    )
+    from repro_torch.core.meta import init_state, make_meta_step
+    from repro_torch.models import api
+    from repro_torch.topology import make_topology
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                              dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    params = api.init_params(gen, cfg, "cpu")
+    Lr, K, ticks = 4, 2, 12
+    batches = [{"tokens": t.to(cuda_device), "labels": t.to(cuda_device)}
+               for t in (torch.randint(0, cfg.vocab_size, (Lr, K, 2, 16),
+                                       generator=gen)
+                         for _ in range(ticks))]
+
+    def loss_fn(p, b):
+        return api.loss_fn(p, cfg, b)
+
+    def run(mcfg, n):
+        topology = make_topology(mcfg)
+        state = init_state(_to(params, cuda_device), mcfg,
+                           topology=topology)
+        step = make_meta_step(loss_fn, mcfg, topology=topology)
+        ops.reset_launch_counts()
+        metrics = []
+        for b in batches[:n]:
+            state, m = step(state, b)
+            metrics.append(m)
+        return state, metrics, topology, ops.launch_counts()
+
+    base = dict(algorithm="mavg", num_learners=Lr, k_steps=K,
+                learner_lr=0.1, momentum=0.7)
+    mcfg = MAvgConfig(**base, topology=TopologyConfig(
+        kind="async", server=AsyncConfig(staleness=3,
+                                         step_time=(1, 1, 2, 4))))
+    state, metrics, topo, counts = run(mcfg, ticks)
+    done = [topo.work_completed(i) for i in range(ticks)]
+    fired = [b - a for a, b in zip([0] + done, done)]
+    assert [m["fired_count"] for m in metrics] == fired
+    assert all(m["staleness_max"] <= 3 for m in metrics)
+    assert counts["sgd_apply"] == K * done[-1]
+    assert counts["fused_momentum_broadcast"] == 0
+    for t in (state.global_params, state.momentum, state.learners,
+              state.topo["anchor"]):
+        assert bool(torch.isfinite(t).all())
+    flat, _, _, fc = run(MAvgConfig(**base), 2)
+    uni, _, _, uc = run(MAvgConfig(**base, topology=TopologyConfig(
+        kind="async", server=AsyncConfig())), 2)
+    assert fc["fused_momentum_broadcast"] == uc["fused_momentum_broadcast"] == 2
+    for f in ("global_params", "momentum", "learners"):
+        assert torch.equal(getattr(flat, f), getattr(uni, f)), f
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

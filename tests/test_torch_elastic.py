@@ -532,8 +532,16 @@ def test_launcher_runs_topologies_on_cpu(args, capsys):
     assert "consensus_dist" in out or "comm_error_norm" in out
 
 
-def test_async_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_train.main(["--device", "cpu", "--topology", "async"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_topology(MAvgConfig(topology=TopologyConfig(kind="async")))
+def test_async_is_refused(capsys):
+    """The async server is ported now: the launcher runs --topology async
+    and make_topology builds the server (its elastic membership composed
+    in; parity with JAX: tests/test_torch_async.py)."""
+    launch_train.main(["--device", "cpu", "--learners", "4", "--k", "2",
+                       "--steps", "2", "--batch", "2", "--seq", "16",
+                       "--topology", "async", "--async-profile", "1,2,1,2",
+                       "--async-staleness", "1", "--elastic-period", "4",
+                       "--elastic-drop", "0.25"])
+    out = capsys.readouterr().out
+    assert "meta_step=1" in out and "staleness_max" in out
+    topo = make_topology(MAvgConfig(topology=TopologyConfig(kind="async")))
+    assert topo.name == "async" and topo.degenerate

@@ -211,10 +211,24 @@ def test_packed_matches_per_leaf_bitwise(algorithm, nesterov):
 
 
 def test_unported_configs_raise():
+    """The eamsgd, downpour and async configs are ported now (the async
+    server, ``repro_torch.topology.async_server``): each builds, steps and
+    matches JAX on JAX's inputs (the async case is the uniform profile,
+    the flat degenerate case)."""
+    from repro.configs.base import TopologyConfig as JTopologyConfig
     from repro_torch.configs.base import TopologyConfig
 
-    for cfg in (MAvgConfig(algorithm="downpour"),
-                MAvgConfig(algorithm="eamsgd"),
-                MAvgConfig(topology=TopologyConfig(kind="async"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_state(_params(), cfg)
+    b = [_batches(s, 2, 2) for s in range(3)]
+    base = dict(num_learners=2, k_steps=2, learner_lr=0.1, momentum=0.6)
+    for kw, topo in ((dict(algorithm="downpour"), None),
+                     (dict(algorithm="eamsgd"), None),
+                     (dict(algorithm="mavg"), "async")):
+        extra = {} if topo is None else dict(
+            topology=TopologyConfig(kind=topo))
+        state, hist = _run_port(MAvgConfig(**base, **kw, **extra), b)
+        jextra = {} if topo is None else dict(
+            topology=JTopologyConfig(kind=topo))
+        jstate = _run_jax(dict(base, **kw, **jextra), b)
+        _close(state.global_params, jstate.global_params)
+        _close(state.learners, jstate.learners)
+        assert "staleness_max" in hist[-1] and "fired_count" in hist[-1]

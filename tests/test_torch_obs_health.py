@@ -33,7 +33,13 @@ from repro.models.simple import mlp_init as jmlp_init  # noqa: E402
 from repro.models.simple import mlp_loss as jmlp_loss  # noqa: E402
 from repro.obs import health as jhealth  # noqa: E402
 from repro_torch import interop  # noqa: E402
-from repro_torch.configs.base import MAvgConfig, ObsConfig, TrainConfig  # noqa: E402,E501
+from repro_torch.configs.base import (  # noqa: E402
+    AsyncConfig,
+    MAvgConfig,
+    ObsConfig,
+    TopologyConfig,
+    TrainConfig,
+)
 from repro_torch.core.trainer import Trainer  # noqa: E402
 from repro_torch.models.simple import mlp_init, mlp_loss  # noqa: E402
 from repro_torch.obs import (  # noqa: E402
@@ -332,3 +338,46 @@ def test_alerts_match_jax(tmp_path):
         recs = [json.loads(line)
                 for line in open(tmp_path / d / "run.jsonl")]
         assert [key(r) for r in recs if r["kind"] == "alert"] == want
+
+
+def test_staleness_runaway_fires_as_jax(tmp_path):
+    """The async server reports ``staleness_p99``, so the
+    ``staleness_runaway`` rule (p99 over 32) now has its metric: learner 1
+    at 40 ticks a block (tau 39) pushes with staleness 39 at tick 40, and
+    both Trainers raise the same alerts on the same inputs."""
+    steps = 44
+    params, batches = _jinputs(steps, steps)
+    kw = dict(algorithm="mavg", num_learners=PL, k_steps=K, learner_lr=0.1,
+              momentum=0.6)
+    obs = dict(sink="none", health=True, health_halt=False)
+    jt = JTrainer(
+        jbase.TrainConfig(
+            model=None, mavg=jbase.MAvgConfig(**kw, topology=(
+                jbase.TopologyConfig(kind="async", server=jbase.AsyncConfig(
+                    staleness=39, step_time=(1, 40))))),
+            batch_per_learner=B, meta_steps=steps, log_every=4,
+            obs=jbase.ObsConfig(**obs)),
+        jmlp_loss, init_params_fn=lambda rng: jmlp_init(rng, D, H, C),
+        batch_fn=lambda rng, s: batches[s])
+    jt.run(steps, log=None)
+    tt = Trainer(
+        TrainConfig(model=None, mavg=MAvgConfig(**kw, topology=(
+            TopologyConfig(kind="async", server=AsyncConfig(
+                staleness=39, step_time=(1, 40))))),
+            batch_per_learner=B, meta_steps=steps, log_every=4,
+            obs=ObsConfig(**obs)),
+        mlp_loss, init_params_fn=lambda gen: interop.params_from_jax(params),
+        batch_fn=lambda gen, s: interop.params_from_jax(batches[s]),
+        device="cpu")
+    tt.run(steps, log=None)
+
+    def key(a):
+        return (a["rule"], a["metric"], a["severity"], a["meta_step"])
+
+    want = [key(a) for a in jt._monitor.alerts]
+    assert [key(a) for a in tt._monitor.alerts] == want
+    assert any(a[0] == "staleness_runaway" and a[3] == 40 for a in want), want
+    assert [r["staleness_p99"] for r in tt.history] == pytest.approx(
+        [r["staleness_p99"] for r in jt.history])
+    jt.close()
+    tt.close()

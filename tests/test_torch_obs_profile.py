@@ -168,8 +168,9 @@ def _snapshot(state):
 ], ids=["flat", "gossip"])
 def test_prf4_profile_phases_covers_step_local_mix(topology, tmp_path):
     """Every ported topology routes its meta phase through ``mix``, so the
-    meta_mix row is always attributable (JAX's second case, downpour, is
-    an alias onto the async server: ROADMAP Queue 1, item 6)."""
+    meta_mix row is always attributable (JAX's second case, downpour on
+    the async server, is ``test_prf4_aliased_algorithm_attributes_meta_mix``
+    below)."""
     cfg = MAvgConfig(algorithm="mavg", num_learners=L, k_steps=K,
                      learner_lr=0.1, momentum=0.6, topology=topology)
     state = _state(cfg)
@@ -189,6 +190,28 @@ def test_prf4_profile_phases_covers_step_local_mix(topology, tmp_path):
     for a, b in zip(before, _snapshot(state)):
         assert torch.equal(a, b)
     assert list((tmp_path / "prof").iterdir())
+
+
+def test_prf4_aliased_algorithm_attributes_meta_mix():
+    """downpour is an alias onto the async server (one Topology protocol
+    for every algorithm), so its meta phase is attributable too; the
+    passed state (its host clocks included) is left as it was."""
+    cfg = MAvgConfig(algorithm="downpour", num_learners=L, k_steps=K,
+                     learner_lr=0.1, momentum=0.6)
+    state = _state(cfg)
+    before = _snapshot(state)
+    clocks = {k: state.topo[k].clone()
+              for k in ("clock", "pull_update", "updates", "anchor")}
+    rows = profile_phases(mlp_loss, cfg, state, _batches(), iters=2,
+                          warmup=1)
+    assert [r["op"] for r in rows] == [
+        "phase:step", "phase:local", "phase:meta_mix"]
+    assert all(r["algorithm"] == "downpour" and r["topology"] == "flat"
+               for r in rows)
+    for a, b in zip(before, _snapshot(state)):
+        assert torch.equal(a, b)
+    for k, v in clocks.items():
+        assert torch.equal(state.topo[k], v), k
 
 
 def test_trainer_attribution_rows_reach_the_sink(tmp_path):

@@ -43,8 +43,10 @@ from repro.models.simple import mlp_init as jmlp_init  # noqa: E402
 from repro.models.simple import mlp_loss as jmlp_loss  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.chaos import ChaosConfig, FaultSpec  # noqa: E402
+from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.checkpoint import checkpoint_step, save_state  # noqa: E402
 from repro_torch.configs.base import (  # noqa: E402
+    AsyncConfig,
     MAvgConfig,
     ObsConfig,
     TopologyConfig,
@@ -208,11 +210,10 @@ def test_ch4_rollback_is_causal_and_walks_back(tmp_path):
 
 
 def _quarantine_trainer():
-    """A membership-capable run: gossip with a crash window (the JAX
-    cases use the async server, which is not ported: ROADMAP Queue 1,
-    item 6; any membership schedule serves)."""
-    mcfg = _mcfg(num_learners=4, topology=TopologyConfig(kind="gossip",
-                                                          graph="ring"))
+    """A membership-capable run, as JAX's cases build it: the async server
+    with a crash window (the crash becomes its membership schedule)."""
+    mcfg = _mcfg(num_learners=4, topology=TopologyConfig(
+        kind="async", server=AsyncConfig(staleness=2)))
     chaos = ChaosConfig(seed=0, horizon=8, faults=(
         FaultSpec("crash", step=6, learner=3),))
     tcfg = TrainConfig(model=None, mavg=mcfg, batch_per_learner=B,
@@ -308,13 +309,33 @@ def _jbatch(step, salt):
 
 
 def test_supervised_recovery_matches_jax(tmp_path):
+    _recovery_matches_jax(tmp_path, {})
+
+
+def test_supervised_recovery_on_async_matches_jax(tmp_path):
+    """The same recovery on the async server (learner 1 twice as slow,
+    tau 1): the records, the final planes, the losses and the samples
+    (completed blocks, through the host replay) are JAX's."""
+    _recovery_matches_jax(tmp_path, dict(
+        kind="async", server=dict(staleness=1, step_time=(1, 2))))
+
+
+def _recovery_matches_jax(tmp_path, topo):
     steps = 8
     fault = dict(kind="nan_batch", step=3, learner=0)
+
+    def topology(base):
+        if not topo:
+            return {}
+        t = dict(topo)
+        if "server" in t:
+            t["server"] = base.AsyncConfig(**t["server"])
+        return dict(topology=base.TopologyConfig(**t))
 
     def jmake(plan):
         mcfg = jbase.MAvgConfig(algorithm="mavg", num_learners=L, k_steps=K,
                                 momentum=0.6, learner_lr=0.1 * plan.lr_scale,
-                                finite_guard=True)
+                                finite_guard=True, **topology(jbase))
         return JTrainer(
             jbase.TrainConfig(
                 model=None, mavg=mcfg, batch_per_learner=B, meta_steps=steps,
@@ -330,7 +351,8 @@ def test_supervised_recovery_matches_jax(tmp_path):
             batch_fn=JBATCH_FN)
 
     def tmake(plan):
-        mcfg = _mcfg(learner_lr=0.1 * plan.lr_scale, finite_guard=True)
+        mcfg = _mcfg(learner_lr=0.1 * plan.lr_scale, finite_guard=True,
+                     **topology(tbase))
         return Trainer(
             TrainConfig(
                 model=None, mavg=mcfg, batch_per_learner=B, meta_steps=steps,
@@ -379,6 +401,7 @@ def test_supervised_recovery_matches_jax(tmp_path):
     assert [r["meta_step"] for r in thist] == [r["meta_step"] for r in jhist]
     np.testing.assert_allclose([r["loss"] for r in thist],
                                [r["loss"] for r in jhist], rtol=1e-5)
+    assert [r["samples"] for r in thist] == [r["samples"] for r in jhist]
     for run in ("jrun", "trun"):
         path = os.path.join(tmp_path, run, "run.jsonl")
         assert _valid_log(path) == [], run

@@ -531,8 +531,13 @@ def test_state_from_jax_carries_the_gossip_buffers(packed):
 
 
 def test_state_from_jax_refuses_unported_buffers():
+    """Every topology's buffers are carried now (the async server's clocks
+    to the host); a key no topology of the port has (the retired downpour
+    queue) is refused."""
     class Fake:
-        topo = {"clock": np.zeros(4)}
+        topo = {"stale_queue": np.zeros(4)}
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="stale_queue"):
         interop.state_from_jax(Fake())
+    assert "clock" in interop.HOST_TOPO_KEYS
+    assert {"clock", "pull_update", "updates", "anchor"} <= interop.TOPO_KEYS
