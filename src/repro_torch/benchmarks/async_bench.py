@@ -20,15 +20,16 @@ classification MLP, P=8, K=4, mu 0.7, lr 0.2, B=16:
 reference's acceptance (its ``benchmarks/expected/async.json``): the async
 arm's final loss within 5 % of the sync arm's, applied staleness <= tau on
 every tick, the barrier idling >= 40 % of the ticks, and the async arm at
-least 1.5x fewer ticks than the barrier.
+least 1.5x fewer ticks than the barrier. Then the modeled rows: the
+per-tick wire bytes of flat dense, the uniform and the skewed async
+server on qwen3-1.7b (``roofline.topology_wire_bytes``; the gate holds
+``async_skew4``'s inter-node bytes). The reference also prices those
+bytes at a TPU pod's link rates; those seconds are left out here (ROADMAP
+Queue 1, item 10). ``--json PATH`` writes every row as the run-log
+envelope (suite ``async``).
 
   PYTHONPATH=src python -m repro_torch.benchmarks.async_bench --quick \\
-      [--device cpu]
-
-Left out: the reference's modeled rows, the per-tick wire of each cell
-priced at a TPU pod's link rates (``roofline.topology_wire_bytes`` over
-``ICI_LINK_BW``/``DCN_LINK_BW``). Those are TPU figures, not the port's,
-and the port has no roofline module yet (ROADMAP Queue 1, item 10).
+      [--device cpu] [--json PATH]
 """
 from __future__ import annotations
 
@@ -42,17 +43,22 @@ from repro_torch.benchmarks.common import (
     D_IN,
     HIDDEN,
     seeded_batches,
+    write_rows,
 )
+from repro_torch.benchmarks.comm_bench import NO_LINK_RATE
 from repro_torch.configs.base import (
     AsyncConfig,
+    CommConfig,
     ElasticConfig,
     MAvgConfig,
     TopologyConfig,
+    get_config,
 )
 from repro_torch.core.meta import init_state, make_meta_step
 from repro_torch.data import classif_batch_fn, classif_eval_set
 from repro_torch.models.simple import mlp_accuracy, mlp_init, mlp_loss
 from repro_torch.pack import unpack_params
+from repro_torch.roofline import topology_wire_bytes
 from repro_torch.topology import make_topology
 from repro_torch.utils.rng import seeded_generator
 
@@ -116,7 +122,41 @@ ELASTIC_TOPOLOGY = TopologyConfig(
     elastic=ElasticConfig(period=8, drop_frac=0.25))
 
 
-def main(quick: bool = False, device="cuda") -> list[dict]:
+def modeled(arch: str = "qwen3-1.7b") -> list[dict]:
+    """Per-tick modeled wire bytes of flat dense and the async server
+    (uniform and the 4x-skewed profile) at ``arch``'s parameter count."""
+    n = get_config(arch).param_count()
+    cells = (
+        ("flat_dense", TopologyConfig()),
+        ("async_uniform", TopologyConfig(kind="async",
+                                         server=AsyncConfig())),
+        ("async_skew4", TopologyConfig(
+            kind="async", server=AsyncConfig(staleness=TAU,
+                                             step_time=PROFILE))),
+    )
+    rows = []
+    for name, topo in cells:
+        edge = topology_wire_bytes(n, CommConfig(), topo, num_learners=P)
+        rows.append({"kind": "async_model", "cell": name, "arch": arch,
+                     **edge})
+        print(f"async_model,{arch},{name},inter,"
+              f"{edge['inter_bytes']:.3e},B")
+    print(f"async_model,{NO_LINK_RATE}")
+    return rows
+
+
+def main(quick: bool = False, device="cuda",
+         json_path: str | None = None) -> list[dict]:
+    """The three arms, the acceptance row and the modeled rows."""
+    rows = measured(quick, device)
+    rows += modeled()
+    if json_path:
+        write_rows(json_path, rows, suite="async")
+        print(f"wrote {len(rows)} rows to {json_path}")
+    return rows
+
+
+def measured(quick: bool = False, device="cuda") -> list[dict]:
     """The three arms and the acceptance row."""
     sync_rounds = 15 if quick else 60
     prof = PROFILE
@@ -198,5 +238,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--json", default=None, metavar="PATH",
+                    help="also write every row as the JSONL envelope")
     args = ap.parse_args()
-    main(quick=args.quick, device=args.device)
+    main(quick=args.quick, device=args.device, json_path=args.json)

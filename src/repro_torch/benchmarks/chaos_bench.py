@@ -24,11 +24,12 @@ Arms:
                     bit-exactly
 
 ``main`` prints the reference's ``chaos,...`` lines and asserts its
-acceptance (``benchmarks/expected/chaos.json``). Checkpoints go to
+acceptance (``benchmarks/expected/chaos.json``); ``--json PATH`` writes
+every row as the run-log envelope (suite ``chaos``). Checkpoints go to
 ``workdir`` (default: a temporary directory, removed afterwards).
 
   PYTHONPATH=src python -m repro_torch.benchmarks.chaos_bench --quick \\
-      [--device cpu]
+      [--device cpu] [--json PATH]
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ import tempfile
 
 import torch
 
-from repro_torch.benchmarks.common import CLASSES, D_IN, HIDDEN
+from repro_torch.benchmarks.common import CLASSES, D_IN, HIDDEN, write_rows
 from repro_torch.chaos import ChaosConfig, standard_chaos
 from repro_torch.checkpoint import (
     latest_verified_checkpoint,
@@ -219,13 +220,16 @@ def measured(quick: bool, device, workdir: str) -> list[dict]:
     return rows
 
 
-def main(quick: bool = False, device="cuda",
-         workdir: str | None = None) -> list[dict]:
+def main(quick: bool = False, device="cuda", workdir: str | None = None,
+         json_path: str | None = None) -> list[dict]:
     if workdir is None:
         with tempfile.TemporaryDirectory(prefix="chaos_bench_") as tmp:
             rows = measured(quick, device, tmp)
     else:
         rows = measured(quick, device, workdir)
+    if json_path:
+        write_rows(json_path, rows, suite="chaos")
+        print(f"wrote {len(rows)} rows to {json_path}")
     accept = rows[-1]
     # the reference's acceptance (benchmarks/expected/chaos.json)
     assert accept["ok"], accept
@@ -236,5 +240,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--json", default=None, metavar="PATH",
+                    help="also write every row as the JSONL envelope")
     args = ap.parse_args()
-    main(quick=args.quick, device=args.device)
+    main(quick=args.quick, device=args.device, json_path=args.json)

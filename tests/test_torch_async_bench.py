@@ -137,7 +137,9 @@ def test_async_bench_quick_passes_on_the_port():
     rows = async_bench.main(quick=True, device="cpu")
     assert [r.get("cell") for r in rows[:3]] == [
         "sync_barrier", "async_skew4x", "elastic_mask25"]
-    accept = rows[-1]
+    assert [r["kind"] for r in rows[3:]] == ["async_accept"] + 3 * [
+        "async_model"]
+    accept = rows[3]
     assert accept["loss_vs_sync_at_equal_samples"] <= 1.05
     assert accept["staleness_max"] <= 3 and accept["staleness_bounded"]
     assert accept["sync_idle_frac"] == 0.5

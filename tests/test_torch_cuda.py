@@ -669,3 +669,100 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_cells_match_the_cpu(cuda_device):
+    """E2's, E3's and the comm bench's ``run_mlp`` cells on the card
+    against the CPU on the same CPU-drawn inputs (dense: losses rtol 1e-5,
+    accuracy within one of 2,048 examples), each launching the fused
+    meta update once a meta step and ``sgd_apply`` once a local step of a
+    learner."""
+    from repro_torch.benchmarks.common import CLASSES, D_IN, HIDDEN, run_mlp
+    from repro_torch.data import classif_batch_fn, classif_eval_set
+    from repro_torch.models.simple import mlp_init
+
+    for P, K, mu, steps in ((16, 4, 0.5, 6), (4, 16, 0.7, 3), (4, 1, 0.0, 8)):
+        gen = torch.Generator().manual_seed(P * K)
+        params = mlp_init(gen, D_IN, HIDDEN, CLASSES, device="cpu")
+        bf = classif_batch_fn(D_IN, CLASSES, P, K, 8, device="cpu")
+        batches = [bf(torch.Generator().manual_seed(i), i)
+                   for i in range(steps)]
+        ev = classif_eval_set(D_IN, CLASSES, device="cpu")
+        runs = {}
+        for dev in ("cpu", cuda_device):
+            ops.reset_launch_counts()
+            runs[str(dev)] = run_mlp(
+                "mavg", P=P, K=K, mu=mu, lr=0.15, steps=steps, batch=8,
+                device=dev, params=_to(params, dev),
+                batch_at=lambda i, d=dev: _to(batches[i], d),
+                eval_set=_to(ev, dev)) + (ops.launch_counts(),)
+        (cl, ca, cc), (gl, ga, gc) = runs["cpu"], runs["cuda"]
+        assert sum(cc.values()) == 0
+        torch.testing.assert_close(torch.tensor(gl), torch.tensor(cl),
+                                   rtol=1e-5, atol=1e-6)
+        assert abs(ga - ca) <= 1 / 2048 + 1e-9
+        assert gc["fused_momentum_broadcast"] == steps
+        assert gc["sgd_apply"] == steps * P * K
+
+
+@pytest.mark.cuda
+def test_cuda_gated_benches_hold_their_bars(cuda_device):
+    """The robust bench (quick) and the modeled rows of the topology and
+    async benches on the card, checked with the port's ``obs.baseline``
+    against ``benchmarks/expected/{robust,topology,async}.json`` where
+    the rows exist; the robust arm runs under the Supervisor with no
+    rollback and launches the robust_reduce kernel."""
+    import json
+    import os
+
+    from repro_torch.benchmarks import async_bench, robust_bench
+    from repro_torch.benchmarks import topology_bench
+    from repro_torch.benchmarks.common import envelope
+    from repro_torch.obs.baseline import compare
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def spec(suite):
+        with open(os.path.join(root, "benchmarks", "expected",
+                               f"{suite}.json")) as f:
+            return json.load(f)
+
+    ops.reset_launch_counts()
+    rows = robust_bench.main(quick=True, device=cuda_device)
+    assert ops.launch_counts()["robust_reduce"] > 0
+    assert compare(envelope(rows), spec("robust")) == []
+    assert rows[-1]["rollbacks"] == 0 and rows[-1]["ok"]
+    topo = {**spec("topology"), "metrics": [
+        m for m in spec("topology")["metrics"]
+        if m["select"]["row_kind"] != "topo_measured"]}
+    assert compare(envelope(topology_bench.modeled()), topo) == []
+    model = {**spec("async"), "metrics": [
+        m for m in spec("async")["metrics"]
+        if m["select"]["row_kind"] == "async_model"]}
+    assert compare(envelope(async_bench.modeled()), model) == []
+
+
+@pytest.mark.cuda
+def test_cuda_examples_run_on_the_card(cuda_device):
+    """``train_100m`` at its small width for 2 meta steps and
+    ``serve_batch`` on the dense reduced archs, on the card: finite
+    planes, a loss, greedy tokens of the right shape."""
+    from repro_torch.examples import serve_batch, train_100m
+
+    ops.reset_launch_counts()
+    trainer, hist, loss, n = train_100m.main(
+        ["--steps", "2", "--learners", "2", "--k", "2", "--batch", "2",
+         "--seq", "32"])
+    counts = ops.launch_counts()
+    assert counts["fused_momentum_broadcast"] == 2
+    assert counts["sgd_apply"] == 2 * 2 * 2
+    assert n == 6_031_616 and loss == loss
+    for t in (trainer.state.global_params, trainer.state.momentum,
+              trainer.state.learners):
+        assert bool(torch.isfinite(t).all())
+    out = serve_batch.main(["--tokens", "4"])
+    dense = {a: t for a, t in out.items() if t is not None}
+    assert sorted(dense) == ["llama3-405b", "qwen1.5-110b", "qwen2-7b",
+                             "qwen3-1.7b"]
+    assert all(t.shape == (2, 4) and t.is_cuda for t in dense.values())
