@@ -1,6 +1,7 @@
 """Serving launcher of the port: batched autoregressive decoding of the
-dense transformer (prefill, then one ``decode_step`` per token against the
-KV cache).
+dense and MoE transformers (prefill, then one ``decode_step`` per token
+against the KV cache). Encoder-only configs (``hubert-xlarge``) are
+refused: they have no decode path.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\

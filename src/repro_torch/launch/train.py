@@ -41,7 +41,13 @@ rules from halting) and ``--obs-attribution`` the phase timing rows.
 ``--supervise-quarantine``, ``--supervise-readmit``; it needs
 ``--checkpoint-dir``). The flags mean what they mean in the JAX launcher.
 Not ported yet, and refused: ``--obs-cost`` (ROADMAP Queue 1, item 10).
+``--arch`` takes the dense and MoE archs (``deepseek-moe-16b``,
+``kimi-k2-1t-a32b``); the audio and VLM archs, whose inputs come from a
+stub frontend, are refused as in the JAX launcher.
 
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --arch deepseek-moe-16b --learners 2 --k 2 --steps 2 --batch 2 \
+      --seq 16
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --steps 4 --topology async --async-profile 1,1,2,4 \
       --async-staleness 3
@@ -265,6 +271,10 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
+    if cfg.input_mode != "tokens":
+        raise SystemExit(
+            f"{args.arch} uses stub-frontend inputs; use examples/ for it"
+        )
     device = torch.device(args.device)
     outer_comm = (
         CommConfig(scheme=args.outer_comm, k_frac=args.comm_k_frac,

@@ -1,4 +1,4 @@
-"""Neural-net building blocks of the dense transformer, as plain functions
+"""Neural-net building blocks of the transformer, as plain functions
 over nested dicts of tensors (the JAX package's ``models/layers.py``, same
 keys, shapes and op order).
 
@@ -28,10 +28,12 @@ from repro_torch.kernels import ops as kops
 
 
 def normal(shape, std: float, gen, device) -> torch.Tensor:
-    """N(0, std^2) f32 draws from ``gen``; shapes only on the meta device."""
+    """N(0, std^2) f32 draws from ``gen``, scaled in place (one copy of the
+    leaf: DeepSeekMoE's stacked ``w_in`` is 39.86 GB); shapes only on the
+    meta device."""
     if torch.device(device).type == "meta":
         return torch.empty(shape, dtype=torch.float32, device="meta")
-    return torch.randn(shape, generator=gen, device=device) * std
+    return torch.randn(shape, generator=gen, device=device).mul_(std)
 
 
 def dense_init(gen, shape, in_axis_size: int, device) -> torch.Tensor:
@@ -77,6 +79,13 @@ def init_embed(gen, cfg: ModelConfig, device) -> dict:
     if not cfg.tie_embeddings:
         p["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                cfg.d_model, device)
+    if cfg.meta_tokens:
+        p["meta"] = normal((cfg.meta_tokens, cfg.d_model), 0.02, gen, device)
+    if cfg.input_mode == "tokens+patches":
+        # the projector stub is identity-shaped; a learnable patch
+        # positional bias
+        p["patch_pos"] = torch.zeros((cfg.num_patches, cfg.d_model),
+                                     device=device)
     return p
 
 

@@ -762,7 +762,92 @@ def test_cuda_examples_run_on_the_card(cuda_device):
               trainer.state.learners):
         assert bool(torch.isfinite(t).all())
     out = serve_batch.main(["--tokens", "4"])
-    dense = {a: t for a, t in out.items() if t is not None}
-    assert sorted(dense) == ["llama3-405b", "qwen1.5-110b", "qwen2-7b",
-                             "qwen3-1.7b"]
-    assert all(t.shape == (2, 4) and t.is_cuda for t in dense.values())
+    served = {a: t for a, t in out.items() if t is not None}
+    assert sorted(served) == ["deepseek-moe-16b", "internvl2-76b",
+                              "kimi-k2-1t-a32b", "llama3-405b",
+                              "qwen1.5-110b", "qwen2-7b", "qwen3-1.7b"]
+    assert all(t.shape == (2, 4) and t.is_cuda for t in served.values())
+
+
+def _moe_cfg(arch="deepseek-moe-16b"):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+
+    return dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+
+
+@pytest.mark.cuda
+def test_cuda_moe_layer_matches_the_cpu(cuda_device):
+    """The MoE layer on the card against the CPU, f32 with TF32 off, with
+    capacity dropping and dropless: the routing integers equal, the output,
+    aux loss and gradients within rtol 1e-5 / atol 1e-6 (the combine's
+    ``index_add`` is atomic on the card, so not bitwise)."""
+    import dataclasses
+
+    from repro_torch.models import moe
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    for arch in ("deepseek-moe-16b", "kimi-k2-1t-a32b"):
+        for cf, dropless in ((1.25, False), (0.01, False), (1.25, True)):
+            cfg = dataclasses.replace(_moe_cfg(arch), capacity_factor=cf)
+            p = moe.init_moe(gen, cfg, "cpu")
+            x = torch.randn((2, 16, cfg.d_model), generator=gen) * 0.5
+            results = []
+            for dev in ("cpu", cuda_device):
+                pd = tree_map(lambda t: t.to(dev, copy=True)
+                              .requires_grad_(True), p)
+                xd = x.to(dev)
+                route = moe._route(xd.view(-1, cfg.d_model), pd, cfg,
+                                   dropless)
+                out, aux = moe.moe_layer(xd, pd, cfg, dropless)
+                (out.square().sum() + aux).backward()
+                results.append((route, out, aux, tree_leaves(pd)))
+            (rc, oc, ac, pc), (rg, og, ag, pg) = results
+            assert rc[5] == rg[5]
+            for a, b in zip(rc[1:4], rg[1:4]):
+                assert torch.equal(a, b.cpu())
+            tol = dict(rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(og.detach().cpu(), oc.detach(), **tol)
+            torch.testing.assert_close(ag.detach().cpu(), ac.detach(), **tol)
+            for a, b in zip(pc, pg):
+                torch.testing.assert_close(b.grad.cpu(), a.grad,
+                                           rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_prefill_matches_the_cpu(cuda_device):
+    """A reduced DeepSeekMoE prefill on the card (the f32 flash kernel,
+    one launch a layer) against the CPU's plain version, then 4 decode
+    steps: logits and cache within rtol = atol = 1e-5, greedy tokens
+    equal."""
+    from repro_torch.models import api
+    from repro_torch.utils.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _moe_cfg()
+    params = api.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    gparams = tree_map(lambda t: t.to(cuda_device), params)
+    toks = torch.randint(0, cfg.vocab_size, (4, 16), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    tol = dict(rtol=1e-5, atol=1e-5)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        lg, cg = api.prefill(gparams, cfg, {"tokens": toks.to(cuda_device)},
+                             24, use_pallas=True)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["flash_attention_f32"] == cfg.num_layers
+        lc, cc = api.prefill(params, cfg, {"tokens": toks}, 24,
+                             use_pallas=True)
+        for g, c in ((lg, lc), (cg["k"], cc["k"]), (cg["v"], cc["v"])):
+            torch.testing.assert_close(g.cpu(), c, **tol)
+        nxt = torch.argmax(lc, -1).to(torch.int32)
+        for _ in range(4):
+            lg, cg = api.decode_step(gparams, cfg, cg, nxt.to(cuda_device))
+            lc, cc = api.decode_step(params, cfg, cc, nxt)
+            torch.testing.assert_close(lg.cpu(), lc, **tol)
+            assert torch.equal(torch.argmax(lg, -1).cpu(),
+                               torch.argmax(lc, -1))
+            nxt = torch.argmax(lc, -1).to(torch.int32)

@@ -18,8 +18,11 @@
   JAX's. In the configs' own bfloat16 the prefill's token equals JAX's;
   later tokens may part where two logits lie within bf16 rounding of each
   other (XLA:CPU and ATen round the matmuls differently), and one token
-  apart feeds a different history from then on. Every other family
-  prints the line naming ROADMAP Queue 1, item 9.
+  apart feeds a different history from then on. The MoE archs
+  (deepseek-moe-16b, kimi-k2-1t-a32b) are held the same way, and
+  internvl2's decode-only demo from an empty cache gives JAX's tokens in
+  float32. hubert is skipped as encoder-only; the hybrid and SSM
+  families print the line naming ROADMAP Queue 1, item 9.
 * ``momentum_tuning``: both guidelines, fed JAX's ``run_mlp`` draws, give
   JAX's accuracies within one of 2,048 evaluation examples.
 """
@@ -59,6 +62,7 @@ torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DENSE = ("llama3-405b", "qwen3-1.7b", "qwen1.5-110b", "qwen2-7b")
+MOE = ("deepseek-moe-16b", "kimi-k2-1t-a32b")
 
 
 def _reference(name):
@@ -210,7 +214,7 @@ def _jax_greedy(arch, dtype, batch=2, prompt_len=8, new_tokens=12):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_serve_batch_greedy_tokens_equal_jax(monkeypatch, arch, dtype):
     want, params, prompt = _jax_greedy(arch, dtype)
     reduced = dataclasses.replace(tget_config(arch).reduced(), dtype=dtype)
@@ -229,18 +233,55 @@ def test_serve_batch_greedy_tokens_equal_jax(monkeypatch, arch, dtype):
     assert lines[0].endswith("cache pos 20")
 
 
+def test_serve_batch_vlm_decode_only_demo_equals_jax(monkeypatch):
+    """internvl2: the reference's demo decodes from an empty cache and
+    zero logits; in float32 its 12 greedy tokens equal JAX's."""
+    arch = "internvl2-76b"
+    cfg = dataclasses.replace(jget_config(arch).reduced(), dtype="float32")
+    params = japi.init_params(jax.random.PRNGKey(0), cfg)
+    cache = japi.init_cache(cfg, 2, 28)
+    logits = jnp.zeros((2, cfg.vocab_size))
+    decode = jax.jit(lambda p, c, t: japi.decode_step(p, cfg, c, t))
+    want = []
+    for _ in range(12):
+        nxt = jnp.argmax(logits, -1).astype(jnp.int32)
+        want.append(nxt)
+        logits, cache = decode(params, cache, nxt)
+    reduced = dataclasses.replace(tget_config(arch).reduced(),
+                                  dtype="float32")
+    monkeypatch.setattr(serve_batch, "get_config", lambda a: SimpleNamespace(
+        reduced=lambda: reduced))
+    lines = []
+    got = serve_batch.serve(arch, 2, 8, 12, device="cpu",
+                            params=interop.params_from_jax(
+                                jax.device_get(params)), log=lines.append)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.stack(jax.device_get(want), 1))
+    assert lines[0] == f"{arch}: stub-frontend input; decode-only demo"
+    assert lines[1].endswith("cache pos 12")
+
+
 def test_serve_batch_names_item_9_for_every_other_family(capsys):
+    """The reference's branches: dense and MoE archs served, hubert
+    skipped as encoder-only, internvl2's decode-only demo, and only the
+    hybrid and SSM families name ROADMAP Queue 1, item 9."""
     out = serve_batch.main(["--device", "cpu", "--tokens", "2"])
     assert list(out) == ARCH_IDS
     text = capsys.readouterr().out
+    not_ported = ("hymba-1.5b", "xlstm-350m")
     for arch, toks in out.items():
-        if arch in DENSE:
-            assert toks.shape == (2, 2)
-        else:
+        if arch in not_ported:
             assert toks is None
             assert (f"{arch}: the " in text and "family is not ported yet "
                     "(ROADMAP Queue 1, item 9" in text)
-    assert text.count("ROADMAP Queue 1, item 9") == len(ARCH_IDS) - 4
+        elif arch == "hubert-xlarge":
+            assert toks is None
+            assert f"{arch}: encoder-only, no decode (skipped)" in text
+        else:
+            assert toks.shape == (2, 2)
+    assert "internvl2-76b: stub-frontend input; decode-only demo" in text
+    assert "internvl2-76b: 2 seqs x 2 tokens in " in text
+    assert text.count("ROADMAP Queue 1, item 9") == len(not_ported)
 
 
 # ---------------------------------------------------------------------------
