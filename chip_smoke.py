@@ -19,8 +19,9 @@ Phases (any failure raises and the script exits non-zero):
    qmax 127 and 7; pack_update and pack_compress with L=2, with and
    without the residual or err plane, in place and out of place) at the
    chunk height b=8 the plane gets, and once at b=64 on its first
-   13,441,984 rows; pack_compress again at the topology runs' own shape,
-   the (4, 4,790,496, 128) stack of the 6-layer plane at the b=32 that
+   13,441,984 rows; pack_compress again on the (4, 4,790,496, 128) stack
+   of the 6-layer plane (the topology runs' shape before their depth was
+   cut to DEPTH) at the b=32 that
    choose_block gives it (four chunks to a block of threads); neighbor_mix
    with L=4 in f32 and bf16, in place and out of place, and its stepped
    entry with the (2, 4, 4) one_peer_exponential stack; robust_reduce with
@@ -46,16 +47,16 @@ Phases (any failure raises and the script exits non-zero):
    (the f32 CUDA cores' bound printed beside it), and its library call
    is scaled_dot_product_attention (timed only; with an explicit
    boolean mask for the window);
-4. the dense main path: the port's Trainer on full-width Qwen3-1.7B at 6
-   of its 28 layers (PR 22; 28 before, when the profiled full-depth step
-   took most of the phase's 130 s), M-AVG with L=4, K=4, B=8, S=64, 3
+4. the dense main path: the port's Trainer on full-width Qwen3-1.7B at
+   ``DEPTH`` (2) of its 28 layers (cut from 6, and earlier from 28, when
+   the profiled full-depth step took most of the phase's 130 s), M-AVG with L=4, K=4, B=8, S=64, 3
    meta steps from random
    weights on uniform random tokens, with the kernel launch counters
    zeroed just before and read just after; then one more meta step under
    torch.profiler for the kernel time by class and name and the device's
    idle share;
 5. the compressed main path: the same trainer with int8 compression and
-   error feedback (``CommConfig(scheme="int8")``), its depth cut to 6 of
+   error feedback (``CommConfig(scheme="int8")``), its depth cut to DEPTH of
    28 layers (every width unchanged), L=2 (the residual adds L planes),
    K=4, B=8, S=64, 3 meta steps, counted and profiled the same way;
 6. the card against the CPU on ``qwen3-1.7b.reduced()`` in float32, 2 meta
@@ -71,7 +72,7 @@ Phases (any failure raises and the script exits non-zero):
    (clip and scores), and the inert robust config against robust off,
    bitwise on the card;
 7. gossip at full width: Qwen3-1.7B with every width unchanged and the
-   depth cut to 6 of 28 layers (four learners' private meta, momentum and
+   depth cut to DEPTH of 28 layers (four learners' private meta, momentum and
    residual planes do not fit one card at full depth), L=4, K=4, B=8,
    S=64, one_peer_exponential with momentum tracking, int8+EF, 3 meta
    steps, counted, split by memory part and profiled as in phase 5;
@@ -79,7 +80,7 @@ Phases (any failure raises and the script exits non-zero):
    membership (period 4, drop 0.25: one learner of four absent a step),
    an int8+EF inner level and a dense outer one, 4 meta steps (the outer
    level fires twice);
-9. the robust main path at full width, depth cut to 6 of 28 layers:
+9. the robust main path at full width, depth cut to DEPTH of 28 layers:
    Qwen3-1.7B, flat dense, L=4, K=4, B=8, S=64, trimmed mean (trim 1), norm clip at 3x a 2-step
    trailing median, anomaly scores and the finite guard, learner 3
    bit-flipped every step and scaled x12 on steps 1-3, 4 meta steps
@@ -123,8 +124,8 @@ Phases (any failure raises and the script exits non-zero):
    seconds and GB/s;
 13. telemetry (``repro_torch.obs``) and supervised recovery:
    (a) phase 4's configuration (full-width Qwen3-1.7B, flat dense M-AVG,
-   L=4, K=4, B=8, S=64) at 6 of 28 layers (PR 22: the profiled
-   full-depth steps took most of its 89 s) for 4 meta steps with the
+   L=4, K=4, B=8, S=64) at DEPTH of 28 layers (cut from 28 when the
+   profiled full-depth steps took most of its 89 s) for 4 meta steps with the
    JSONL sink,
    the ``obs.*`` spans, the torch profiler and the health watchdogs on and
    log_every=2: the host reads the metric ring once per flush (2 flushes),
@@ -133,7 +134,7 @@ Phases (any failure raises and the script exits non-zero):
    written, no alert fires; 2 steps with the profiler off before and 2
    after give the unprofiled meta step with telemetry on, printed beside
    2 steps of the same configuration with telemetry off;
-   (b) ``profile_phases`` on phase 12's configuration at 6 layers (L=2;
+   (b) ``profile_phases`` on phase 12's configuration at DEPTH layers (L=2;
    a clone of the full-depth L=4 state would not fit the card): the whole
    step, the local phase and the meta mix, median and IQR, and
    ``measured_peak_gbps``; (c) the Supervisor on phase 12's configuration
@@ -157,7 +158,7 @@ Phases (any failure raises and the script exits non-zero):
    clip and the finite guard under learner 3's sticky corruption; with
    elastic membership; under a straggle fault; then the uniform profile
    against flat on the card, bitwise, packed and per-leaf; (b) Qwen3-1.7B
-   at full width, 6 layers, L=4, K=4, B=8, S=64 through the Trainer: the
+   at full width, DEPTH layers, L=4, K=4, B=8, S=64 through the Trainer: the
    mavg server on (1, 1, 2, 4), tau 3, for 12 ticks (staleness <= 3 and
    fired counts equal to the host replay on every tick, sgd_apply
    launched K times a completed block, no fused launch, every plane and
@@ -190,7 +191,7 @@ Phases (any failure raises and the script exits non-zero):
    B=2), TF32 off, card against CPU on
    the same params and batches (dtheta within 5e-5 of its norm, losses
    within rtol 1e-5); then ``serve_batch`` on the reduced archs (dense,
-   MoE and the VLM's decode-only demo).
+   MoE, hybrid, SSM and the VLM's decode-only demo).
 16. the MoE family and the audio and VLM inputs: (a) reduced DeepSeekMoE,
    Kimi-K2, HuBERT and InternVL2 in f32 (TF32 off), card against CPU on
    the same params and batch: logits, aux loss, loss and every gradient;
@@ -213,6 +214,19 @@ Phases (any failure raises and the script exits non-zero):
    at 28 layers one plane is 65.5 GB): L=4, K=4, B=8, S=64, capacity
    dropping, 3 meta steps counted (one fused launch and 16 ``sgd_apply`` a
    step), finite, peak < 80 GB, one more profiled.
+17. the hybrid and SSM families: (a) phase 16a on reduced Hymba and
+   xLSTM (no flash launch in their prefills: JAX's call no Pallas
+   kernel; every cache entry, xLSTM's tuples of recurrent states
+   included, after the prefill and after 8 decode steps) and 2 packed
+   M-AVG meta steps of each; (b) full-width, full-depth Hymba-1.5B (32
+   layers, 1,662,366,464 parameters) and xLSTM-350M (24 layers,
+   500,706,448) served with phase 10b's request in bf16 compute, no
+   kernel launched, teacher forcing within the bf16 limit, prefill and
+   decode timed and profiled, peak < 80 GB; (c) phase 4 on each at full
+   width (depth in ``FAMILY_TRAIN_DEPTH``), L=4, K=4, B=8, S=64, 2 meta
+   steps counted (one fused launch and 16 ``sgd_apply`` a step), peak <
+   80 GB, one more profiled. The training forward recomputes each Hymba
+   block and xLSTM super-block in the backward pass, as JAX's remat.
 
 Each phase's header carries the seconds since the start.
 
@@ -259,13 +273,20 @@ ATTENTION_F32_SOURCE = "src/repro_torch/kernels/csrc/attention_hopper_f32.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention.py:80"
 BF16_FLOPS_PER_S = 989.4e12  # H100 SXM, dense BF16 tensor cores
 # layers (of 28) of the full-width topology runs, of phases 4, 5 and 9
-# (the dense, compressed and robust main paths) and 13a (telemetry), and
-# of phase 12 (the checkpoint): phases 5, 9 and 12 were cut from 28, 28
-# and 6 layers when phase 15 joined, and 4 and 13a from 28 when phase 16
-# did, so that the whole run stays well inside its time limit; every
-# width is unchanged
-DEPTH = 6
+# (the dense, compressed and robust main paths), 13a (telemetry), 13b and
+# 14b (the async server), and of phase 12 (the checkpoint): phases 5, 9
+# and 12 were cut from 28, 28 and 6 layers when phase 15 joined, 4 and 13a
+# from 28 when phase 16 did, and all of them from 6 to 2 when phase 17 did
+# (the run took 1261.1 s with phase 17 at 6, measured on one H100),
+# so that the whole run stays well inside its time limit; every width is
+# unchanged
+DEPTH = 2
 CKPT_DEPTH = 1
+# layers of phase 3's cut plane (4,790,496 rows): the gossip and
+# hierarchical runs took its chunk height, 32, at 6 layers; at DEPTH
+# layers they take 8, as the full plane does, and phase 3 still holds the
+# b=32 kernels there
+CUT_PLANE_DEPTH = 6
 # card vs CPU after compressed meta steps: values beyond rtol 1e-5 /
 # atol 1e-6 are rounding decisions that flipped because the two devices'
 # gradients differ in the last bits; at most this share of them, each
@@ -736,9 +757,9 @@ def check_neighbor_mix(torch, nm, rows) -> list[dict]:
 
 
 def check_pack_compress_main(torch, pu, rows) -> float:
-    """pack_compress at the shape the gossip and hierarchical runs give it:
-    the (4, rows, 128) stack of the DEPTH-layer plane at the chunk height
-    ``choose_block`` gives that plane (b=32: four chunks to a block of
+    """pack_compress on the (4, rows, 128) stack of the CUT_PLANE_DEPTH-
+    layer plane at the chunk height ``choose_block`` gives that plane
+    (b=32: four chunks to a block of
     threads, each chunk's max reduced across its warps through shared
     memory). Without and with err, out of place against the plain version
     in row windows, then in place (c over u; err over d) against the
@@ -905,7 +926,7 @@ def same_bits(torch, got, want) -> float:
 def check_robust_reduce(torch, rr, rows, rows_cut) -> dict:
     """robust_reduce: bitwise against its plain version in row windows on
     the full (4, rows, 128) plane at trim 0 and 1 (the main path's L and
-    trim), on the 6-layer (8, rows_cut, 128) plane at trims 0-3 and its
+    trim), on the CUT_PLANE_DEPTH-layer (8, rows_cut, 128) plane at trims 0-3 and its
     first five learners at trim 2 (the median), and on a small stack of
     NaN, +-inf and -0.0; trim 0 against torch.mean for L = 2, 3, 4 and 8;
     CUDA-event times of the kernel, the plain version and the library
@@ -1223,12 +1244,15 @@ def check_flash_attention(torch, fa) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
-def full_width_training(torch, ops, cfg=None,
-                        ops_by_shape=()) -> tuple[dict, float]:
-    """Phase 4 (Qwen3-1.7B at DEPTH layers; 16c with ``cfg``): flat dense
-    M-AVG, L=4, K=4, B=8, S=64, 3 meta steps on uniform tokens, then one
-    profiled. Returns the launch counts and the last unprofiled meta
-    step's wall time in ms."""
+def full_width_training(torch, ops, cfg=None, ops_by_shape=(),
+                        steps: int = 3,
+                        local_profile: bool = False) -> tuple[dict, float]:
+    """Phase 4 (Qwen3-1.7B at DEPTH layers; 16c and 17c with ``cfg``):
+    flat dense M-AVG, L=4, K=4, B=8, S=64, ``steps`` meta steps on uniform
+    tokens, then one more profiled, or with ``local_profile`` one local
+    step of it (where a meta step makes too many launches for the
+    profiler to take in a few seconds). Returns the launch counts and the
+    last unprofiled meta step's wall time in ms."""
     from repro_torch.configs.base import MAvgConfig, TrainConfig, get_config
     from repro_torch.core.trainer import Trainer
     from repro_torch.data import uniform_batch_fn
@@ -1237,7 +1261,7 @@ def full_width_training(torch, ops, cfg=None,
 
     cfg = cfg or dataclasses.replace(get_config("qwen3-1.7b"),
                                      num_layers=DEPTH)
-    k, batch, seq, steps = 4, 8, 64, 3
+    k, batch, seq = 4, 8, 64
     tcfg = TrainConfig(
         model=cfg, mavg=MAvgConfig(algorithm="mavg", num_learners=L,
                                    k_steps=k),
@@ -1286,7 +1310,10 @@ def full_width_training(torch, ops, cfg=None,
                    for sl in windows(x.shape[0])), name
     assert peak < 80e9, peak
     step_ms = 1e3 / history[-1]["meta_steps_per_sec"]
-    profile_meta_step(torch, trainer, step_ms, ops_by_shape)
+    if local_profile:
+        profile_local_step(torch, trainer, cfg, tcfg)
+    else:
+        profile_meta_step(torch, trainer, step_ms, ops_by_shape)
     del trainer, state
     free(torch)
     return counts, step_ms
@@ -1501,6 +1528,39 @@ def profile_meta_step(torch, trainer, step_ms: float,
     and the device's idle share."""
     profile_call(torch, "meta step", lambda: trainer.run(1, log=None),
                  step_ms, ops_by_shape=ops_by_shape)
+
+
+def profile_local_step(torch, trainer, cfg, tcfg) -> None:
+    """One local step of learner 0 as the local phase runs it (the loss
+    and its backward into the gradient plane, then ``sgd_apply`` on the
+    learner's plane; ``core/meta.py``), timed unprofiled and then under
+    torch.profiler. It moves learner 0 off the meta params: the trainer
+    is not stepped again."""
+    from repro_torch.core import meta
+    from repro_torch.data import uniform_batch_fn
+    from repro_torch.models import api
+
+    mcfg, state = tcfg.mavg, trainer.state
+    batch = uniform_batch_fn(cfg, mcfg.num_learners, mcfg.k_steps,
+                             tcfg.batch_per_learner, tcfg.seq_len)(
+        torch.Generator(device="cuda").manual_seed(9), 0)
+    batch = {k: v[0, 0] for k, v in batch.items()}
+    w = state.learners[0]
+    g = torch.zeros_like(w)
+    w_tree, grads = state.spec.unpack(w), state.spec.unpack(g)
+
+    def step():
+        meta._grad_into(lambda p, b: api.loss_fn(p, cfg, b), w_tree, batch,
+                        grads)
+        meta._sgd_update(w, None, g, mcfg, LR)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    profile_call(torch, "local step (learner 0)", step,
+                 (time.perf_counter() - t0) * 1e3)
 
 
 class Spread:
@@ -2074,6 +2134,8 @@ def profile_call(torch, label, fn, wall_ms: float, focus=None,
         print(f"    {focus}: {ms:.2f} ms in {sum(e.count for e in hit)} "
               f"launches, {ms / busy_ms:.3f} of kernel time, "
               f"{ms / wall_ms:.3f} of the unprofiled call")
+    if not ops_by_shape:  # a second pass over the events costs minutes
+        return
     shaped = sorted((e for e in prof.key_averages(group_by_input_shape=True)
                      if e.key in ops_by_shape and e.device_time_total > 0),
                     key=lambda e: -e.device_time_total)
@@ -3761,10 +3823,10 @@ def examples_on_the_card(torch, ops) -> dict:
     out, scounts, _ = timed(torch, ops, "serve_batch, reduced archs",
                             lambda: serve_batch.main(["--device", "cuda"]))
     served = {a: t for a, t in out.items() if t is not None}
-    assert sorted(served) == ["deepseek-moe-16b", "internvl2-76b",
-                              "kimi-k2-1t-a32b", "llama3-405b",
-                              "qwen1.5-110b", "qwen2-7b", "qwen3-1.7b"], \
-        sorted(served)
+    assert sorted(served) == ["deepseek-moe-16b", "hymba-1.5b",
+                              "internvl2-76b", "kimi-k2-1t-a32b",
+                              "llama3-405b", "qwen1.5-110b", "qwen2-7b",
+                              "qwen3-1.7b", "xlstm-350m"], sorted(served)
     assert all(t.shape == (2, 12) and t.is_cuda for t in served.values())
     # use_pallas is not set, as in the reference: no flash launch
     assert sum(scounts.values()) == 0, scounts
@@ -3786,17 +3848,17 @@ MOE_TRAIN_DEPTH = 3
 MOE_OPS = ("aten::bmm", "aten::index", "aten::scatter", "aten::scatter_")
 
 
-def moe_card_vs_cpu(torch, ops) -> None:
-    """Phase 16a: the reduced DeepSeekMoE, Kimi-K2, HuBERT and InternVL2
-    in f32 (TF32 off) on the card against the CPU, the same params and
-    batch (``api.make_batch`` drawn on the CPU): the dropless forward's
-    logits and aux loss, the loss path's loss and every gradient, then
-    (decoders) the prefill through the flash kernel (one f32 launch a
-    layer; InternVL2's over its patches and tokens), 8 decode steps and 8
-    greedy tokens; then 2 packed M-AVG meta steps of DeepSeekMoE (L=4,
-    K=2, B=2, S=16). Section 2's limits: rtol 1e-5 with atol 1e-6 for
-    losses, gradients and planes, 1e-5 for logits and caches; tokens
-    equal."""
+def families_card_vs_cpu(torch, ops, archs, meta_archs) -> None:
+    """Phases 16a and 17a: reduced ``archs`` in f32 (TF32 off) on the card
+    against the CPU, the same params and batch (``api.make_batch`` drawn
+    on the CPU): the forward's logits and aux loss, the loss path's loss
+    and every gradient, then (decoders) the prefill (through the f32 flash
+    kernel where the family's attention takes it: one launch a layer;
+    InternVL2's over its patches and tokens; Hymba's and xLSTM's through
+    none, as JAX's), its whole cache, 8 decode steps and 8 greedy tokens;
+    then 2 packed M-AVG meta steps of each of ``meta_archs`` (L=4, K=2,
+    B=2, S=16). Section 2's limits: rtol 1e-5 with atol 1e-6 for losses,
+    gradients and planes, 1e-5 for logits and caches; tokens equal."""
     from repro_torch.configs.base import MAvgConfig, get_config
     from repro_torch.core.meta import init_state, make_meta_step
     from repro_torch.models import api
@@ -3816,7 +3878,12 @@ def moe_card_vs_cpu(torch, ops) -> None:
         torch.testing.assert_close(
             got, want, **tol, msg=lambda m: f"{label} ({tol}): {m}")
 
-    for arch in MOE_REDUCED:
+    def cache_entries(cache):  # xLSTM's entries are tuples of states
+        return [(f"{k}[{i}]" if isinstance(v, tuple) else k, t)
+                for k, v in sorted(cache.items()) if k != "pos"
+                for i, t in enumerate(v if isinstance(v, tuple) else (v,))]
+
+    for arch in archs:
         cfg = dataclasses.replace(get_config(arch).reduced(),
                                   dtype="float32")
         params = api.init_params(torch.Generator().manual_seed(0), cfg,
@@ -3844,8 +3911,9 @@ def moe_card_vs_cpu(torch, ops) -> None:
         line = (f"  {arch} reduced f32: logits, aux, loss and "
                 f"{len(gg)} grads")
         if cfg.supports_decode:
+            flash = cfg.family not in ("hybrid", "ssm")
             prompt = {k: v for k, v in batch.items() if k != "labels"}
-            S = sum(v.shape[1] for v in prompt.values())
+            S = sum(v.shape[1] for v in prompt.values()) + cfg.meta_tokens
             cache_len = S + 8 + 4
             gparams = tree_map(lambda t: t.to("cuda"), params)
             with torch.no_grad():
@@ -3854,13 +3922,14 @@ def moe_card_vs_cpu(torch, ops) -> None:
                     lambda t: t.cuda(), prompt), cache_len, use_pallas=True)
                 torch.cuda.synchronize()
                 assert ops.launch_counts() == dict(
-                    NO_LAUNCHES, flash_attention_f32=cfg.num_layers)
+                    NO_LAUNCHES,
+                    flash_attention_f32=cfg.num_layers if flash else 0)
                 lc, cc = api.prefill(params, cfg, prompt, cache_len,
                                      use_pallas=True)
-                for label, g, c in (("prefill", lg, lc),
-                                    ("cache k", cg["k"], cc["k"]),
-                                    ("cache v", cg["v"], cc["v"])):
-                    close(f"{arch} {label}", g, c, errs, serving)
+                close(f"{arch} prefill", lg, lc, errs, serving)
+                entries = cache_entries(cc)
+                for (label, c), (_, g) in zip(entries, cache_entries(cg)):
+                    close(f"{arch} cache {label}", g, c, errs, serving)
                 assert int(cg["pos"]) == int(cc["pos"]) == S
                 nxt_g = torch.argmax(lg, -1).to(torch.int32)
                 nxt_c = torch.argmax(lc, -1).to(torch.int32)
@@ -3874,44 +3943,215 @@ def moe_card_vs_cpu(torch, ops) -> None:
                     close(f"{arch} decode {i}", lg, lc, errs, serving)
                     nxt_g = torch.argmax(lg, -1).to(torch.int32)
                     nxt_c = torch.argmax(lc, -1).to(torch.int32)
-            line += (f", prefill (flash) and cache, 8 decode steps; greedy "
+                for (label, c), (_, g) in zip(cache_entries(cc),
+                                              cache_entries(cg)):
+                    close(f"{arch} decoded cache {label}", g, c, errs,
+                          serving)
+            line += (f", prefill{' (flash)' if flash else ''} and its "
+                     f"{len(entries)} cache entries, 8 decode steps; greedy "
                      f"tokens equal ({torch.stack(toks_c, 1)[0].tolist()})")
         print(f"{line}: card == CPU within rtol 1e-5 / atol 1e-6, logits "
               f"and caches atol 1e-5 (max |diff| {max(errs):.3g})")
 
-    cfg = dataclasses.replace(get_config(MOE_ARCH).reduced(),
-                              dtype="float32")
-    mcfg = MAvgConfig(algorithm="mavg", num_learners=L, k_steps=2,
-                      learner_lr=0.1, momentum=0.7)
-    params = api.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
-    gen = torch.Generator().manual_seed(2)
-    batches = [{"tokens": t, "labels": t} for t in (
-        torch.randint(0, cfg.vocab_size, (L, 2, 2, 16), generator=gen)
-        for _ in range(2))]
-    loss_fn = lambda p, b: api.loss_fn(p, cfg, b)  # noqa: E731
-    runs = {}
-    for dev in ("cpu", "cuda"):
-        state = init_state(tree_map(lambda t: t.to(dev), params), mcfg)
-        step = make_meta_step(loss_fn, mcfg)
+    for arch in meta_archs:
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="float32")
+        mcfg = MAvgConfig(algorithm="mavg", num_learners=L, k_steps=2,
+                          learner_lr=0.1, momentum=0.7)
+        params = api.init_params(torch.Generator().manual_seed(0), cfg,
+                                 "cpu")
+        gen = torch.Generator().manual_seed(2)
+        batches = [{"tokens": t, "labels": t} for t in (
+            torch.randint(0, cfg.vocab_size, (L, 2, 2, 16), generator=gen)
+            for _ in range(2))]
+        loss_fn = lambda p, b: api.loss_fn(p, cfg, b)  # noqa: E731
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            state = init_state(tree_map(lambda t: t.to(dev), params), mcfg)
+            step = make_meta_step(loss_fn, mcfg)
+            ops.reset_launch_counts()
+            losses = []
+            for b in batches:
+                state, metrics = step(state, tree_map(lambda t: t.to(dev),
+                                                      b))
+                losses.append(float(metrics["loss"]))
+            runs[dev] = (state, losses, ops.launch_counts())
+        (sc, lc, _), (sg, lg, counts) = runs["cpu"], runs["cuda"]
+        assert counts == dict(NO_LAUNCHES, fused_momentum_broadcast=2,
+                              sgd_apply=2 * 2 * L), counts
+        assert all(math.isclose(a, b, rel_tol=1e-5)
+                   for a, b in zip(lg, lc)), (lg, lc)
+        errs, tol = [], META_PLANE_TOL.get(arch, training)
+        beyond = 0
+        for name in ("global_params", "momentum", "learners"):
+            g, c = getattr(sg, name).cpu(), getattr(sc, name)
+            beyond += int(((g - c).abs() > 1e-6 + 1e-5 * c.abs()).sum())
+            close(f"{arch} meta {name}", g, c, errs, tol)
+        print(f"  {arch} reduced f32, 2 packed M-AVG meta steps (L={L}, "
+              f"K=2): losses {[round(x, 6) for x in lc]} and every plane "
+              f"card == CPU within rtol {tol['rtol']} / atol {tol['atol']} "
+              f"(max |diff| {max(errs):.3g}; {beyond} values beyond rtol "
+              f"1e-5 / atol 1e-6); launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the hybrid and SSM families (Hymba-1.5B, xLSTM-350M)
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("hymba-1.5b", "xlstm-350m")
+# 17a's meta planes of xLSTM at the gradient limit, rtol 1e-5 / atol 1e-5:
+# its embedding gradient cancels, and the CPU alone, at 1 thread against
+# 4, moves 44 of the 2,073,600 values of the reduced model's global plane
+# beyond 1e-6 after the same 2 meta steps (max 2.9e-6, all in
+# embed/embedding); Hymba's none (max 9.5e-7)
+META_PLANE_TOL = {"xlstm-350m": dict(rtol=1e-5, atol=1e-5)}
+# layers of the full-width M-AVG training runs (of 32 and 24): at full
+# depth a meta step took 23.0 s for Hymba (peak 60.05 GB) and 36 s for
+# xLSTM at 8 layers, host-bound (measured on one H100); xLSTM keeps
+# one super-block (3 mLSTM + 1 sLSTM), its smallest whole unit
+FAMILY_TRAIN_DEPTH = {"hymba-1.5b": 8, "xlstm-350m": 4}
+FAMILY_TRAIN_STEPS = 2
+# prompt tokens of 17b's profiled prefill: xLSTM's recurrences launch the
+# same kernels at every position (~570 a token), and the profiler takes
+# about a millisecond an event to digest, so its prefill is profiled on
+# the prompt's first 16 tokens; Hymba's on the whole prompt
+FAMILY_PROFILE_PROMPT = {"xlstm-350m": 16}
+
+
+class ServeLog:
+    """While on, each ``api.prefill`` and ``api.decode_step`` call keeps
+    its logits and cache (references to tensors it made) and records a
+    CUDA event after it, the first event recorded on entry: ``generate``'s
+    own prefill and decode steps timed on the device's clock (which waits
+    on the host where the host is slower), and its logits kept for the
+    teacher-forcing check, without a second run."""
+
+    def __init__(self, torch):
+        from repro_torch.models import api
+
+        self.torch, self.api = torch, api
+        self.real = (api.prefill, api.decode_step)
+
+    def __enter__(self):
+        torch, (prefill, decode) = self.torch, self.real
+        self.logits, self.cache = [], None
+        self.events = [torch.cuda.Event(enable_timing=True)]
+        self.events[0].record()
+
+        def keep(out):
+            self.logits.append(out[0])
+            self.cache = out[1]
+            self.events.append(torch.cuda.Event(enable_timing=True))
+            self.events[-1].record()
+            return out
+
+        self.api.prefill = lambda *a, **k: keep(prefill(*a, **k))
+        self.api.decode_step = lambda *a, **k: keep(decode(*a, **k))
+        return self
+
+    def __exit__(self, *exc):
+        self.api.prefill, self.api.decode_step = self.real
+
+    def prefill_ms(self) -> float:
+        return self.events[0].elapsed_time(self.events[1])
+
+    def decode_ms(self) -> float:
+        """Per step, the argmax between steps included (``generate``'s)."""
+        return (self.events[1].elapsed_time(self.events[-1])
+                / (len(self.events) - 2))
+
+
+def serving_family_full_width(torch, ops, arch) -> dict:
+    """Phase 17b: full-width, full-depth Hymba-1.5B or xLSTM-350M, f32
+    params from a seeded generator, bf16 compute, phase 10b's request (B=8,
+    a 512-token prompt of uniform random tokens, 64 greedy tokens through
+    ``generate``, cache_len 512 + 64 + 8: Hymba's window then holds every
+    token after its meta prefix, xLSTM's cache is its state). No kernel on
+    this path (JAX's Hymba and xLSTM call none): every launch count stays
+    0. ``generate``'s prefill and decode steps are timed and their logits
+    kept (``ServeLog``). Checked: finite logits, generate's greedy tokens
+    their argmax, teacher forcing (one forward over prompt and generated
+    tokens against those logits) within the bf16 limit, peak < 80 GB.
+    Prefill ms, decode ms a step, tokens/s, peak; one decode step (from
+    generate's cache) and one prefill profiled. Returns the launch counts
+    of the generate run."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config(arch)
+    B, S0, new = SERVE_B, SERVE_PROMPT, SERVE_NEW
+    cache_len = S0 + new + 8
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, "cuda")
+    prompt = torch.randint(
+        0, cfg.vocab_size, (B, S0), device="cuda", dtype=torch.int32,
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    print(f"  params {sum(t.numel() for t in tree_leaves(params)):,}, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB f32, "
+          f"{cfg.num_layers} layers, compute {cfg.dtype}")
+    with torch.no_grad():
         ops.reset_launch_counts()
-        losses = []
-        for b in batches:
-            state, metrics = step(state, tree_map(lambda t: t.to(dev), b))
-            losses.append(float(metrics["loss"]))
-        runs[dev] = (state, losses, ops.launch_counts())
-    (sc, lc, _), (sg, lg, counts) = runs["cpu"], runs["cuda"]
-    assert counts == dict(NO_LAUNCHES, fused_momentum_broadcast=2,
-                          sgd_apply=2 * 2 * L), counts
-    assert all(math.isclose(a, b, rel_tol=1e-5) for a, b in zip(lg, lc)), \
-        (lg, lc)
-    errs = []
-    for name in ("global_params", "momentum", "learners"):
-        close(f"meta {name}", getattr(sg, name), getattr(sc, name), errs)
-    print(f"  {MOE_ARCH} reduced f32, 2 packed M-AVG meta steps (L={L}, "
-          f"K=2): losses {[round(x, 6) for x in lc]} and every plane card "
-          f"== CPU within rtol 1e-5 / atol 1e-6 (max |diff| "
-          f"{max(errs):.3g}); launches "
-          f"{ {k: v for k, v in counts.items() if v} }")
+        with ServeLog(torch) as log:
+            t0 = time.perf_counter()
+            tokens = serve.generate(params, cfg, prompt, new, cache_len)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        print(f"  launches: {counts}")
+        assert counts == NO_LAUNCHES, counts
+        assert tokens.shape == (B, new) and tokens.dtype == torch.int32
+        prefill_ms, step_ms = log.prefill_ms(), log.decode_ms()
+        assert len(log.logits) == 1 + new
+        served = torch.stack(log.logits, 1)
+        cache = log.cache
+        del log
+        assert bool(torch.isfinite(served).all()), "non-finite logits"
+        assert torch.equal(torch.argmax(served[:, :-1], -1).to(torch.int32),
+                           tokens)
+        print(f"  {served.numel()} logits of generate's prefill and {new} "
+              f"decode steps finite; its tokens are their argmax")
+        # teacher forcing: the forward's logits at the same positions,
+        # behind the meta prefix
+        fwd, _ = api.forward(params, cfg, {"tokens": torch.cat(
+            [prompt, tokens], 1)})
+        bf16_close(torch, f"teacher forcing, forward over {S0 + new} "
+                   f"tokens vs generate's prefill + {new} decode steps",
+                   served, fwd[:, cfg.meta_tokens + S0 - 1:])
+        del fwd, served
+        peak = torch.cuda.max_memory_allocated()
+        free(torch)
+        print(f"  prefill {prefill_ms:.1f} ms ({B * S0 / prefill_ms * 1e3:.0f}"
+              f" prompt tokens/s); decode {step_ms:.2f} ms a step, "
+              f"{1e3 / step_ms:.2f} steps/s, {B * 1e3 / step_ms:.1f} "
+              f"tokens/s (CUDA events around generate's calls); generate "
+              f"{gen_s:.2f} s ({B * new / gen_s:.1f} tokens/s); peak device "
+              f"memory {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB)")
+        assert peak < 80e9, peak
+        tok = tokens[:, -1]
+        profile_call(torch, "decode step",
+                     lambda: api.decode_step(params, cfg, cache, tok),
+                     step_ms)
+        del cache
+        n = FAMILY_PROFILE_PROMPT.get(arch, S0)
+        part = {"tokens": prompt[:, :n]}
+        if n < S0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            api.prefill(params, cfg, part, cache_len)
+            torch.cuda.synchronize()
+            part_ms = (time.perf_counter() - t0) * 1e3
+        else:
+            part_ms = prefill_ms
+        profile_call(torch, f"prefill of {n} prompt tokens",
+                     lambda: api.prefill(params, cfg, part, cache_len),
+                     part_ms)
+    del params
+    free(torch)
+    return counts
 
 
 def main() -> int:
@@ -4019,7 +4259,7 @@ def main() -> int:
                     + [check_pack_update(torch, pu, rows),
                        check_pack_compress(torch, pu, rows)])
     rows_cut = make_pack_spec(api.init_params(None, dataclasses.replace(
-        get_config("qwen3-1.7b"), num_layers=DEPTH), "meta")).rows
+        get_config("qwen3-1.7b"), num_layers=CUT_PLANE_DEPTH), "meta")).rows
     main_err = check_pack_compress_main(torch, pu, rows_cut)
     comm_records[-1]["max_abs_err"] = max(comm_records[-1]["max_abs_err"],
                                           main_err)
@@ -4186,7 +4426,7 @@ def main() -> int:
           f"reduced {', '.join(MOE_REDUCED)} float32, then 2 M-AVG meta "
           f"steps of {MOE_ARCH} reduced, L={L}")
     with full_f32(torch):
-        moe_card_vs_cpu(torch, ops)
+        families_card_vs_cpu(torch, ops, MOE_REDUCED, (MOE_ARCH,))
     stamp(f"phase 16b: serving full-width DeepSeekMoE-16B, 28 layers (1 "
           f"dense + 27 MoE), B={SERVE_B}, {SERVE_PROMPT}-token prompt, "
           f"{SERVE_NEW} greedy tokens, flash prefill")
@@ -4203,6 +4443,33 @@ def main() -> int:
     print(f"  phase 16 in {time.perf_counter() - t16:.1f} s; launches on "
           f"the MoE paths: serving {nonzero(moe_serve_counts)}, training "
           f"{nonzero(moe_train_counts)} ({moe_step_ms:.1f} ms a meta step)")
+
+    t17 = time.perf_counter()
+    stamp(f"phase 17a: the hybrid and SSM families card vs CPU, reduced "
+          f"{', '.join(FAMILY_ARCHS)} float32, then 2 M-AVG meta steps of "
+          f"each, L={L}")
+    with full_f32(torch):
+        families_card_vs_cpu(torch, ops, FAMILY_ARCHS, FAMILY_ARCHS)
+    family_counts = {}
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        stamp(f"phase 17b: serving full-width {arch}, {cfg.num_layers} "
+              f"layers, B={SERVE_B}, {SERVE_PROMPT}-token prompt, "
+              f"{SERVE_NEW} greedy tokens")
+        serve_counts_17 = serving_family_full_width(torch, ops, arch)
+        depth = FAMILY_TRAIN_DEPTH[arch]
+        stamp(f"phase 17c: full-width {arch} M-AVG trainer ({depth} of "
+              f"{cfg.num_layers} layers), L={L}, K=4, B=8, S=64, "
+              f"{FAMILY_TRAIN_STEPS} meta steps")
+        counts, step_ms = full_width_training(
+            torch, ops, dataclasses.replace(cfg, num_layers=depth),
+            steps=FAMILY_TRAIN_STEPS, local_profile=True)
+        family_counts[arch] = (serve_counts_17, counts, step_ms)
+    print(f"  phase 17 in {time.perf_counter() - t17:.1f} s; launches on "
+          f"the hybrid and SSM paths: " + "; ".join(
+              f"{arch} serving {nonzero(sc)}, training {nonzero(tc)} "
+              f"({ms:.1f} ms a meta step)"
+              for arch, (sc, tc, ms) in family_counts.items()))
 
     # each kernel's launches in the run of the path it serves: the dense
     # and compressed full-width runs, the reduced per-leaf runs, the gossip

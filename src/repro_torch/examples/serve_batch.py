@@ -3,13 +3,11 @@ cache, for every decode-capable architecture at reduced scale (the JAX
 package's ``examples/serve_batch.py``, on the port's ``prefill`` and
 ``decode_step``).
 
-The dense and MoE architectures are served. ``hubert-xlarge`` is
-encoder-only and skipped; ``internvl2-76b``, whose inputs come from a
-stub frontend, runs the reference's decode-only demo from an empty cache.
-For the hybrid and SSM architectures (hymba, xLSTM) it prints one line
-naming ROADMAP Queue 1, item 9 (the remaining model families). Attention
-is plain PyTorch here, as the reference's example does not set
-``use_pallas``.
+The dense, MoE, hybrid (Hymba) and SSM (xLSTM) architectures are served.
+``hubert-xlarge`` is encoder-only and skipped; ``internvl2-76b``, whose
+inputs come from a stub frontend, runs the reference's decode-only demo
+from an empty cache. Attention is plain PyTorch here, as the reference's
+example does not set ``use_pallas``.
 
   PYTHONPATH=src python -m repro_torch.examples.serve_batch \\
       [--arch qwen3-1.7b] [--device cpu]
@@ -30,20 +28,12 @@ from repro_torch.models import api as model_api
 from repro_torch.utils.rng import seeded_generator
 from repro_torch.utils.tree import tree_map
 
-PORTED_FAMILIES = ("dense", "moe", "audio", "vlm")
-
-
 def serve(arch: str, batch: int, prompt_len: int, new_tokens: int,
           device="cuda", params: Optional[dict] = None,
           prompt: Optional[torch.Tensor] = None, log=print):
     """Greedy tokens (batch, new_tokens) of ``arch``'s reduced config, or
-    None for an encoder-only config or a family the port does not serve
-    yet."""
+    None for an encoder-only config."""
     cfg = get_config(arch).reduced()
-    if cfg.family not in PORTED_FAMILIES:
-        log(f"{arch}: the {cfg.family} family is not ported yet (ROADMAP "
-            f"Queue 1, item 9: the remaining model families)")
-        return None
     if not cfg.supports_decode:
         log(f"{arch}: encoder-only, no decode (skipped)")
         return None

@@ -29,6 +29,8 @@ def _tree(x, device):
         return None
     if isinstance(x, dict):
         return {k: _tree(v, device) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_tree(v, device) for v in x)
     return to_tensor(x, device)
 
 
@@ -39,15 +41,16 @@ def params_from_jax(tree, device="cpu") -> dict:
 
 
 def cache_from_jax(cache, device="cpu") -> dict:
-    """A JAX KV cache ``{"k", "v", "pos"}`` with numpy leaves (as
-    ``jax.device_get`` gives it) -> the port's: k and v tensors of the same
-    shape and dtype, and pos a 0-d int32 tensor, all on ``device``."""
-    return {
-        "k": to_tensor(cache["k"], device),
-        "v": to_tensor(cache["v"], device),
-        "pos": torch.tensor(int(np.asarray(cache["pos"])), dtype=torch.int32,
-                            device=device),
-    }
+    """A JAX decode cache with numpy leaves (as ``jax.device_get`` gives
+    it) -> the port's, on ``device``: the same keys and nesting, tuples
+    kept (the transformer's ``{"k", "v", "pos"}``, Hymba's window, meta,
+    conv and SSM entries, xLSTM's ``{"m": 4-tuple, "s": 4-tuple}``), each
+    array a tensor of the same shape and dtype (a copy: decode writes the
+    port's cache in place), and pos a 0-d int32 tensor."""
+    out = {k: _tree(v, device) for k, v in cache.items() if k != "pos"}
+    out["pos"] = torch.tensor(int(np.asarray(cache["pos"])),
+                              dtype=torch.int32, device=device)
+    return out
 
 
 # the MetaState.topo keys of the hierarchical and gossip topologies, of the

@@ -1,7 +1,8 @@
 """Serving launcher of the port: batched autoregressive decoding of the
-dense and MoE transformers (prefill, then one ``decode_step`` per token
-against the KV cache). Encoder-only configs (``hubert-xlarge``) are
-refused: they have no decode path.
+dense and MoE transformers, Hymba and xLSTM (prefill, then one
+``decode_step`` per token against the KV cache or the recurrent state).
+Encoder-only configs (``hubert-xlarge``) are refused: they have no decode
+path.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
@@ -37,10 +38,12 @@ def generate(params, cfg, prompt_tokens, max_new: int, cache_len: int,
     (``cache_len < S0 + max_new``): JAX clamps the write and overwrites the
     cache's last row, the port's in-place write would fault on the card
     (see ``models/transformer.py::decode_step``). Sliding-window configs
-    keep a rolling cache and take any length.
+    (Hymba among them) keep a rolling cache, and xLSTM's cache is its
+    recurrent state: they take any length.
     """
     S0 = prompt_tokens.shape[1]
-    if not cfg.sliding_window and cache_len < S0 + max_new:
+    full_kv = cfg.family != "ssm" and not cfg.sliding_window
+    if full_kv and cache_len < S0 + max_new:
         raise ValueError(
             f"cache_len {cache_len} < prompt {S0} + max_new {max_new}: "
             f"the KV cache has no row for the later tokens")

@@ -42,12 +42,15 @@ rules from halting) and ``--obs-attribution`` the phase timing rows.
 ``--checkpoint-dir``). The flags mean what they mean in the JAX launcher.
 Not ported yet, and refused: ``--obs-cost`` (ROADMAP Queue 1, item 10).
 ``--arch`` takes the dense and MoE archs (``deepseek-moe-16b``,
-``kimi-k2-1t-a32b``); the audio and VLM archs, whose inputs come from a
-stub frontend, are refused as in the JAX launcher.
+``kimi-k2-1t-a32b``), the hybrid ``hymba-1.5b`` and the SSM
+``xlstm-350m``; the audio and VLM archs, whose inputs come from a stub
+frontend, are refused as in the JAX launcher.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --arch deepseek-moe-16b --learners 2 --k 2 --steps 2 --batch 2 \
       --seq 16
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --arch hymba-1.5b --learners 2 --k 2 --steps 2 --batch 2 --seq 16
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --steps 4 --topology async --async-profile 1,1,2,4 \
       --async-staleness 3

@@ -16,30 +16,28 @@ builders (the JAX package's ``models/api.py``).
 ``use_pallas`` runs full-sequence attention through the hand-written flash
 kernel (``kernels/ops.py::flash_attention``), as the JAX package's flag
 runs its Pallas kernel; it has no gradient. The dense, MoE, audio and VLM
-families are the transformer's; the hybrid and SSM families are not
-ported yet.
+families are the transformer's, the hybrid family is Hymba's
+(``models/hymba.py``) and the SSM family xLSTM's (``models/xlstm.py``);
+those two accept ``use_pallas`` and ignore it, as JAX's do.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import hymba, transformer, xlstm
 
 _FAMILY = {
     "dense": transformer,
     "moe": transformer,
     "audio": transformer,
     "vlm": transformer,
+    "ssm": xlstm,
+    "hybrid": hymba,
 }
 
 
 def get_model(cfg: ModelConfig):
-    if cfg.family not in _FAMILY:
-        raise NotImplementedError(
-            f"{cfg.name}: model family {cfg.family!r} is not ported yet "
-            f"(ROADMAP Queue 1, item 9: the remaining model families)"
-        )
     return _FAMILY[cfg.family]
 
 

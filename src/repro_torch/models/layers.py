@@ -18,6 +18,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
@@ -297,6 +298,16 @@ def attention_decode(x, p, cfg: ModelConfig, k_cache, v_cache, pos):
         valid &= kpos > pos - cfg.sliding_window
     out = decode_attention(q, k_cache, v_cache, valid, cfg)
     return out_proj(out, p, x.dtype), k_cache, v_cache
+
+
+def remat(fn, *args):
+    """``fn(*args)``; while autograd records, its activations are
+    recomputed in the backward pass instead of kept
+    (``torch.utils.checkpoint``), as JAX's ``jax.checkpoint`` with
+    ``nothing_saveable`` does. The numbers are the same either way."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------

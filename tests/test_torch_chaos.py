@@ -193,14 +193,18 @@ def test_payload_corruptor_matches_jax(layout, dtype):
     cor = PayloadCorruptor(FaultSchedule(_chaos("port", PAYLOAD), 3))
     assert cor.active and jcor.active
     for step in range(10):  # past the horizon too: quiet
-        jx = {k: jnp.asarray(v, dtype) for k, v in stack.items()}
-        tx = {k: torch.from_numpy(v).to(getattr(torch, dtype))
+        # each package gets its own copy of the input, and JAX's result is
+        # read back before the port's in-place call: jnp.asarray may alias
+        # the numpy buffer, which the port's corruptor writes into
+        jx = {k: jnp.array(v, dtype) for k, v in stack.items()}
+        tx = {k: torch.from_numpy(v.copy()).to(getattr(torch, dtype))
               for k, v in stack.items()}
         before = {k: v.clone() for k, v in tx.items()}
-        want = jcor(jx, jnp.int32(step))
+        want = {k: np.asarray(w, np.float32)
+                for k, w in jcor(jx, jnp.int32(step)).items()}
         got = cor(tx, step)
         for k in stack:
-            w = np.asarray(want[k], np.float32)
+            w = want[k]
             g = got[k].to(torch.float32).numpy()
             np.testing.assert_array_equal(g.view(np.int32),
                                           w.view(np.int32))

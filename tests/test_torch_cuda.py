@@ -746,7 +746,7 @@ def test_cuda_gated_benches_hold_their_bars(cuda_device):
 @pytest.mark.cuda
 def test_cuda_examples_run_on_the_card(cuda_device):
     """``train_100m`` at its small width for 2 meta steps and
-    ``serve_batch`` on the dense reduced archs, on the card: finite
+    ``serve_batch`` on every decode-capable reduced arch, on the card: finite
     planes, a loss, greedy tokens of the right shape."""
     from repro_torch.examples import serve_batch, train_100m
 
@@ -763,9 +763,10 @@ def test_cuda_examples_run_on_the_card(cuda_device):
         assert bool(torch.isfinite(t).all())
     out = serve_batch.main(["--tokens", "4"])
     served = {a: t for a, t in out.items() if t is not None}
-    assert sorted(served) == ["deepseek-moe-16b", "internvl2-76b",
-                              "kimi-k2-1t-a32b", "llama3-405b",
-                              "qwen1.5-110b", "qwen2-7b", "qwen3-1.7b"]
+    assert sorted(served) == ["deepseek-moe-16b", "hymba-1.5b",
+                              "internvl2-76b", "kimi-k2-1t-a32b",
+                              "llama3-405b", "qwen1.5-110b", "qwen2-7b",
+                              "qwen3-1.7b", "xlstm-350m"]
     assert all(t.shape == (2, 4) and t.is_cuda for t in served.values())
 
 
@@ -843,6 +844,60 @@ def test_cuda_moe_prefill_matches_the_cpu(cuda_device):
                              use_pallas=True)
         for g, c in ((lg, lc), (cg["k"], cc["k"]), (cg["v"], cc["v"])):
             torch.testing.assert_close(g.cpu(), c, **tol)
+        nxt = torch.argmax(lc, -1).to(torch.int32)
+        for _ in range(4):
+            lg, cg = api.decode_step(gparams, cfg, cg, nxt.to(cuda_device))
+            lc, cc = api.decode_step(params, cfg, cc, nxt)
+            torch.testing.assert_close(lg.cpu(), lc, **tol)
+            assert torch.equal(torch.argmax(lg, -1).cpu(),
+                               torch.argmax(lc, -1))
+            nxt = torch.argmax(lc, -1).to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m"])
+def test_cuda_hybrid_and_ssm_match_the_cpu(cuda_device, arch):
+    """The reduced Hymba and xLSTM on the card against the CPU, f32 with
+    TF32 off: logits, loss and every gradient, then the prefill's logits
+    and cache and 4 decode steps, within rtol = atol = 1e-5 (the loss
+    rtol 1e-5 / atol 1e-6); greedy tokens equal."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    params = api.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = api.make_batch(torch.Generator().manual_seed(1), cfg, 2, 16)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    out = []
+    for dev in ("cpu", cuda_device):
+        p = tree_map(lambda t: t.to(dev, copy=True).requires_grad_(True),
+                     params)
+        b = tree_map(lambda t: t.to(dev), batch)
+        with torch.no_grad():
+            logits, _ = api.forward(p, cfg, b)
+        loss, _ = api.loss_fn(p, cfg, b)
+        loss.backward()
+        out.append((logits, loss.detach(), [t.grad for t in tree_leaves(p)]))
+    (lc, xc, gc), (lg, xg, gg) = out
+    torch.testing.assert_close(lg.cpu(), lc, **tol)
+    torch.testing.assert_close(xg.cpu(), xc, rtol=1e-5, atol=1e-6)
+    for a, b in zip(gc, gg):
+        torch.testing.assert_close(b.cpu(), a, **tol)
+    gparams = tree_map(lambda t: t.to(cuda_device), params)
+    prompt = batch["tokens"]
+    with torch.no_grad():
+        lg, cg = api.prefill(gparams, cfg, {"tokens": prompt.to(cuda_device)},
+                             24)
+        lc, cc = api.prefill(params, cfg, {"tokens": prompt}, 24)
+        torch.testing.assert_close(lg.cpu(), lc, **tol)
+        for key, c in cc.items():  # xLSTM's entries are tuples of states
+            g = cg[key]
+            g = tuple(t.cpu() for t in g) if isinstance(g, tuple) else g.cpu()
+            torch.testing.assert_close(g, c, **tol)
         nxt = torch.argmax(lc, -1).to(torch.int32)
         for _ in range(4):
             lg, cg = api.decode_step(gparams, cfg, cg, nxt.to(cuda_device))

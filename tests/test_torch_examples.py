@@ -21,8 +21,8 @@
   apart feeds a different history from then on. The MoE archs
   (deepseek-moe-16b, kimi-k2-1t-a32b) are held the same way, and
   internvl2's decode-only demo from an empty cache gives JAX's tokens in
-  float32. hubert is skipped as encoder-only; the hybrid and SSM
-  families print the line naming ROADMAP Queue 1, item 9.
+  float32. hubert is skipped as encoder-only; the hybrid and SSM archs
+  (hymba-1.5b, xlstm-350m) are served and held as the dense ones.
 * ``momentum_tuning``: both guidelines, fed JAX's ``run_mlp`` draws, give
   JAX's accuracies within one of 2,048 evaluation examples.
 """
@@ -63,6 +63,7 @@ torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DENSE = ("llama3-405b", "qwen3-1.7b", "qwen1.5-110b", "qwen2-7b")
 MOE = ("deepseek-moe-16b", "kimi-k2-1t-a32b")
+HYBRID_SSM = ("hymba-1.5b", "xlstm-350m")
 
 
 def _reference(name):
@@ -214,7 +215,7 @@ def _jax_greedy(arch, dtype, batch=2, prompt_len=8, new_tokens=12):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID_SSM)
 def test_serve_batch_greedy_tokens_equal_jax(monkeypatch, arch, dtype):
     want, params, prompt = _jax_greedy(arch, dtype)
     reduced = dataclasses.replace(tget_config(arch).reduced(), dtype=dtype)
@@ -230,7 +231,8 @@ def test_serve_batch_greedy_tokens_equal_jax(monkeypatch, arch, dtype):
     else:
         np.testing.assert_array_equal(got.numpy()[:, 0], want[:, 0])
     assert lines[0].startswith(f"{arch}: 2 seqs x 12 tokens in ")
-    assert lines[0].endswith("cache pos 20")
+    # the position counts Hymba's meta tokens
+    assert lines[0].endswith(f"cache pos {20 + reduced.meta_tokens}")
 
 
 def test_serve_batch_vlm_decode_only_demo_equals_jax(monkeypatch):
@@ -262,26 +264,24 @@ def test_serve_batch_vlm_decode_only_demo_equals_jax(monkeypatch):
 
 
 def test_serve_batch_names_item_9_for_every_other_family(capsys):
-    """The reference's branches: dense and MoE archs served, hubert
-    skipped as encoder-only, internvl2's decode-only demo, and only the
-    hybrid and SSM families name ROADMAP Queue 1, item 9."""
+    """The reference's branches: every decode-capable arch served (the
+    hybrid and SSM ones too: no family names ROADMAP Queue 1, item 9 any
+    more), hubert skipped as encoder-only, internvl2's decode-only
+    demo."""
     out = serve_batch.main(["--device", "cpu", "--tokens", "2"])
     assert list(out) == ARCH_IDS
     text = capsys.readouterr().out
-    not_ported = ("hymba-1.5b", "xlstm-350m")
     for arch, toks in out.items():
-        if arch in not_ported:
-            assert toks is None
-            assert (f"{arch}: the " in text and "family is not ported yet "
-                    "(ROADMAP Queue 1, item 9" in text)
-        elif arch == "hubert-xlarge":
+        if arch == "hubert-xlarge":
             assert toks is None
             assert f"{arch}: encoder-only, no decode (skipped)" in text
         else:
             assert toks.shape == (2, 2)
+            assert f"{arch}: 2 seqs x 2 tokens in " in text
+    for arch in ("hymba-1.5b", "xlstm-350m"):
+        assert out[arch].dtype == torch.int32
     assert "internvl2-76b: stub-frontend input; decode-only demo" in text
-    assert "internvl2-76b: 2 seqs x 2 tokens in " in text
-    assert text.count("ROADMAP Queue 1, item 9") == len(not_ported)
+    assert "ROADMAP" not in text
 
 
 # ---------------------------------------------------------------------------

@@ -41,7 +41,8 @@ def test_importing_every_module_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'benchmarks', 'ml_dtypes'))\n"
         "subs = {'repro_torch.benchmarks.convergence', "
-        "'repro_torch.checkpoint.npz', 'repro_torch.examples.quickstart'}\n"
+        "'repro_torch.checkpoint.npz', 'repro_torch.examples.quickstart', "
+        "'repro_torch.models.hymba', 'repro_torch.models.xlstm'}\n"
         "print(len(names), bad, sorted(subs - set(names)))\n"
         "sys.exit(1 if bad or len(names) < 20 or subs - set(names) else 0)\n"
     )

@@ -91,11 +91,18 @@ def test_bf16_loss_matches_jax(jax_setup):
 
 
 def test_other_families_are_not_ported_yet():
-    """Only the SSM and hybrid families are left (ROADMAP Queue 1, item
-    9); the MoE, audio and VLM configs now build."""
-    for arch in ("xlstm-350m", "hymba-1.5b"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1, item 9"):
-            api.init_params(None, get_config(arch).reduced(), "meta")
-    for arch in ("deepseek-moe-16b", "hubert-xlarge", "internvl2-76b"):
-        api.init_params(None, get_config(arch).reduced(), "meta")
+    """No family is left to port: every arch's reduced config builds, the
+    SSM and hybrid ones in their own modules, with JAX's keys and
+    shapes."""
+    from repro_torch.configs.base import ARCH_IDS
+    from repro_torch.models import hymba, xlstm
+
+    assert {api.get_model(get_config(a)) for a in ARCH_IDS} >= {hymba,
+                                                                 xlstm}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).reduced()
+        params = api.init_params(None, cfg, "meta")
+        jshapes = jax.eval_shape(lambda k: japi.init_params(
+            k, jget_config(arch).reduced()), jax.random.PRNGKey(0))
+        assert [tuple(t.shape) for t in tree_leaves(params)] == [
+            j.shape for j in jax.tree_util.tree_leaves(jshapes)], arch
