@@ -32,8 +32,11 @@ Phases (any failure raises and the script exits non-zero):
    fit), then
    CUDA-event times of the kernel, the plain version and, where one
    exists, a single PyTorch library call, beside the least time the card
-   could take (bytes over 3.35 TB/s or flops over 67 TFLOP/s, whichever is
-   larger); sgd_apply's times interleaved with torch.add's (kernel, add,
+   could take: the kernel's declared cost (``cost(...)`` beside each
+   wrapper, the one the cost model charges: each input read and each
+   output written once) at the H100 SXM data sheet's rates
+   (``roofline.terms.H100_SXM``), bytes over 3.35 TB/s or flops over 67
+   TFLOP/s, whichever is larger; sgd_apply's times interleaved with torch.add's (kernel, add,
    add, kernel). Then flash_attention, which is not bitwise (another
    summation order), bf16 through the bf16 Hopper kernel (TMA, wgmma) and
    f32 through the 3xTF32 one (TMA, TF32 wgmma): against the plain
@@ -182,7 +185,7 @@ Phases (any failure raises and the script exits non-zero):
    (removed afterwards), the robust, topology, async and chaos stores
    checked by the port's ``obs.baseline.compare`` against
    ``benchmarks/expected/*.json`` (read as data), then the comm bench,
-   and ``--only kernel`` refused; (c) ``train_100m --width full``
+   and ``--only roofline`` refused; (c) ``train_100m --width full``
    (125,848,320 parameters) with L=4, K=4, B=8, S=128 for 20 meta steps:
    the loss falls, every plane finite, the peak device memory and the
    rate printed; one more meta step profiled (the device's idle share,
@@ -227,6 +230,21 @@ Phases (any failure raises and the script exits non-zero):
    steps counted (one fused launch and 16 ``sgd_apply`` a step), peak <
    80 GB, one more profiled. The training forward recomputes each Hymba
    block and xLSTM super-block in the backward pass, as JAX's remat.
+18. the cost model (``repro_torch.roofline``) against the card: (a) the
+   card's memory rate (the triad over 1 GiB, ``measured_peak_gbps``) and
+   its bf16 and TF32 ``torch.matmul`` rates at 8192^3, beside the data
+   sheet's; (b) ``jit_cost`` of phase 4's meta step (Qwen3-1.7B widths,
+   DEPTH layers, L=4, K=4, B=8, S=64) on meta copies of the state, then
+   the step on the card: the modeled kernel calls equal the launches (1
+   fused_momentum_broadcast, 16 sgd_apply), the modeled matmul flops
+   equal ``torch.profiler``'s (``with_flops``) exactly, and the modeled
+   peak (``peak_state_bytes``) is within COST_PEAK_RTOL (5 %) of the
+   step's ``max_memory_allocated`` above the allocation before the
+   trainer was built; (c) ``launch/train.py --obs-cost`` for 2 meta steps
+   of the reduced model with the JSONL sink, its manifest's ``jit_cost``
+   and ``tools/check_telemetry.py`` accepting the log; (d) ``run.py
+   --only kernel pack`` on the card, every row ok, the attribution rows
+   timing the kernels.
 
 Each phase's header carries the seconds since the start.
 
@@ -252,9 +270,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
-TF32_FLOPS_PER_S = 494.7e12  # H100 SXM, dense TF32 tensor cores
 L = 4  # learners on the dense main path
 L_COMM = 2  # learners on the compressed main path
 MU, ETA, LR = 0.7, 1.0, 0.01
@@ -271,7 +286,6 @@ RR_REPLACES = "src/repro/kernels/robust_reduce.py:57"
 ATTENTION_SOURCE = "src/repro_torch/kernels/csrc/attention_hopper.cu"
 ATTENTION_F32_SOURCE = "src/repro_torch/kernels/csrc/attention_hopper_f32.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention.py:80"
-BF16_FLOPS_PER_S = 989.4e12  # H100 SXM, dense BF16 tensor cores
 # layers (of 28) of the full-width topology runs, of phases 4, 5 and 9
 # (the dense, compressed and robust main paths), 13a (telemetry), 13b and
 # 14b (the async server), and of phase 12 (the checkpoint): phases 5, 9
@@ -350,10 +364,15 @@ def sass_ops(path, fragment: str, ops) -> dict | None:
     return counts
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(cost) -> tuple[float, str]:
+    """The least time of one kernel call in ms, and what bounds it: the
+    kernel's declared cost (``cost(...)`` beside its wrapper, the one the
+    cost model charges) at the H100 SXM data sheet's rates
+    (``roofline.terms.kernel_bound``)."""
+    from repro_torch.roofline.terms import kernel_bound
+
+    seconds, by = kernel_bound(cost)
+    return seconds * 1e3, by
 
 
 def max_err(torch, got, want) -> float:
@@ -425,8 +444,8 @@ def chunks(sl: slice, block: int = BLOCK) -> slice:
 
 
 def check_fused(torch, fm, rows, plane) -> dict:
-    n = rows * 128
     w, v, a = plane(), plane(), plane()
+    cost = fm.cost(w, v, a, MU, ETA, L, torch.float32)
     w_out, v_out = torch.empty_like(w), torch.empty_like(v)
     err = 0.0
     # bf16 learners first, then the main path's f32 learners
@@ -465,7 +484,7 @@ def check_fused(torch, fm, rows, plane) -> dict:
         learners_out=learners))
     del w, v, a, learners
     free(torch)
-    b_ms, b_by = bound((5 + L) * n * 4, 5 * n)
+    b_ms, b_by = bound(cost)
     return dict(name="fused_momentum_broadcast",
                 replaces="src/repro/kernels/fused_meta.py:57",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -473,8 +492,8 @@ def check_fused(torch, fm, rows, plane) -> dict:
 
 
 def check_block_momentum(torch, bm, rows, plane) -> dict:
-    n = rows * 128
     w, v, a = plane(), plane(), plane()
+    cost = bm.cost(w, v, a, MU, ETA)
     w_out, v_out = torch.empty_like(w), torch.empty_like(v)
     err = 0.0
     for nesterov in (True, False):
@@ -494,7 +513,7 @@ def check_block_momentum(torch, bm, rows, plane) -> dict:
         w, v, a, MU, ETA, w_out=w_out, v_out=v_out))
     del w, v, a, w_out, v_out
     free(torch)
-    b_ms, b_by = bound(5 * n * 4, 5 * n)
+    b_ms, b_by = bound(cost)
     return dict(name="block_momentum",
                 replaces="src/repro/kernels/block_momentum.py:47",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -502,7 +521,6 @@ def check_block_momentum(torch, bm, rows, plane) -> dict:
 
 
 def check_sgd_apply(torch, sgd, rows, plane) -> dict:
-    n = rows * 128
     err = 0.0
     for dt in (torch.bfloat16, torch.float32):
         w, g = plane().to(dt), plane().to(dt)
@@ -519,6 +537,7 @@ def check_sgd_apply(torch, sgd, rows, plane) -> dict:
     # the main path's case: f32 learner plane; the kernel and the yardstick
     # (torch.add, never called by the port; it may contract to an FMA) in
     # turns, kernel, add, add, kernel, each a median of 10
+    cost = sgd.cost(w, g, LR, out=out)
     kernel = lambda: sgd.sgd_apply_cuda(w, g, LR, out=out)  # noqa: E731
     add = lambda: torch.add(w, g, alpha=-LR, out=out)  # noqa: E731
     turns = [cuda_ms(torch, fn) for fn in (kernel, add, add, kernel)]
@@ -533,7 +552,7 @@ def check_sgd_apply(torch, sgd, rows, plane) -> dict:
     print("  sgd_apply in place: equal to out of place")
     del w, g, out
     free(torch)
-    b_ms, b_by = bound(3 * n * 4, 2 * n)
+    b_ms, b_by = bound(cost)
     return dict(name="sgd_apply",
                 replaces="src/repro/kernels/local_sgd.py:24",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -544,7 +563,6 @@ def check_quantize(torch, qk, rows) -> list[dict]:
     """quantize and dequantize at qmax 127 and 7, b=8 over the full plane
     and b=64 over its first 64-divisible rows; a NaN chunk; times of the
     int8 (qmax 127, b=8) case."""
-    n = rows * 128
     x = filled(torch, 1, rows, scale=0.03)
     u = filled(torch, 2, rows, uniform=True)
     rows64 = rows - rows % 64
@@ -575,10 +593,11 @@ def check_quantize(torch, qk, rows) -> list[dict]:
     print("  quantize: a NaN value gives its chunk a NaN scale and q = 0; "
           "other chunks bitwise equal")
     q, sc = qk.quantize_cuda(x, u, 127, BLOCK)
+    q_cost = qk.quantize_cost(x, u, 127, BLOCK)
     ms = cuda_ms(torch, lambda: qk.quantize_cuda(x, u, 127, BLOCK))
     plain_ms = cuda_ms(torch, lambda: qk.quantize_plain(x, u, 127, BLOCK))
     nchunks = rows // BLOCK
-    b_ms, b_by = bound(9 * n + 4 * nchunks, 7 * n)
+    b_ms, b_by = bound(q_cost)
     records = [dict(name="quantize",
                     replaces="src/repro/kernels/quantize.py:57",
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -589,7 +608,7 @@ def check_quantize(torch, qk, rows) -> list[dict]:
     plain_ms = cuda_ms(torch, lambda: qk.dequantize_plain(q, sc))
     # the yardstick, never called by the port
     library_ms = cuda_ms(torch, lambda: torch.mul(q.view(nchunks, -1), sc))
-    b_ms, b_by = bound(5 * n + 4 * nchunks, n)
+    b_ms, b_by = bound(qk.dequantize_cost(q, sc))
     records.append(dict(name="dequantize",
                         replaces="src/repro/kernels/quantize.py:82",
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -606,7 +625,6 @@ def check_pack_update(torch, pu, rows) -> dict:
     place on both learners as the meta step runs it; times of that
     case. 48 GB of inputs, so the out-of-place checks take one learner
     and the plain version runs in windows."""
-    n = rows * 128
     w, e, u = (torch.empty(L_COMM, rows, 128, device="cuda")
                for _ in range(3))
     for j in range(L_COMM):
@@ -659,6 +677,7 @@ def check_pack_update(torch, pu, rows) -> dict:
     for j in range(L_COMM):  # a fresh dither for the timing
         filled(torch, 30 + j, rows, out=u[j], uniform=True)
     c = torch.empty_like(u)
+    cost = pu.pack_update_cost(w, g, e, u, 127, BLOCK)
     # err over e, as on the main path; c into its own buffer so that the
     # dither stays a dither from one launch to the next
     ms = cuda_ms(torch, lambda: pu.pack_update_cuda(
@@ -674,9 +693,7 @@ def check_pack_update(torch, pu, rows) -> dict:
         for sl in windows(rows))
     del w, e, u, g
     free(torch)
-    nchunks = L_COMM * rows // BLOCK
-    b_ms, b_by = bound(5 * 4 * L_COMM * n + 4 * n + 4 * nchunks,
-                       11 * L_COMM * n)
+    b_ms, b_by = bound(cost)
     return dict(name="pack_update",
                 replaces="src/repro/kernels/pack_update.py:62",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -692,7 +709,6 @@ def check_neighbor_mix(torch, nm, rows) -> list[dict]:
     them."""
     from repro_torch.topology import mixing_matrix, mixing_matrix_stack
 
-    n = rows * 128
     W = mixing_matrix("ring", L)
     stack = mixing_matrix_stack("one_peer_exponential", L)
     assert stack.shape == (2, L, L)
@@ -721,6 +737,7 @@ def check_neighbor_mix(torch, nm, rows) -> list[dict]:
                 torch.cuda.synchronize()
                 check(out, x, stack, step)
             print("  neighbor_mix_stepped steps 0, 1: bitwise equal")
+            cost = nm.cost(x, W, out=out)
             ms = cuda_ms(torch, lambda: nm.neighbor_mix_cuda(x, W, out=out))
             stepped_ms = cuda_ms(torch, lambda: nm.neighbor_mix_stepped_cuda(
                 x, stack, 1, out=out))
@@ -747,7 +764,7 @@ def check_neighbor_mix(torch, nm, rows) -> list[dict]:
                                                      x.view(L, -1)))
     del x
     free(torch)
-    b_ms, b_by = bound(2 * L * n * 4, 2 * L * L * n)
+    b_ms, b_by = bound(cost)
     return [dict(name="neighbor_mix", replaces=NM_REPLACES,
                  max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                  bound_by=b_by, library_ms=library_ms),
@@ -768,7 +785,6 @@ def check_pack_compress_main(torch, pu, rows) -> float:
     from repro_torch.kernels.quantize import choose_block
 
     b = choose_block(rows, None)
-    n = L * rows * 128
     d, u = (torch.empty(L, rows, 128, device="cuda") for _ in range(2))
 
     def fill():
@@ -809,15 +825,15 @@ def check_pack_compress_main(torch, pu, rows) -> float:
     print(f"  pack_compress ({L}, {rows}, 128), b={b}, in place (c over u, "
           f"err over d; and c over u without err): equal to out of place")
     fill()  # fresh inputs for the timing
+    costs = [pu.pack_compress_cost(d, u, 127, b, with_err=we)
+             for we in (True, False)]
     ms = cuda_ms(torch, lambda: pu.pack_compress_cuda(
         d, u, 127, b, c_out=c1, err_out=e1))
     no_err_ms = cuda_ms(torch, lambda: pu.pack_compress_cuda(
         d, u, 127, b, with_err=False, c_out=c0))
     del d, u, c0, c1, e1, s0, s1, s2
     free(torch)
-    nchunks = L * rows // b
-    b_ms, _ = bound(16 * n + 4 * nchunks, 9 * n)
-    nb_ms, _ = bound(12 * n + 4 * nchunks, 8 * n)
+    (b_ms, _), (nb_ms, _) = (bound(c) for c in costs)
     print(f"  pack_compress ({L}, {rows}, 128), b={b}: {ms:.3f} ms with err "
           f"(bound {b_ms:.3f} ms), {no_err_ms:.3f} ms without (bound "
           f"{nb_ms:.3f} ms)")
@@ -830,7 +846,6 @@ def check_pack_compress(torch, pu, rows) -> dict:
     equal to pack_update with a zero meta plane; in place on both
     learners (c over u, err over d) as the gossip step runs it; times of
     the error-feedback case."""
-    n = rows * 128
     d, u = (torch.empty(L_COMM, rows, 128, device="cuda") for _ in range(2))
     for j in range(L_COMM):
         filled(torch, 50 + j, rows, out=d[j], scale=0.05)
@@ -886,6 +901,8 @@ def check_pack_compress(torch, pu, rows) -> dict:
         filled(torch, 50 + j, rows, out=d[j], scale=0.05)
         filled(torch, 60 + j, rows, out=u[j], uniform=True)
     c, e_out = torch.empty_like(u), torch.empty_like(d)
+    costs = [pu.pack_compress_cost(d, u, 127, BLOCK, with_err=we)
+             for we in (True, False)]
     ms = cuda_ms(torch, lambda: pu.pack_compress_cuda(
         d, u, 127, BLOCK, c_out=c, err_out=e_out))
     no_err_ms = cuda_ms(torch, lambda: pu.pack_compress_cuda(
@@ -898,9 +915,7 @@ def check_pack_compress(torch, pu, rows) -> dict:
         for sl in windows(rows))
     del d, u
     free(torch)
-    nchunks = L_COMM * rows // BLOCK
-    b_ms, b_by = bound(16 * L_COMM * n + 4 * nchunks, 9 * L_COMM * n)
-    nb_ms, _ = bound(12 * L_COMM * n + 4 * nchunks, 8 * L_COMM * n)
+    (b_ms, b_by), (nb_ms, _) = (bound(c) for c in costs)
     print(f"  pack_compress without err: {no_err_ms:.3f} ms (bound "
           f"{nb_ms:.3f} ms)")
     return dict(name="pack_compress", replaces=PC_REPLACES, max_abs_err=err,
@@ -952,6 +967,7 @@ def check_robust_reduce(torch, rr, rows, rows_cut) -> dict:
               f"equal to the plain version")
         free(torch)
     out = torch.empty(rows, 128, device="cuda")
+    costs = [rr.cost(x, trim) for trim in (1, 0)]
     ms = cuda_ms(torch, lambda: rr.robust_reduce_cuda(x, 1, out=out))
     ms0 = cuda_ms(torch, lambda: rr.robust_reduce_cuda(x, 0, out=out))
     mean_ms = cuda_ms(torch, lambda: torch.mean(x, dim=0, out=out))
@@ -983,9 +999,7 @@ def check_robust_reduce(torch, rr, rows, rows_cut) -> dict:
                                 for r0 in range(0, rows, q_rows)))
     del x, out
     free(torch)
-    n = rows * 128
-    b_ms, b_by = bound((L + 1) * n * 4, n * (L * (L - 1) // 2 + L - 1))
-    b0_ms, _ = bound((L + 1) * n * 4, n * L)
+    (b_ms, b_by), (b0_ms, _) = (bound(c) for c in costs)
     print(f"  robust_reduce ({L}, {rows}, 128): trim=1 {ms:.3f} ms (bound "
           f"{b_ms:.3f} ms, {b_ms / ms:.1%}), plain {plain_ms:.3f} ms, "
           f"torch.quantile(midpoint) {library_ms:.3f} ms in "
@@ -1009,7 +1023,7 @@ def check_robust_reduce(torch, rr, rows, rows_cut) -> dict:
           f"bitwise equal to the plain version")
     med_ms = cuda_ms(torch, lambda: rr.robust_reduce_cuda(x5, 2))
     median_ms = cuda_ms(torch, lambda: torch.median(x5, dim=0).values)
-    m_ms, _ = bound(6 * rows_cut * 128 * 4, rows_cut * 128 * 12)
+    m_ms, _ = bound(rr.cost(x5, 2))
     print(f"  robust_reduce (5, {rows_cut}, 128) median: {med_ms:.3f} ms "
           f"(bound {m_ms:.3f} ms), torch.median {median_ms:.3f} ms")
     for nl in (2, 3, 4, 8):
@@ -1071,32 +1085,21 @@ def flash_limit(torch, got, plain32) -> tuple[bool, float, float, float]:
     return bool((d <= limit).all()), float(d.max()), differ, beyond
 
 
-def flash_bound(torch, fa, B, Sq, Sk, H, KV, D, dtype, **kw):
-    """The least time of one call: the bytes (q, k, v read once, the output
-    written once) over 3.35 TB/s, or the matmul flops of the visible (q, k)
-    pairs of this call's mask (4 D per pair and head) over the tensor
-    cores' rate for the input type, whichever is larger: dense BF16, or
-    for f32 three TF32 products per matmul (the 3xTF32 split that keeps
-    f32's precision). Returns (ms, "bytes" or "operations", and for f32
-    the bound on the f32 CUDA cores, else None)."""
-    mask = fa.visible(torch.arange(Sq, device="cuda"),
-                      torch.arange(Sk, device="cuda"),
-                      causal=kw.get("causal", True),
-                      sliding_window=kw.get("sliding_window", 0),
-                      prefix_global=kw.get("prefix_global", 0),
-                      kv_len=kw.get("kv_len", Sk))
-    flops = 4.0 * B * H * D * float(mask.sum())
-    size = 2 if dtype == torch.bfloat16 else 4
-    nbytes = (2 * B * H * Sq + 2 * B * KV * Sk) * D * size
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    if dtype == torch.bfloat16:
-        t_ops, cores = flops / BF16_FLOPS_PER_S * 1e3, None
-    else:
-        t_ops = 3 * flops / TF32_FLOPS_PER_S * 1e3
-        cores = max(t_bytes, flops / F32_FLOPS_PER_S * 1e3)
-    if t_bytes >= t_ops:
-        return t_bytes, "bytes", cores
-    return t_ops, "operations", cores
+def flash_bound(torch, fa, q, k, v, **kw):
+    """The least time of one call (``bound`` of the kernel's declared
+    cost, ``flash_attention.cost``): the bytes (q, k, v read once, the
+    output written once) over the memory rate, or the matmul flops of the
+    visible (q, k) pairs of this call's mask (4 D per pair and head) over
+    the tensor cores' rate for the input type, whichever is larger: dense
+    BF16, or for f32 three TF32 products per matmul (the 3xTF32 split that
+    keeps f32's precision). Returns (ms, "bytes" or "operations", and for
+    f32 the bound on the f32 CUDA cores, else None)."""
+    cost = fa.cost(q, k, v, **kw)
+    ms, by = bound(cost)
+    cores = None
+    if q.dtype != torch.bfloat16:
+        cores = bound(dataclasses.replace(cost, unit="f32"))[0]
+    return ms, by, cores
 
 
 def flash_case(torch, fa, B, Sq, Sk, H, KV, D, dtype, *, rows=None,
@@ -1167,7 +1170,7 @@ def flash_case(torch, fa, B, Sq, Sk, H, KV, D, dtype, *, rows=None,
                 iters=3)
             del mask
         rec["bound_ms"], rec["bound_by"], cores = flash_bound(
-            torch, fa, B, Sq, Sk, H, KV, D, dtype, **kw)
+            torch, fa, q, k, v, **kw)
         on_cores = ("" if cores is None else
                     f" (3xTF32; {cores:.3f} ms on the f32 CUDA cores)")
         print(f"    kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} "
@@ -2894,7 +2897,10 @@ def attribution_on_the_card(torch) -> None:
         assert math.isfinite(r["median_us"]) and r["median_us"] > 0, r
         print(f"  {r['op']}: median {r['median_us']:.1f} us, IQR "
               f"{r['iqr_us']:.1f} us ({r['iters']} timed, {r['warmup']} "
-              f"warm-up)")
+              f"warm-up); modeled {r['modeled_hbm_bytes'] / 1e9:.3f} GB, "
+              f"{r['modeled_flops']:.4e} matmul flops, "
+              f"{r['achieved_gbps']:.1f} GB/s, {r['pct_of_bound']:.1f} % "
+              f"of the measured peak")
     print(f"  measured_peak_gbps: {peak:.1f} GB/s (triad over 64 MiB), "
           f"{peak_1g:.1f} GB/s (over 1 GiB)")
     assert state.step == 0  # the live state was not stepped
@@ -3675,11 +3681,11 @@ def benches_on_the_card(torch, ops) -> dict:
                           sgd_apply=1600, pack_update=20, quantize=20,
                           dequantize=20), counts
     try:
-        run.main(["--only", "kernel"])
+        run.main(["--only", "roofline"])
     except NotImplementedError as e:
-        print(f"  run.py --only kernel refused: {e}")
+        print(f"  run.py --only roofline refused: {e}")
     else:
-        raise AssertionError("run.py ran the kernel suite")
+        raise AssertionError("run.py ran the roofline suite")
     return total
 
 
@@ -4154,6 +4160,183 @@ def serving_family_full_width(torch, ops, arch) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the cost model (repro_torch.roofline) against the card
+# ---------------------------------------------------------------------------
+
+RATE_BYTES = 1 << 30  # the triad's buffer
+RATE_MM = 8192  # the matmul rate's square: 2 x 8192^3 flops a product
+# the modeled peak (jit_cost's peak_state_bytes: the state, the batches
+# and the step's largest set of live temporaries) against the card's
+# max_memory_allocated over the step above the allocation before the
+# trainer was built: within this share of the modeled peak (set before
+# the first call on the card; the caching allocator rounds each block up
+# to 512 bytes, and a library's workspace would land in the measured
+# side only)
+COST_PEAK_RTOL = 0.05
+COST_STEPS = 2  # the launcher's steps with --obs-cost
+
+
+def measured_rates(torch) -> dict:
+    """Phase 18a. The card's memory rate (the triad of
+    ``obs.measured_peak_gbps`` over 1 GiB) and its bf16 and TF32 matmul
+    rates (``torch.matmul`` of two 8192 x 8192 matrices, CUDA-event
+    medians), beside the data sheet's."""
+    from repro_torch.obs import measured_peak_gbps
+    from repro_torch.roofline.terms import H100_SXM
+
+    gbps = measured_peak_gbps(RATE_BYTES, device="cuda", refresh=True)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    flops = 2.0 * RATE_MM ** 3
+    rates = {"hbm_gbps": gbps}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for name, dtype, tf32 in (("bf16", torch.bfloat16, False),
+                                  ("tf32", torch.float32, True)):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            a, b = (torch.randn((RATE_MM, RATE_MM), generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            ms = cuda_ms(torch, lambda: torch.matmul(a, b), warmup=3,
+                         iters=10)
+            rates[f"{name}_tflops"] = flops / (ms * 1e-3) / 1e12
+            del a, b
+            free(torch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    sheet = {"hbm_gbps": H100_SXM.hbm_bytes_per_s / 1e9,
+             "bf16_tflops": H100_SXM.bf16_flops_per_s / 1e12,
+             "tf32_tflops": H100_SXM.tf32_flops_per_s / 1e12}
+    for key, value in rates.items():
+        print(f"  {key}: {value:.1f} measured, {sheet[key]:.1f} data sheet "
+              f"({value / sheet[key]:.1%})")
+        assert math.isfinite(value) and value > 0, (key, value)
+    return rates
+
+
+def cost_against_the_card(torch, ops) -> dict:
+    """Phase 18b. ``jit_cost`` of phase 4's flat dense meta step (Qwen3-1.7B
+    widths, DEPTH layers, L=4, K=4, B=8, S=64) on meta copies of the
+    trainer's state, then the same step on the card: the modeled kernel
+    calls equal the launches the card counts (one fused_momentum_broadcast
+    and 16 sgd_apply), the modeled matmul flops equal
+    ``torch.profiler``'s exactly, and the modeled peak is within
+    COST_PEAK_RTOL of the measured one. Returns the launch counts."""
+    from repro_torch.configs.base import MAvgConfig, TrainConfig, get_config
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data import uniform_batch_fn
+    from repro_torch.models import api
+    from repro_torch.roofline.cost import jit_cost, profiled_matmul_flops
+    from repro_torch.roofline.terms import H100_SXM
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=DEPTH)
+    k, batch, seq = 4, 8, 64
+    free(torch)
+    baseline = torch.cuda.memory_allocated()
+    trainer = Trainer(
+        TrainConfig(model=cfg, mavg=MAvgConfig(algorithm="mavg",
+                                               num_learners=L, k_steps=k),
+                    batch_per_learner=batch, seq_len=seq, meta_steps=1),
+        lambda p, b: api.loss_fn(p, cfg, b),
+        init_params_fn=lambda gen: api.init_params(gen, cfg, "cuda"),
+        batch_fn=uniform_batch_fn(cfg, L, k, batch, seq), device="cuda")
+    step = lambda s, b: trainer._step_fn(s, b, lr=LR)  # noqa: E731
+
+    def batches(i):
+        return trainer.batch_fn(trainer._data_generator(i), i)
+
+    batch = batches(0)
+    t0 = time.perf_counter()
+    jc = jit_cost(step, trainer.state, batch, in_place=(0,))
+    model_s = time.perf_counter() - t0
+    print(f"  modeled in {model_s:.2f} s on the meta device: "
+          f"{jc.flops:.6e} matmul flops, {jc.hbm_bytes / 1e9:.3f} GB moved "
+          f"(eager model), peak_state {jc.peak_state_bytes / 1e9:.3f} GB "
+          f"(arg {jc.arg_bytes / 1e9:.3f}, out {jc.out_bytes / 1e9:.3f}, "
+          f"alias {jc.alias_bytes / 1e9:.3f}, temp "
+          f"{jc.temp_bytes / 1e9:.3f}), kernel calls {jc.kernel_calls}")
+    assert trainer.state.step == 0  # the live state was not stepped
+    # the step on the card, unprofiled: launches and the memory peak
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.state, _ = step(trainer.state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    measured = torch.cuda.max_memory_allocated() - baseline
+    launched = {name: n for name, n in counts.items() if n}
+    print(f"  the step on the card in {step_s * 1e3:.1f} ms: launches "
+          f"{launched}; peak {measured / 1e9:.3f} GB above the baseline "
+          f"against {jc.peak_state_bytes / 1e9:.3f} GB modeled "
+          f"({measured / jc.peak_state_bytes - 1:+.3%})")
+    assert launched == jc.kernel_calls, (launched, jc.kernel_calls)
+    assert launched == dict(fused_momentum_broadcast=1, sgd_apply=k * L)
+    assert (abs(measured - jc.peak_state_bytes)
+            <= COST_PEAK_RTOL * jc.peak_state_bytes), (measured, jc)
+    # the next step under the profiler: its matmul flops
+    _, flops = profiled_matmul_flops(step, trainer.state, batches(1))
+    torch.cuda.synchronize()
+    print(f"  torch.profiler counts {flops:.6e} matmul flops, modeled "
+          f"{jc.flops:.6e}; the step's compute term at the data sheet's "
+          f"bf16 rate {jc.flops / H100_SXM.bf16_flops_per_s * 1e3:.3f} ms, "
+          f"its memory term {jc.hbm_bytes / H100_SXM.hbm_bytes_per_s * 1e3:.3f} "
+          f"ms, measured {step_s * 1e3:.1f} ms")
+    assert flops == jc.flops, (flops, jc.flops)
+    del trainer, batch
+    free(torch)
+    return counts
+
+
+def obs_cost_launcher(torch, tmp: Path) -> None:
+    """Phase 18c. ``launch/train.py --obs-cost`` for COST_STEPS meta steps
+    of the reduced model on the card with the JSONL sink: the manifest
+    carries ``jit_cost``, and ``tools/check_telemetry.py`` accepts the
+    log."""
+    from repro_torch.launch import train as launch_train
+
+    run_dir = tmp / "cost_run"
+    launch_train.main(["--device", "cuda", "--learners", "2", "--k", "2",
+                       "--steps", str(COST_STEPS), "--batch", "2", "--seq",
+                       "16", "--obs-sink", "jsonl", "--run-dir",
+                       str(run_dir), "--obs-cost"])
+    log = run_dir / "run.jsonl"
+    manifest = json.loads(log.read_text().splitlines()[0])
+    cost = manifest["jit_cost"]
+    assert cost["flops"] > 0 and cost["alias_bytes"] > 0, cost
+    print(f"  manifest jit_cost {cost}; {check_telemetry(log)}")
+
+
+def cost_benches(torch, ops, tmp: Path) -> dict:
+    """Phase 18d. ``run.py --only kernel pack`` on the card (quick): every
+    row ok, the attribution rows timing the kernels themselves. Returns
+    the launches."""
+    from repro_torch.benchmarks import run
+
+    bench_dir = tmp / "bench"
+    _, counts, _ = timed(torch, ops, "run.py --only kernel pack",
+                         lambda: run.main(["--only", "kernel", "pack",
+                                           "--device", "cuda",
+                                           "--bench-dir", str(bench_dir)]))
+    for suite in ("kernel", "pack"):
+        recs = [json.loads(line) for line in
+                (bench_dir / f"BENCH_{suite}.json").read_text().splitlines()]
+        rows = [r for rec in recs for r in rec["rows"]]
+        bad = [r for r in rows if r.get("ok") is False]
+        assert rows and not bad, (suite, bad)
+        for r in rows:
+            if r.get("row_kind") == "attribution" and "route" in r:
+                assert r["route"] == "cuda kernel", r
+                print(f"  {suite} {r['op']}: {r['median_us']:.1f} us, "
+                      f"{r['achieved_gbps']:.1f} GB/s, "
+                      f"{r['pct_of_bound']:.1f} % of the measured peak")
+    for name in ("pack_update", "fused_momentum_broadcast", "neighbor_mix",
+                 "quantize", "sgd_apply", "block_momentum",
+                 "pack_compress", "flash_attention_f32"):
+        assert counts[name] > 0, (name, counts)
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -4470,6 +4653,23 @@ def main() -> int:
               f"{arch} serving {nonzero(sc)}, training {nonzero(tc)} "
               f"({ms:.1f} ms a meta step)"
               for arch, (sc, tc, ms) in family_counts.items()))
+
+    t18 = time.perf_counter()
+    stamp("phase 18a: the card's memory, bf16 and TF32 matmul rates")
+    measured_rates(torch)
+    stamp(f"phase 18b: the cost model (roofline.cost.jit_cost) of phase "
+          f"4's meta step ({DEPTH} layers, L={L}) against the card")
+    cost_counts = cost_against_the_card(torch, ops)
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        stamp(f"phase 18c: launch/train.py --obs-cost, {COST_STEPS} meta "
+              f"steps, reduced model, JSONL sink")
+        obs_cost_launcher(torch, Path(tmp))
+        stamp("phase 18d: run.py --only kernel pack on the card")
+        cost_benches(torch, ops, Path(tmp))
+    print(f"  phase 18 in {time.perf_counter() - t18:.1f} s; launches on "
+          f"the costed step {nonzero(cost_counts)}")
 
     # each kernel's launches in the run of the path it serves: the dense
     # and compressed full-width runs, the reduced per-leaf runs, the gossip

@@ -23,10 +23,10 @@ every tick, the barrier idling >= 40 % of the ticks, and the async arm at
 least 1.5x fewer ticks than the barrier. Then the modeled rows: the
 per-tick wire bytes of flat dense, the uniform and the skewed async
 server on qwen3-1.7b (``roofline.topology_wire_bytes``; the gate holds
-``async_skew4``'s inter-node bytes). The reference also prices those
-bytes at a TPU pod's link rates; those seconds are left out here (ROADMAP
-Queue 1, item 10). ``--json PATH`` writes every row as the run-log
-envelope (suite ``async``).
+``async_skew4``'s inter-node bytes), with ``wire_s``, those bytes at the
+H100 data sheet's link rates (``roofline.terms.H100_SXM``: inputs, not
+measured). ``--json PATH`` writes every row as the run-log envelope
+(suite ``async``).
 
   PYTHONPATH=src python -m repro_torch.benchmarks.async_bench --quick \\
       [--device cpu] [--json PATH]
@@ -45,7 +45,7 @@ from repro_torch.benchmarks.common import (
     seeded_batches,
     write_rows,
 )
-from repro_torch.benchmarks.comm_bench import NO_LINK_RATE
+from repro_torch.benchmarks.comm_bench import LINK_RATES
 from repro_torch.configs.base import (
     AsyncConfig,
     CommConfig,
@@ -58,7 +58,7 @@ from repro_torch.core.meta import init_state, make_meta_step
 from repro_torch.data import classif_batch_fn, classif_eval_set
 from repro_torch.models.simple import mlp_accuracy, mlp_init, mlp_loss
 from repro_torch.pack import unpack_params
-from repro_torch.roofline import topology_wire_bytes
+from repro_torch.roofline import topology_wire_bytes, wire_seconds
 from repro_torch.topology import make_topology
 from repro_torch.utils.rng import seeded_generator
 
@@ -137,11 +137,12 @@ def modeled(arch: str = "qwen3-1.7b") -> list[dict]:
     rows = []
     for name, topo in cells:
         edge = topology_wire_bytes(n, CommConfig(), topo, num_learners=P)
+        wire_s = wire_seconds(edge["intra_bytes"], edge["inter_bytes"])
         rows.append({"kind": "async_model", "cell": name, "arch": arch,
-                     **edge})
+                     **edge, "wire_s": wire_s})
         print(f"async_model,{arch},{name},inter,"
-              f"{edge['inter_bytes']:.3e},B")
-    print(f"async_model,{NO_LINK_RATE}")
+              f"{edge['inter_bytes']:.3e},B,{wire_s:.4f},s")
+    print(f"async_model,{LINK_RATES}")
     return rows
 
 

@@ -12,9 +12,10 @@ Two layers of numbers:
    batch. On the card that time is the card's (printed with its name).
 2. *Modeled*: ``roofline.meta_wire_bytes`` of a full-scale config
    (qwen3-1.7b, P=8): bytes and compression per scheme at production
-   size. The reference also prices those bytes at a TPU link rate; that
-   column is left out here (it is a TPU figure, and the port's link
-   model belongs to ROADMAP Queue 1, item 10).
+   size, and the link seconds of those bytes on the intra-node link
+   (the reference's form, its TPU link rate replaced by the H100 data
+   sheet's NVLink 4 rate, ``roofline.terms.H100_SXM``: an input, not a
+   measurement).
 
 Prints the reference's ``comm,...`` lines.
 
@@ -43,15 +44,16 @@ from repro_torch.configs.base import CommConfig, MAvgConfig, get_config
 from repro_torch.core.meta import init_state, make_meta_step
 from repro_torch.data import classif_batch_fn
 from repro_torch.models.simple import mlp_init, mlp_loss
-from repro_torch.roofline import meta_wire_bytes
+from repro_torch.roofline import H100_SXM, meta_wire_bytes
 from repro_torch.topology import make_topology
 from repro_torch.utils.rng import seeded_generator
 from repro_torch.utils.tree import tree_map
 
 SCHEMES = ("dense", "int8", "fp8", "topk", "int8_topk")
-NO_LINK_RATE = ("link seconds left out: the reference prices these bytes "
-                "at a TPU link rate; an H100 link model is ROADMAP Queue 1, "
-                "item 10")
+LINK_RATES = (f"link seconds at {H100_SXM.name}: intra-node "
+              f"{H100_SXM.intra_link_bytes_per_s / 1e9:.0f} GB/s (NVLink 4), "
+              f"inter-node {H100_SXM.inter_link_bytes_per_s / 1e9:.0f} GB/s "
+              f"(ConnectX-7 NDR); inputs, not measured")
 
 
 def _comm(scheme: str) -> CommConfig:
@@ -113,12 +115,13 @@ def modeled(arch: str = "qwen3-1.7b", P: int = 8) -> list[dict]:
     rows = []
     for scheme in SCHEMES:
         dense, wire = meta_wire_bytes(n, _comm(scheme), num_learners=P)
+        wire_s = wire / H100_SXM.intra_link_bytes_per_s
         rows.append({"kind": "comm_model", "arch": arch, "scheme": scheme,
                      "dense_bytes": dense, "wire_bytes": wire,
-                     "compression": dense / wire})
+                     "compression": dense / wire, "wire_s": wire_s})
         print(f"comm_model,{arch},{scheme},{wire:.3e},B,"
-              f"{dense / wire:.2f},x")
-    print(f"comm_model,{NO_LINK_RATE}")
+              f"{dense / wire:.2f},x,{wire_s:.4f},s")
+    print(f"comm_model,{LINK_RATES}")
     return rows
 
 

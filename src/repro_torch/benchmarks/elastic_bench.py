@@ -13,9 +13,9 @@ Three layers of numbers:
    the Lemma-5 trade-off per group.
 3. *Modeled*: ``roofline.topology_wire_bytes`` of qwen3-1.7b with the
    degree-over-time wire model: inter-node bytes, the time-averaged
-   degree and the learner and edge presence under churn. The reference
-   also prices those bytes at a TPU pod's link rates; those seconds are
-   left out here (ROADMAP Queue 1, item 10).
+   degree and the learner and edge presence under churn, and ``wire_s``,
+   those bytes at the H100 data sheet's link rates
+   (``roofline.terms.H100_SXM``: inputs, not measured).
 
 Prints the reference's ``elastic,...`` lines; ``--json PATH`` writes every
 row as the run-log envelope (suite ``elastic_bench``; no gate file).
@@ -32,14 +32,14 @@ import argparse
 from typing import Callable, Optional
 
 from repro_torch.benchmarks.common import run_mlp, write_rows
-from repro_torch.benchmarks.comm_bench import NO_LINK_RATE
+from repro_torch.benchmarks.comm_bench import LINK_RATES
 from repro_torch.configs.base import (
     CommConfig,
     ElasticConfig,
     TopologyConfig,
     get_config,
 )
-from repro_torch.roofline import topology_wire_bytes
+from repro_torch.roofline import topology_wire_bytes, wire_seconds
 
 P, K, MU = 8, 4, 0.7
 
@@ -156,12 +156,14 @@ def modeled(arch: str = "qwen3-1.7b", num_learners: int = P) -> list[dict]:
     for name, topo in MODEL_CELLS:
         edge = topology_wire_bytes(n, CommConfig(), topo,
                                    num_learners=num_learners)
+        wire_s = wire_seconds(edge["intra_bytes"], edge["inter_bytes"])
         rows.append({"kind": "elastic_model", "cell": name, "arch": arch,
-                     **edge})
+                     **edge, "wire_s": wire_s})
         print(f"elastic_model,{arch},{name},inter,{edge['inter_bytes']:.3e},B,"
               f"avg_deg,{edge['avg_degree']:.1f},"
-              f"edge_presence,{edge['edge_presence']:.3f}")
-    print(f"elastic_model,{NO_LINK_RATE}")
+              f"edge_presence,{edge['edge_presence']:.3f},"
+              f"{wire_s:.4f},s")
+    print(f"elastic_model,{LINK_RATES}")
     return rows
 
 

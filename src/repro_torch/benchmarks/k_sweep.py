@@ -11,7 +11,9 @@ The time proxy prices a meta step at K + comm_ratio local steps. Its
 ``comm_ratio=14.0`` is the reference's model input, the collective over
 compute term of a TPU dry run (qwen3-1.7b, train_4k, single-pod mesh): it
 is printed as such, is not measured here and is no speed figure of the
-port. An H100 ratio belongs to the roofline of ROADMAP Queue 1, item 10.
+port. An H100 ratio needs a dry run's collective bytes over its compute
+term (``roofline.terms.compute_terms`` has the terms; the collective
+bytes wait for the dry-run half, ROADMAP Queue 1, item 10).
 
   PYTHONPATH=src python -m repro_torch.benchmarks.k_sweep --quick \\
       [--device cpu]

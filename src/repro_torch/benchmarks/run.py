@@ -11,12 +11,14 @@
   A  async_bench.py     the async bounded-staleness server vs the barrier
   X  chaos_bench.py     fault injection and supervised recovery
   B  robust_bench.py    robust aggregation under sticky corruption
+  K  kernel_bench.py    the kernels: launches, padding, measured vs modeled
+  P  pack_bench.py      the packed meta plane: parity, in-place peak memory
      ablations.py       block-momentum flavours
 
-The reference's ``kernel``, ``pack`` and ``roofline`` suites read XLA's
-compiled cost and a TPU dry run; they are not ported (ROADMAP Queue 1,
-item 10). Naming one in ``--only`` raises; a default run prints that it
-was not run, and why.
+The reference's ``roofline`` suite tabulates the dry run of a TPU mesh;
+it waits for the port's dry run, the dry-run and placement half of
+ROADMAP Queue 1, item 10. Naming it in ``--only`` raises; a default run
+prints that it was not run, and why.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run [--only k mu_p ...] \\
       [--full] [--device cpu] [--bench-dir build/bench_out]
@@ -43,13 +45,13 @@ import sys
 import time
 import traceback
 
-# suites of the reference that read XLA's compiled cost or a TPU dry run
+# suites of the reference that read the dry run of a mesh
 NOT_PORTED = {
-    "kernel": "benchmarks/kernel_bench.py reads XLA's compiled cost",
-    "pack": "benchmarks/pack_bench.py reads XLA's compiled cost",
-    "roofline": "benchmarks/roofline_table.py aggregates the TPU dry run",
+    "roofline": "benchmarks/roofline_table.py aggregates the dry run "
+                "(launch/dryrun*.py), not ported yet",
 }
-ITEM_10 = "ROADMAP Queue 1, item 10: the layers tied to the TPU"
+ITEM_10 = ("ROADMAP Queue 1, item 10: the dry-run and placement half "
+           "(sharding/rules.py, launch/{mesh,specs,dryrun_lib,dryrun}.py)")
 DEFAULT_BENCH_DIR = "build/bench_out"
 
 
@@ -64,7 +66,9 @@ def suites(quick: bool, device: str) -> dict:
         convergence,
         elastic_bench,
         k_sweep,
+        kernel_bench,
         mu_p_sweep,
+        pack_bench,
         robust_bench,
         topology_bench,
     )
@@ -81,6 +85,8 @@ def suites(quick: bool, device: str) -> dict:
         "k": lambda: k_sweep.main(quick=quick, device=device),
         "mu_p": lambda: mu_p_sweep.main(quick=quick, device=device),
         "ablations": lambda: ablations.main(quick=quick, device=device),
+        "kernel": lambda: kernel_bench.main(quick=quick, device=device),
+        "pack": lambda: pack_bench.main(quick=quick, device=device),
     }
 
 
@@ -111,7 +117,8 @@ def main(argv=None) -> None:
                          "suites); mutually exclusive with --full")
     ap.add_argument("--only", nargs="*", default=None,
                     help="subset: convergence mu_p k baselines comm "
-                         "topology elastic async chaos robust ablations")
+                         "topology elastic async chaos robust ablations "
+                         "kernel pack")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--bench-dir", default=DEFAULT_BENCH_DIR,
                     help="directory of the BENCH_<suite>.json trajectory "

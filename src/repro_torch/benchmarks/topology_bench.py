@@ -13,8 +13,9 @@ Two layers of numbers:
    (qwen3-1.7b): intra- and inter-node bytes a meta step per cell, and
    the acceptance row, flat dense's inter-node bytes over the
    hierarchical int8_topk cell's (``benchmarks/expected/topology.json``:
-   at least 50x). The reference also prices those bytes at a TPU pod's
-   link rates; those seconds are left out here (ROADMAP Queue 1, item 10).
+   at least 50x); ``wire_s`` prices each edge class at the H100 data
+   sheet's link rates (``roofline.terms.H100_SXM``: inputs, not
+   measured), the reference's form at its TPU rates.
 
 Prints the reference's ``topo,...`` lines; ``--json PATH`` writes every
 row as the run-log envelope (suite ``topology_bench``, as the reference's;
@@ -32,9 +33,9 @@ import argparse
 from typing import Callable, Optional
 
 from repro_torch.benchmarks.common import run_mlp, write_rows
-from repro_torch.benchmarks.comm_bench import NO_LINK_RATE
+from repro_torch.benchmarks.comm_bench import LINK_RATES
 from repro_torch.configs.base import CommConfig, TopologyConfig, get_config
-from repro_torch.roofline import topology_wire_bytes
+from repro_torch.roofline import topology_wire_bytes, wire_seconds
 
 P, K, MU = 8, 4, 0.7
 
@@ -91,11 +92,12 @@ def modeled(arch: str = "qwen3-1.7b", num_learners: int = P) -> list[dict]:
     rows = []
     for name, topo, comm in CELLS:
         edge = topology_wire_bytes(n, comm, topo, num_learners=num_learners)
+        wire_s = wire_seconds(edge["intra_bytes"], edge["inter_bytes"])
         rows.append({"kind": "topo_model", "cell": name, "arch": arch,
-                     **edge})
+                     **edge, "wire_s": wire_s})
         print(f"topo_model,{arch},{name},intra,{edge['intra_bytes']:.3e},B,"
-              f"inter,{edge['inter_bytes']:.3e},B")
-    print(f"topo_model,{NO_LINK_RATE}")
+              f"inter,{edge['inter_bytes']:.3e},B,{wire_s:.4f},s")
+    print(f"topo_model,{LINK_RATES}")
     flat = next(r for r in rows if r["cell"] == "flat_dense")
     hier = next(r for r in rows if r["cell"] == "hier_int8topk_outer")
     ratio = flat["inter_bytes"] / max(hier["inter_bytes"], 1.0)

@@ -671,9 +671,9 @@ class ObsConfig:
                      ``run_dir/trace.json`` at the end of each run
     profiler         capture a torch.profiler trace of the run (CPU and,
                      on the card, its kernels) into ``run_dir/torch_trace``
-    cost_analysis    the compiled meta step's cost in the run manifest
-                     (JAX: roofline.hlo_cost.jit_cost). Not ported: the
-                     port's Trainer refuses it (ROADMAP Queue 1, item 10)
+    cost_analysis    the meta step's cost in the run manifest
+                     (``roofline.cost.jit_cost`` on meta copies of the
+                     state; JAX: roofline.hlo_cost.jit_cost)
     health           run-health watchdogs (obs.health): declarative rules
                      evaluated over each flushed metric window, emitting
                      structured ``alert`` records into the sink. Consumes

@@ -12,9 +12,10 @@ manifest. ``obs.trace`` times the ``obs.*`` phases and exports a Chrome
 trace, ``obs.profiler`` a ``torch.profiler`` trace, ``obs.health``
 watches the flushed windows (a fatal rule saves a resumable checkpoint
 and raises ``HealthHalt``), and ``obs.attribution`` times the step, the
-local phase and the meta mix once before step 0. ``obs.cost_analysis``
-is refused: XLA's cost model has no counterpart here yet (ROADMAP Queue 1,
-item 10).
+local phase and the meta mix once before step 0, and
+``obs.cost_analysis`` costs the bare step once before step 0
+(``roofline.cost.jit_cost`` on meta copies of the state) into the
+manifest's ``jit_cost``.
 
 With ``TrainConfig.checkpoint_dir`` and ``checkpoint_every`` set, the
 state is saved (``repro_torch.checkpoint``, with the run manifest) after
@@ -73,11 +74,6 @@ class Trainer:
     ):
         from repro_torch.topology import make_topology
 
-        if train_cfg.obs.cost_analysis:
-            raise NotImplementedError(
-                "ObsConfig.cost_analysis: the compiled-step cost model "
-                "(roofline.hlo_cost.jit_cost) is not ported yet (ROADMAP "
-                "Queue 1, item 10)")
         self.cfg = train_cfg
         self.mcfg: MAvgConfig = train_cfg.mavg
         self.obs_cfg = train_cfg.obs
@@ -126,6 +122,7 @@ class Trainer:
         self._monitor = (make_monitor(halt=self.obs_cfg.health_halt)
                          if self.obs_cfg.health else None)
         self.attribution: list[dict] = []
+        self.jit_cost = None  # roofline.cost.JitCost (obs.cost_analysis)
         # inline quarantine: a host-side streak counter over the flushed
         # per-learner anomaly scores
         self.robust_records: list[dict] = []
@@ -147,7 +144,8 @@ class Trainer:
         self._mb = MetricsBuffer(self._mkeys, capacity, device=self.device)
         self.manifest = run_manifest(
             train_cfg=self.cfg, mcfg=self.mcfg,
-            spec=getattr(self.state, "spec", None), device=self.device)
+            spec=getattr(self.state, "spec", None), device=self.device,
+            jit_cost=self.jit_cost)
         if obs.sink != "none" and self._sink is None:
             self._sink = make_sink(obs.sink, obs.run_dir,
                                    resume=self._restored)
@@ -165,6 +163,24 @@ class Trainer:
             )
         except Exception:  # attribution is best-effort telemetry
             self.attribution = []
+
+    def _cost(self, batches, lr):
+        """The cost of the bare ``(state, batches, lr)`` step, once before
+        step 0 (JAX's ``core/trainer.py:185-200``): ``jit_cost`` on meta
+        copies of the state, its planes counted as updated in place, so
+        the live state is not stepped. Best-effort telemetry, as in JAX:
+        a step that reads values on the host (the finite guard, robust
+        aggregation) leaves ``jit_cost`` None."""
+        from repro_torch.roofline.cost import jit_cost
+        from repro_torch.topology import host_buffers
+
+        try:
+            self.jit_cost = jit_cost(
+                lambda s, b, lr_: self._step_fn(s, b, lr=lr_), self.state,
+                batches, lr, in_place=(0,),
+                host=host_buffers(self.state.topo))
+        except Exception:  # cost analysis is best-effort telemetry
+            self.jit_cost = None
 
     # ------------------------------------------------------------------
     # driving loop
@@ -249,6 +265,8 @@ class Trainer:
                     batches = self.batch_fn(self._data_generator(step), step)
                     lr = (self.lr_schedule(step) if self.lr_schedule
                           else np.float32(self.mcfg.learner_lr))
+                    if self._mb is None and self.obs_cfg.cost_analysis:
+                        self._cost(batches, lr)
                     if self._mb is None and self.obs_cfg.attribution:
                         self._attribute(batches, lr)
                     if self._mb is not None and self._mb.full:

@@ -20,9 +20,22 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import KernelCost, nbytes
 from repro_torch.kernels.planes import check_plane_cuda, f32, stream_of
 
 LAUNCHES = 0  # kernel launches; ``block_momentum_cuda`` adds one per launch
+
+
+def flops_per_value(nesterov: bool) -> int:
+    """d = a - w, mu v + eta d (3), w + v' (1); Nesterov's w + mu v' +
+    eta d two more."""
+    return 7 if nesterov else 5
+
+
+def cost(w, v, a, mu, eta, *, nesterov: bool = False, **_) -> KernelCost:
+    """w, v, a read, w' and v' written."""
+    return KernelCost("block_momentum", nbytes(w, v, a, w, v),
+                      flops_per_value(nesterov) * w.numel())
 
 
 def block_momentum_plain(w, v, a, mu, eta, *, nesterov: bool = False,

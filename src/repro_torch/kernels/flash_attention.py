@@ -57,9 +57,12 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
+
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import KernelCost, nbytes
 from repro_torch.kernels.planes import KERNEL_DTYPES
 
 NEG_INF = -1e30  # the masked score (finite, as the Pallas kernel's)
@@ -72,6 +75,39 @@ HOPPER_F32_BLOCK_K = 32  # keys of a K/V tile of the f32 Hopper kernel
 # one to LAUNCHES, the f32 kernel to F32_LAUNCHES
 LAUNCHES = 0
 F32_LAUNCHES = 0
+
+
+def visible_pairs(Sq, Sk, *, causal=True, sliding_window=0, prefix_global=0,
+                  kv_len=None, q_offset=0) -> int:
+    """How many (query, key) pairs ``visible`` lets through, row by row
+    in closed form (no (Sq, Sk) mask is built)."""
+    kv_len = Sk if kv_len is None else kv_len
+    pos = np.arange(Sq, dtype=np.int64) + q_offset
+    hi = np.full(Sq, max(min(Sk, kv_len), 0), dtype=np.int64)
+    if causal:
+        hi = np.minimum(hi, pos + 1)
+    if not sliding_window:
+        return int(np.maximum(hi, 0).sum())
+    lo = np.maximum(pos - sliding_window + 1, 0)
+    count = np.maximum(hi - lo, 0)
+    if prefix_global:
+        count += np.maximum(np.minimum(np.minimum(hi, lo), prefix_global), 0)
+    return int(count.sum())
+
+
+def cost(q, k, v, *, causal=True, sliding_window=0, prefix_global=0,
+         kv_len=None, **_) -> KernelCost:
+    """q, k, v read once and the output written once; the QK^T and PV
+    products of the visible pairs, 4 D flops a pair and head, on the
+    BF16 tensor cores (bf16) or as three TF32 products each (f32)."""
+    B, Sq, H, D = q.shape
+    pairs = visible_pairs(Sq, k.shape[1], causal=causal,
+                          sliding_window=sliding_window,
+                          prefix_global=prefix_global, kv_len=kv_len)
+    bf16 = q.dtype == torch.bfloat16
+    return KernelCost("flash_attention" if bf16 else "flash_attention_f32",
+                      nbytes(q, k, v, q), 4.0 * B * H * D * pairs,
+                      "bf16" if bf16 else "tf32x3")
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -28,6 +28,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.block_momentum import block_momentum_plain
+from repro_torch.kernels.block_momentum import flops_per_value
+from repro_torch.kernels.cost import KernelCost, nbytes
 from repro_torch.kernels.planes import (
     check_cuda,
     check_plane_cuda,
@@ -36,6 +38,16 @@ from repro_torch.kernels.planes import (
 )
 
 LAUNCHES = 0  # kernel launches; ``fused_momentum_broadcast_cuda`` adds one
+
+
+def cost(w, v, a, mu, eta, num_learners: int, ldtype, *,
+         nesterov: bool = False, **_) -> KernelCost:
+    """w, v, a read; w', v' and the L learner planes in ``ldtype``
+    written."""
+    return KernelCost(
+        "fused_momentum_broadcast",
+        nbytes(w, v, a, w, v) + int(num_learners) * w.numel() * ldtype.itemsize,
+        flops_per_value(nesterov) * w.numel())
 
 
 def _learner_shape(w, num_learners):

@@ -23,9 +23,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import KernelCost, nbytes
 from repro_torch.kernels.planes import check_plane_cuda, f32, stream_of
 
 LAUNCHES = 0  # kernel launches; ``sgd_apply_cuda`` adds one per launch
+
+
+def cost(w, g, lr, *, out=None) -> KernelCost:
+    """w and g read, the plane written; 2 flops a value."""
+    return KernelCost("sgd_apply", nbytes(w, g, w), 2 * w.numel())
 
 
 def sgd_apply_plain(w, g, lr, *, out=None):

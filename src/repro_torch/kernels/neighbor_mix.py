@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import KernelCost, nbytes
 from repro_torch.kernels.planes import LANES, check_cuda, stream_of
 
 MAX_LEARNERS = 16  # the kernel's matrix holds at most 16 x 16 weights
@@ -42,6 +43,17 @@ MAX_LEARNERS = 16  # the kernel's matrix holds at most 16 x 16 weights
 # one to STEPPED_LAUNCHES
 LAUNCHES = 0
 STEPPED_LAUNCHES = 0
+
+
+def cost(x, w, *, out=None) -> KernelCost:
+    """The stack read once and written once; a multiply and an add for
+    each of the L terms of each output value."""
+    return KernelCost("neighbor_mix", nbytes(x, x), 2 * x.shape[0] * x.numel())
+
+
+def stepped_cost(x, w_stack, step, *, out=None) -> KernelCost:
+    c = cost(x, w_stack, out=out)
+    return KernelCost("neighbor_mix_stepped", c.nbytes, c.flops)
 
 
 def mixing_matrix_at(w_or_stack, step):

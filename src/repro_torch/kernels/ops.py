@@ -2,7 +2,10 @@
 
 The rule is the tensor's device and nothing else: a CPU tensor takes the
 plain PyTorch version, a CUDA tensor launches the kernel (building it at
-first use) or raises. There is no fallback from one to the other, and
+first use) or raises, and a meta tensor (the cost model,
+``roofline.cost.jit_cost``) takes the meta route of ``kernels/cost.py``,
+which launches nothing and charges the kernel's declared cost. There is
+no fallback from one to the other, and
 ``MAvgConfig.use_pallas`` plays no part here (it is kept for config
 parity with the JAX package only).
 
@@ -28,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import block_momentum as _bm
+from repro_torch.kernels import cost as _kcost
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_meta as _fm
 from repro_torch.kernels import local_sgd as _sgd
@@ -45,11 +49,17 @@ from repro_torch.kernels.planes import (
 from repro_torch.utils.tree import tree_map
 
 
-def _route(x: torch.Tensor, plain, cuda):
+def _route(x: torch.Tensor, plain, cuda, cost):
+    """The plain version for a CPU tensor, the kernel for a CUDA tensor,
+    and for a meta tensor the meta route (``kernels/cost.py``): the plain
+    version for the output shapes, ``cost`` charged to the active cost
+    counter, nothing launched."""
     if x.device.type == "cpu":
         return plain
     if x.device.type == "cuda":
         return cuda
+    if x.device.type == "meta":
+        return _kcost.on_meta(plain, cost)
     raise ValueError(f"no kernel for device {x.device}")
 
 
@@ -76,7 +86,8 @@ def block_momentum(w, v, a, *, mu, eta=1.0, nesterov=False, w_out=None,
     Any other shape is padded into a (rows, 128) copy, updated, and
     returned as new tensors of the original shape.
     """
-    fn = _route(w, _bm.block_momentum_plain, _bm.block_momentum_cuda)
+    fn = _route(w, _bm.block_momentum_plain, _bm.block_momentum_cuda,
+                _bm.cost)
     if is_plane_stack(w) and is_plane_stack(v) and is_plane_stack(a):
         w2, v2, a2 = (t.view(-1, LANES) for t in (w, v, a))
         fn(w2, v2, a2, mu, eta, nesterov=nesterov, w_out=w2, v_out=v2)
@@ -127,10 +138,11 @@ def neighbor_mix(x, w, *, step=None, out=None):
                 "time-varying graphs are step-indexed; pass the meta step "
                 "(silently using step 0 would freeze the graph)")
         fn = _route(x, _nm.neighbor_mix_stepped_plain,
-                    _nm.neighbor_mix_stepped_cuda)
+                    _nm.neighbor_mix_stepped_cuda, _nm.stepped_cost)
         mix = lambda x3, o: fn(x3, w, step, out=o)  # noqa: E731
     else:
-        fn = _route(x, _nm.neighbor_mix_plain, _nm.neighbor_mix_cuda)
+        fn = _route(x, _nm.neighbor_mix_plain, _nm.neighbor_mix_cuda,
+                    _nm.cost)
         mix = lambda x3, o: fn(x3, w, out=o)  # noqa: E731
     if x.dim() == 3 and is_plane_stack(x):
         return mix(x, out)
@@ -159,7 +171,7 @@ def neighbor_mix_tree(tree, w, *, step=None, in_place=False):
 def sgd_apply(w, g, lr, *, out=None):
     """(f32(w) - lr f32(g)).astype(w.dtype) on one array, into ``out``
     when given (``out=w`` updates in place)."""
-    fn = _route(w, _sgd.sgd_apply_plain, _sgd.sgd_apply_cuda)
+    fn = _route(w, _sgd.sgd_apply_plain, _sgd.sgd_apply_cuda, _sgd.cost)
     if is_packed_plane(w):
         return fn(w, g, lr, out=out)
     rows, pad = layout(w.numel())
@@ -182,7 +194,7 @@ def fused_momentum_broadcast(w, v, a, *, mu, eta=1.0, num_learners,
     if not is_packed_plane(w):
         raise ValueError(f"not a packed (rows, 128) plane: {tuple(w.shape)}")
     fn = _route(w, _fm.fused_momentum_broadcast_plain,
-                _fm.fused_momentum_broadcast_cuda)
+                _fm.fused_momentum_broadcast_cuda, _fm.cost)
     ldtype = w.dtype if ldtype is None else ldtype
     return fn(w, v, a, mu, eta, num_learners, ldtype, nesterov=nesterov,
               w_out=w_out, v_out=v_out, learners_out=learners_out)
@@ -209,13 +221,14 @@ def quantize(x, dither, *, qmax=127, block=None):
     ``dequantize``."""
     x2, shape, n = _wire_2d(x)
     b = _q.choose_block(x2.shape[0], block)
-    fn = _route(x2, _q.quantize_plain, _q.quantize_cuda)
+    fn = _route(x2, _q.quantize_plain, _q.quantize_cuda, _q.quantize_cost)
     q, s = fn(x2, dither(tuple(x2.shape)), qmax, b)
     return q, s, shape, n
 
 
 def dequantize(q, scales, shape, n):
-    fn = _route(q, _q.dequantize_plain, _q.dequantize_cuda)
+    fn = _route(q, _q.dequantize_plain, _q.dequantize_cuda,
+                _q.dequantize_cost)
     return from_2d(fn(q, scales), shape, n)
 
 
@@ -239,7 +252,8 @@ def pack_update(w, g, e, u, *, qmax=127, block=None, c_out=None,
     packed (L, rows, 128) learner plane against the (rows, 128) meta
     params, in one pass. Returns (c, err, scales (L, rows / b))."""
     b = _q.choose_block(w.shape[1], block)
-    fn = _route(w, _pu.pack_update_plain, _pu.pack_update_cuda)
+    fn = _route(w, _pu.pack_update_plain, _pu.pack_update_cuda,
+                _pu.pack_update_cost)
     return fn(w, g, e, u, qmax, b, c_out=c_out, err_out=err_out)
 
 
@@ -250,7 +264,8 @@ def pack_compress(d, u, *, qmax=127, block=None, with_err=True, c_out=None,
     routes). Returns (c, err, scales (L, rows / b)); ``with_err=False``
     allocates and writes no err plane and returns err None."""
     b = _q.choose_block(d.shape[1], block)
-    fn = _route(d, _pu.pack_compress_plain, _pu.pack_compress_cuda)
+    fn = _route(d, _pu.pack_compress_plain, _pu.pack_compress_cuda,
+                _pu.pack_compress_cost)
     return fn(d, u, qmax, b, with_err=with_err, c_out=c_out,
               err_out=err_out)
 
@@ -277,7 +292,8 @@ def robust_reduce(x, *, trim=0, block=None):
     if block is not None:
         raise ValueError(f"robust_reduce takes no row tile (block={block}): "
                          "the CUDA kernel gives each thread whole columns")
-    fn = _route(x, _rr.robust_reduce_plain, _rr.robust_reduce_cuda)
+    fn = _route(x, _rr.robust_reduce_plain, _rr.robust_reduce_cuda,
+                _rr.cost)
     return fn(x, trim)
 
 
@@ -300,7 +316,7 @@ def flash_attention(q, k, v, *, causal=True, sliding_window=0,
     call runs inside ``FlashAttentionFn``, whose backward raises.
     """
     fn = _route(q, _fa.flash_attention_bshd_plain,
-                _fa.flash_attention_bshd_cuda)
+                _fa.flash_attention_bshd_cuda, _fa.cost)
     scale = 1.0 / math.sqrt(q.shape[-1])
 
     def run(q, k, v):

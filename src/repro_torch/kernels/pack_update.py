@@ -43,13 +43,41 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import KernelCost, nbytes
 from repro_torch.kernels.planes import LANES, check_cuda, stream_of
 from repro_torch.kernels.quantize import check_block, chunk_scales
+from repro_torch.kernels.quantize import QUANTIZE_FLOPS
 
 # kernel launches; ``pack_update_cuda`` and ``pack_compress_cuda`` add
 # one each per launch
 LAUNCHES = 0
 COMPRESS_LAUNCHES = 0
+
+
+def _stack_cost(name, n, nchunks, read, planes_out, flops) -> KernelCost:
+    """``read`` bytes in; ``planes_out`` f32 planes of n values and the
+    f32 chunk scales out."""
+    return KernelCost(name, read + 4 * n * planes_out + 4 * nchunks,
+                      flops * n)
+
+
+def pack_update_cost(w, g, e, u, qmax: int, block: int, **_) -> KernelCost:
+    """w, g, e (when given) and u read; c, err and the scales written.
+    Per value: w - g (and + e), the quantize, c = q s and err = d - c."""
+    L, rows = w.shape[0], w.shape[1]
+    return _stack_cost("pack_update", w.numel(), L * rows // block,
+                       nbytes(w, g, e, u), 2,
+                       QUANTIZE_FLOPS + 3 + (e is not None))
+
+
+def pack_compress_cost(d, u, qmax: int, block: int, *, with_err=True,
+                       **_) -> KernelCost:
+    """d and u read; c, err (``with_err``) and the scales written. Per
+    value: the quantize, c = q s and, with err, d - c."""
+    L, rows = d.shape[0], d.shape[1]
+    return _stack_cost("pack_compress", d.numel(), L * rows // block,
+                       nbytes(d, u), 1 + bool(with_err),
+                       QUANTIZE_FLOPS + 1 + bool(with_err))
 
 
 def pack_update_plain(w, g, e, u, qmax: int, block: int, *, c_out=None,

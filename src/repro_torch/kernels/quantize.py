@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import KernelCost, nbytes
 from repro_torch.kernels.planes import LANES, check_cuda, check_plane_cuda, stream_of
 
 BLOCK_ROWS = 64  # 64 x 128 values per scale chunk
@@ -46,6 +47,25 @@ QMAX = {"int8": 127, "int4": 7}
 # kernel launches; the ``*_cuda`` wrappers add one per launch
 QUANTIZE_LAUNCHES = 0
 DEQUANTIZE_LAUNCHES = 0
+
+
+# flops a value: |x|, the chunk max, x / s, + u, floor, the clip's two
+# bounds
+QUANTIZE_FLOPS = 7
+
+
+def quantize_cost(x, u, qmax: int, block: int) -> KernelCost:
+    """x and u read; q (one byte a value) and a f32 scale a chunk
+    written."""
+    n, nchunks = x.numel(), x.shape[0] // block
+    return KernelCost("quantize", nbytes(x, u) + n + 4 * nchunks,
+                      QUANTIZE_FLOPS * n)
+
+
+def dequantize_cost(q, scales) -> KernelCost:
+    """q and the scales read, f32 values written; one multiply a value."""
+    return KernelCost("dequantize", nbytes(q, scales) + 4 * q.numel(),
+                      q.numel())
 
 
 def choose_block(rows: int, block: int | None = None) -> int:

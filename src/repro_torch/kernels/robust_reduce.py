@@ -34,12 +34,24 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import KernelCost, nbytes
 from repro_torch.kernels.planes import KERNEL_DTYPES, stream_of
 
 MAX_LEARNERS = 16  # the kernel is instantiated for 1 to 16 learners
 NAN_KEY = 0x7FFFFFFF
 
 LAUNCHES = 0  # kernel launches; ``robust_reduce_cuda`` adds one per launch
+
+
+def cost(x, trim: int = 0, **_) -> KernelCost:
+    """The stack read, one f32 a coordinate written. Per coordinate: at
+    trim 0 the L - 1 adds and the division; else the sorting network's
+    L (L - 1) / 2 compare-exchanges, the L - 2 trim - 1 adds of the kept
+    values and the division."""
+    L = x.shape[0]
+    n = x.numel() // L
+    per = L if trim == 0 else L * (L - 1) // 2 + L - 2 * trim
+    return KernelCost("robust_reduce", nbytes(x) + 4 * n, per * n)
 
 
 def median_trim(L: int) -> int:

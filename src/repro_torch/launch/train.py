@@ -39,8 +39,10 @@ rules from halting) and ``--obs-attribution`` the phase timing rows.
 ``--supervise`` wraps the run in the rollback supervisor
 (``core/supervisor.py``: ``--supervise-retries``,
 ``--supervise-quarantine``, ``--supervise-readmit``; it needs
-``--checkpoint-dir``). The flags mean what they mean in the JAX launcher.
-Not ported yet, and refused: ``--obs-cost`` (ROADMAP Queue 1, item 10).
+``--checkpoint-dir``). ``--obs-cost`` writes the meta step's cost
+(``roofline.cost.jit_cost``, counted on the meta device) into the run
+manifest's ``jit_cost``. The flags mean what they mean in the JAX
+launcher.
 ``--arch`` takes the dense and MoE archs (``deepseek-moe-16b``,
 ``kimi-k2-1t-a32b``), the hybrid ``hymba-1.5b`` and the SSM
 ``xlstm-350m``; the audio and VLM archs, whose inputs come from a stub
@@ -213,8 +215,8 @@ def main(argv=None) -> None:
                     help="capture a torch.profiler trace into "
                          "<run-dir>/torch_trace")
     ap.add_argument("--obs-cost", action="store_true",
-                    help="the compiled step's cost in the manifest (not "
-                         "ported: ROADMAP Queue 1, item 10)")
+                    help="the meta step's cost (roofline.cost.jit_cost, "
+                         "counted on the meta device) in the run manifest")
     ap.add_argument("--obs-health", action="store_true",
                     help="run-health watchdogs over the flushed metric "
                          "windows: alerts in the run log, fatal rules halt "
@@ -244,10 +246,6 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.obs_cost:
-        raise SystemExit(
-            "--obs-cost: the compiled-step cost model (roofline.hlo_cost) is "
-            "not ported yet (ROADMAP Queue 1, item 10)")
     if args.supervise and not args.checkpoint_dir:
         raise SystemExit("--supervise needs --checkpoint-dir (the "
                          "verified rollback chain lives there)")
@@ -332,6 +330,7 @@ def main(argv=None) -> None:
             obs=ObsConfig(sink=args.obs_sink, run_dir=args.run_dir,
                           trace=args.trace, profiler=args.profiler,
                           health=args.obs_health,
+                          cost_analysis=args.obs_cost,
                           health_halt=not args.obs_no_halt,
                           attribution=args.obs_attribution))
         return Trainer(

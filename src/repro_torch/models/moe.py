@@ -14,7 +14,8 @@ with no atomics, so a run on the card repeats bit for bit.
 
 The reference's expert-parallel placements (``EXPERT_AXIS``,
 ``SHARD_MAP_MESH``, the ``shard_map`` path) are GSPMD annotations, no-ops
-on one device; they are not ported (ROADMAP Queue 1, item 10).
+on one device; they wait for the placement of the dry-run half
+(ROADMAP Queue 1, item 10: the experts' dim over a DeviceMesh axis).
 """
 from __future__ import annotations
 

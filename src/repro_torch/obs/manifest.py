@@ -12,9 +12,9 @@ every manifest for ``jax_version``, ``backend``, ``device_count``,
 ``devices`` and ``process_index``. The port runs no JAX, so
 ``jax_version`` is null; ``torch_version`` and ``cuda_version`` say what
 it runs instead, ``backend`` is the torch device type (``"cuda"`` or
-``"cpu"``) and ``devices`` the card names. The compiled-program cost that
-JAX can add (``jit_cost``, from XLA's cost analysis) has no counterpart in
-the port yet (ROADMAP Queue 1, item 10).
+``"cpu"``) and ``devices`` the card names. ``jit_cost`` is the cost of
+the meta step (``roofline.cost.jit_cost``, the counterpart of JAX's
+compiled-program cost) in JAX's block of fields.
 """
 from __future__ import annotations
 
@@ -69,12 +69,13 @@ def device_env(device=None) -> dict:
 
 
 def run_manifest(*, train_cfg=None, mcfg=None, spec=None, suite=None,
-                 device=None, extra=None) -> dict:
+                 device=None, jit_cost=None, extra=None) -> dict:
     """Build the manifest dict.
 
     ``train_cfg``: TrainConfig (trainer runs; carries the MAvgConfig);
     ``mcfg``: a bare MAvgConfig (runs without a Trainer); ``suite``: a
-    bench suite name; ``device``: the run's device; ``extra``: free-form
+    bench suite name; ``device``: the run's device; ``jit_cost``: a
+    ``roofline.cost.JitCost`` of the meta step; ``extra``: free-form
     additions, merged last.
     """
     man = {
@@ -103,6 +104,16 @@ def run_manifest(*, train_cfg=None, mcfg=None, spec=None, suite=None,
     h = packspec_hash(spec)
     if h is not None:
         man["packspec_hash"] = h
+    if jit_cost is not None:
+        man["jit_cost"] = {
+            "hbm_bytes": float(jit_cost.hbm_bytes),
+            "flops": float(jit_cost.flops),
+            "arg_bytes": int(jit_cost.arg_bytes),
+            "out_bytes": int(jit_cost.out_bytes),
+            "alias_bytes": int(jit_cost.alias_bytes),
+            "temp_bytes": int(jit_cost.temp_bytes),
+            "peak_state_bytes": int(jit_cost.peak_state_bytes),
+        }
     if extra:
         man.update(extra)
     return man

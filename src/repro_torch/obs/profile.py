@@ -14,12 +14,15 @@ once:
 * **median of N with the IQR**: the reported statistic is the median over
   ``iters`` repeats, with the interquartile range as the noise bar.
 
-``profile_phases`` times the three parts of one meta iteration: the whole
-step, the local phase alone and the meta mix alone. JAX joins each
-against the compiled program's modeled HBM bytes (``roofline.hlo_cost``);
-that model has no counterpart in the port yet (ROADMAP Queue 1, item 10),
-so the port's rows carry the timing and no ``modeled_hbm_bytes`` or
-``pct_of_bound``, as JAX's rows do when it has no cost.
+``profile_fn`` joins the timing of a function with its modeled cost
+(``roofline.cost.jit_cost``, counted on meta copies of the arguments, as
+JAX joins it with ``roofline.hlo_cost``): ``modeled_hbm_bytes``,
+``modeled_flops``, ``achieved_gbps`` (modeled bytes over the measured
+seconds) and ``pct_of_bound`` against ``measured_peak_gbps``. A function
+that reads values on the host (the finite guard, the robust aggregator)
+has no meta cost: its row carries the timing alone, as JAX's rows do
+without a cost. ``profile_phases`` times the three parts of one meta
+iteration: the whole step, the local phase alone and the meta mix alone.
 
 JAX times functional copies of its donated step. The port's step updates
 the state in place, so ``profile_phases`` clones the state once and times
@@ -192,13 +195,20 @@ def attribution_row(op: str, timing: Timing, cost=None, *,
 
 
 def profile_fn(op: str, fn, *args, iters: int = 10, warmup: int = 2,
-               peak_gbps: float | None = None, device=None,
-               extra=None) -> dict:
-    """Time ``fn(*args)`` in steady state and return its attribution row
-    (no modeled cost: ROADMAP Queue 1, item 10)."""
+               peak_gbps: float | None = None, device=None, extra=None,
+               host=()) -> dict:
+    """Model ``fn(*args)`` (``jit_cost`` on meta copies; ``host``: the
+    argument tensors it reads on the host, kept there) and time it in
+    steady state; returns the attribution row joining the two."""
+    from repro_torch.roofline.cost import jit_cost
+
+    try:
+        cost = jit_cost(fn, *args, host=host)
+    except (RuntimeError, NotImplementedError):
+        cost = None  # a host read of a meta value (.item(), .tolist())
     timing = steady_timeit(fn, *args, iters=iters, warmup=warmup)
-    return attribution_row(op, timing, peak_gbps=peak_gbps, device=device,
-                           extra=extra)
+    return attribution_row(op, timing, cost, peak_gbps=peak_gbps,
+                           device=device, extra=extra)
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +286,7 @@ def profile_phases(loss_fn, cfg, state, batches, lr=None, *, iters: int = 10,
     more whole step into this directory.
     """
     from repro_torch.core.meta import _local_phase, make_meta_step
-    from repro_torch.topology import make_topology
+    from repro_torch.topology import host_buffers, make_topology
 
     lr = np.float32(cfg.learner_lr if lr is None else lr)
     topology = make_topology(cfg, None)
@@ -305,7 +315,8 @@ def profile_phases(loss_fn, cfg, state, batches, lr=None, *, iters: int = 10,
     extra = {"algorithm": cfg.algorithm, "topology": cfg.topology.kind}
     rows = [
         profile_fn(op, fn, *args, iters=iters, warmup=warmup,
-                   peak_gbps=peak_gbps, device=device, extra=extra)
+                   peak_gbps=peak_gbps, device=device, extra=extra,
+                   host=host_buffers(work.topo))
         for op, fn, args in targets
     ]
     if profiler_trace_dir:

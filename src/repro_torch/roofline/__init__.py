@@ -1,17 +1,37 @@
-"""repro_torch.roofline — the JAX package's modeled wire bytes
-(``repro.roofline.terms``' byte counts), arithmetic on parameter counts and
-configs. The compute, memory and link-time terms of the JAX roofline are
-rates of a TPU and are not ported here (ROADMAP Queue 1, item 10)."""
+"""repro_torch.roofline: the port's cost model on an NVIDIA H100 (the
+JAX package's ``repro.roofline``): ``cost.jit_cost``, the cost of one call
+counted on the meta device (``hlo_cost.jit_cost``'s counterpart), and
+``terms``, the wire bytes of a meta step, the roofline terms at the
+H100's data-sheet rates and a kernel's bound. The collective bytes of a
+partitioned program (JAX's ``roofline/hlo.py``) wait for the dry run of
+a mesh (ROADMAP Queue 1, item 10)."""
+from repro_torch.roofline.cost import JitCost, jit_cost
 from repro_torch.roofline.terms import (
+    H100_SXM,
+    Rates,
+    RooflineTerms,
+    compute_terms,
     elastic_presence,
+    kernel_bound,
     meta_wire_bytes,
+    model_flops,
     participant_wire_bytes,
     topology_wire_bytes,
+    wire_seconds,
 )
 
 __all__ = [
+    "H100_SXM",
+    "JitCost",
+    "Rates",
+    "RooflineTerms",
+    "compute_terms",
     "elastic_presence",
+    "jit_cost",
+    "kernel_bound",
     "meta_wire_bytes",
+    "model_flops",
     "participant_wire_bytes",
     "topology_wire_bytes",
+    "wire_seconds",
 ]

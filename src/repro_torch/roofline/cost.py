@@ -1,0 +1,391 @@
+"""The cost of one call of a function, counted on the meta device: the
+port's counterpart of the JAX package's ``roofline/hlo_cost.py``
+(``jit_cost`` at ``:392``, ``JitCost`` at ``:362``).
+
+JAX lowers and compiles the function on abstract arguments and walks the
+optimized HLO. The port runs eagerly, so ``jit_cost`` runs the function
+once on ``meta``-device copies of its tensor arguments under one
+``TorchDispatchMode`` that sees every ATen op: nothing is allocated or
+computed, so a full-scale config (llama3-405b) costs nothing, and the
+caller's tensors are never touched. It counts:
+
+* **FLOPs**: the dot and convolution rule of JAX's walk, through the
+  registry of ``torch.utils.flop_counter`` (mm, addmm, bmm, baddbmm,
+  convolution, the SDPA kernels), plus the tensor-core flops a kernel of
+  the port declares (flash attention's visible pairs). An op outside the
+  registry is first decomposed where it can be, as ``FlopCounterMode``
+  does, so the count equals that mode's.
+* **HBM bytes**: JAX's per-instruction model on every ATen op: result
+  bytes plus operand bytes. An op whose result is a pure view of an input
+  (a schema alias without ``!``, or a result on an input's storage from a
+  non-mutating op) moves nothing, as JAX skips bitcast and
+  get-tuple-element. Gathers (``index_select``, ``gather``,
+  ``index.Tensor``, ``embedding``, slice copies) cost twice the result,
+  indexed writes (``index_put_``, ``index_copy_``, ``slice_scatter``)
+  twice the update and scatters (``scatter``, ``scatter_add``,
+  ``index_add``) three times it (``_instr_bytes``, ``:177-201``). A
+  kernel of the port, a ctypes launch no dispatch mode sees, charges its
+  declared cost through its meta route (``kernels/cost.py``): its inputs
+  read once and its outputs written once, as JAX charges a
+  ``pallas_call``.
+
+  This is the eager, unfused count: what ATen moves op by op. XLA's
+  count assumes perfect fusion (fused intermediates never touch HBM), so
+  the two packages' byte counts are not comparable, and byte parity with
+  JAX is not a goal. FLOPs are comparable and held to JAX's in the tests.
+* **Memory**: every meta storage is followed from its allocation to its
+  release (a weakref finaliser), so ``temp_bytes`` is the peak of what
+  the call allocates beyond its outputs. An argument the call writes in
+  place (an ATen op's ``!`` argument, or listed in ``in_place``) is an
+  output aliased onto an input, the counterpart of donation:
+  ``alias_bytes``.
+
+``kernel_calls`` counts the kernel calls by name (the names of
+``kernels.ops.launch_counts``). The ``aten::bincount`` of the MoE
+router's load count has no meta kernel; on meta with ``minlength`` it
+gives its ``(minlength,)`` result here (the router's indices lie below
+it).
+
+A host read (``.tolist()``, ``bool(t)``) of a meta tensor raises, as an
+abstract value does under ``jax.jit``: the finite guard and the robust
+aggregator read values, and their steps cannot be costed. The host-side
+buffers a step reads on purpose (membership schedules, the async
+clocks), which the caller names in ``host``, are cloned on their own
+device instead of moved to meta.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import weakref
+from collections import Counter
+from dataclasses import dataclass, field
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
+
+from repro_torch.kernels import cost as _kcost
+
+aten = torch.ops.aten
+
+# ops that allocate without moving a byte
+_NO_TRAFFIC = {aten.empty, aten.empty_strided, aten.empty_like,
+               aten.new_empty, aten.new_empty_strided}
+# (factor, argument holding the update, or None for the result):
+# JAX's dynamic-slice / gather, dynamic-update-slice and scatter rules
+_SLICING = {
+    aten.index_select: (2.0, None),
+    aten.gather: (2.0, None),
+    aten.index: (2.0, None),
+    aten.embedding: (2.0, None),
+    aten.slice_copy: (2.0, None),
+    aten.narrow_copy: (2.0, None),
+    aten.index_put: (2.0, "values"),
+    aten.index_put_: (2.0, "values"),
+    aten._index_put_impl_: (2.0, "values"),
+    aten.index_copy: (2.0, "source"),
+    aten.index_copy_: (2.0, "source"),
+    aten.slice_scatter: (2.0, "src"),
+    aten.select_scatter: (2.0, "src"),
+    aten.scatter: (3.0, "src"),
+    aten.scatter_: (3.0, "src"),
+    aten.scatter_add: (3.0, "src"),
+    aten.scatter_add_: (3.0, "src"),
+    aten.scatter_reduce: (3.0, "src"),
+    aten.scatter_reduce_: (3.0, "src"),
+    aten.index_add: (3.0, "source"),
+    aten.index_add_: (3.0, "source"),
+}
+
+
+@dataclass
+class JitCost:
+    """The cost of one call of a function (JAX's fields, plus
+    ``kernel_calls``).
+
+    hbm_bytes        bytes the call moves (the eager model above)
+    flops            matmul and convolution flops (JAX's dot/conv rule)
+    arg_bytes        bytes of the tensor arguments' storages on the device
+    out_bytes        bytes of the outputs: the returned tensors' storages
+                     and the arguments written in place
+    alias_bytes      bytes of outputs that are arguments' storages (the
+                     in-place state update, JAX's donation)
+    temp_bytes       peak bytes allocated by the call beyond its outputs
+    kernel_calls     calls of the port's kernels, by name
+    peak_state_bytes arg + out + temp - alias
+    """
+
+    hbm_bytes: float
+    flops: float
+    arg_bytes: int
+    out_bytes: int
+    alias_bytes: int
+    temp_bytes: int
+    kernel_calls: dict = field(default_factory=dict)
+
+    @property
+    def peak_state_bytes(self) -> int:
+        return (self.arg_bytes + self.out_bytes + self.temp_bytes
+                - self.alias_bytes)
+
+
+def _key(t: torch.Tensor) -> int:
+    return t.untyped_storage()._cdata
+
+
+def _tensors(x) -> list:
+    """The tensors of a tensor / dataclass / dict / list / tuple tree."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return [t for f in dataclasses.fields(x)
+                for t in _tensors(getattr(x, f.name))]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _tensors(v)]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+def _map(fn, x):
+    """``fn`` on every tensor of a tree, the tree rebuilt around it."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        changed = {}
+        for f in dataclasses.fields(x):
+            v = getattr(x, f.name)
+            m = _map(fn, v)
+            if m is not v:
+                changed[f.name] = m
+        return dataclasses.replace(x, **changed) if changed else x
+    if isinstance(x, dict):
+        return {k: _map(fn, v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_map(fn, v) for v in x)
+    return x
+
+
+def _bytes_of(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class _Counter(TorchDispatchMode):
+    """Counts flops, bytes, kernel calls and live meta storages of the ATen
+    ops run under it."""
+
+    def __init__(self, args: dict):
+        super().__init__()
+        self.args = args  # storage key -> bytes, the arguments on meta
+        self.flops = 0.0
+        self.hbm_bytes = 0.0
+        self.kernel_calls = Counter()
+        self.written: set = set()  # argument storages written in place
+        self.new: dict = {}  # storage key -> bytes, allocated by the call
+        self.live = 0
+        self.peak = 0
+        self._uncounted = 0  # depth of plain-version runs for the meta route
+
+    @contextlib.contextmanager
+    def uncounted(self):
+        """The ATen ops of the block are not counted (a plain version run
+        for a kernel's output shapes); writes to arguments still are."""
+        self._uncounted += 1
+        try:
+            yield
+        finally:
+            self._uncounted -= 1
+
+    # -- live storages ---------------------------------------------------
+
+    def _freed(self, key: int, nb: int) -> None:
+        if self.new.pop(key, None) is not None:
+            self.live -= nb
+
+    def track(self, t: torch.Tensor) -> None:
+        """Follow ``t``'s storage if the call allocated it just now."""
+        if t.device.type != "meta":
+            return
+        key = _key(t)
+        if key in self.args or key in self.new:
+            return
+        storage = t.untyped_storage()
+        nb = storage.nbytes()
+        self.new[key] = nb
+        self.live += nb
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(storage, self._freed, key, nb)
+
+    # -- the meta route of the port's kernels ------------------------------
+
+    def charge(self, cost: _kcost.KernelCost, out) -> None:
+        self.kernel_calls[cost.name] += 1
+        self.hbm_bytes += cost.nbytes
+        self.flops += cost.matmul_flops
+        for t in _tensors(out):
+            key = _key(t) if t.device.type == "meta" else None
+            if key in self.args:
+                self.written.add(key)
+            else:
+                self.track(t)
+
+    # -- ATen ops ----------------------------------------------------------
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is aten.bincount.default and args[0].device.type == "meta":
+            out = self._bincount(*args, **kwargs)
+        elif self._uncounted:
+            out = func(*args, **kwargs)
+            self._note_writes(func, args, kwargs)
+            return out
+        else:
+            if func is not torch.ops.prim.device.default:
+                # as FlopCounterMode: an op with a decomposition is counted
+                # through it
+                with self:
+                    r = func.decompose(*args, **kwargs)
+                if r is not NotImplemented:
+                    return r
+            out = func(*args, **kwargs)
+        packet = func._overloadpacket
+        if packet in flop_registry:
+            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+        self._note_writes(func, args, kwargs)
+        self.hbm_bytes += self._op_bytes(func, args, kwargs, out)
+        for t in _tensors(out):
+            self.track(t)
+        return out
+
+    @staticmethod
+    def _bincount(x, weights=None, minlength=0):
+        if not minlength:
+            raise ValueError("bincount on the meta device needs minlength "
+                             "(its length is the data's otherwise)")
+        dtype = torch.int64
+        if weights is not None:
+            dtype = (torch.float32 if weights.dtype == torch.float32
+                     else torch.float64)
+        return torch.empty((int(minlength),), dtype=dtype, device="meta")
+
+    def _note_writes(self, func, args, kwargs) -> None:
+        for i, a in enumerate(func._schema.arguments):
+            if a.alias_info is None or not a.alias_info.is_write:
+                continue
+            v = kwargs.get(a.name) if a.kwarg_only or i >= len(args) \
+                else args[i]
+            for t in _tensors(v):
+                if t.device.type == "meta" and _key(t) in self.args:
+                    self.written.add(_key(t))
+
+    @staticmethod
+    def _op_bytes(func, args, kwargs, out) -> float:
+        packet = func._overloadpacket
+        if packet in _NO_TRAFFIC:
+            return 0.0
+        schema = func._schema
+        outs = _tensors(out)
+        # every tensor argument is read, but an ``out=`` buffer
+        ins = _tensors(list(args)) + _tensors(
+            {k: v for k, v in kwargs.items() if k != "out"})
+        writes = any(a.alias_info is not None and a.alias_info.is_write
+                     for a in schema.arguments)
+        if not writes:
+            in_keys = {_key(t) for t in ins if t.device.type == "meta"}
+            view = all(r.alias_info is not None for r in schema.returns)
+            if outs and (view or all(
+                    t.device.type == "meta" and _key(t) in in_keys
+                    for t in outs)):
+                return 0.0  # a pure view of an input
+        rule = _SLICING.get(packet)
+        if rule is not None:
+            factor, name = rule
+            if name is None:
+                return factor * sum(_bytes_of(t) for t in outs)
+            names = [a.name for a in schema.arguments]
+            i = names.index(name)
+            upd = kwargs.get(name, args[i] if i < len(args) else None)
+            return factor * sum(_bytes_of(t) for t in _tensors(upd))
+        return float(sum(_bytes_of(t) for t in outs)
+                     + sum(_bytes_of(t) for t in ins))
+
+
+def _to_meta(t: torch.Tensor, bases: dict) -> torch.Tensor:
+    """A meta tensor with ``t``'s shape, strides, dtype and storage
+    offset, on one meta storage per storage of the arguments (views of
+    one storage stay views of one)."""
+    storage = t.untyped_storage()
+    key = storage._cdata
+    if key not in bases:
+        bases[key] = torch.empty((storage.nbytes(),), dtype=torch.uint8,
+                                 device="meta")
+    m = bases[key].view(t.dtype).as_strided(t.size(), t.stride(),
+                                            t.storage_offset())
+    if t.requires_grad:
+        m.requires_grad_(True)
+    return m
+
+
+def jit_cost(fn, *args, in_place=(), host=()) -> JitCost:
+    """The cost of ``fn(*args)``, counted on meta copies of the tensor
+    arguments (see the module docstring). ``in_place``: indices of
+    arguments that ``fn`` updates in place (the state), counted as
+    aliased outputs; an argument an ATen op writes is found on its own.
+    ``host``: tensors of the arguments kept on their own device (cloned)
+    because ``fn`` reads them on the host."""
+    host_ids = {id(t) for t in host}
+    bases: dict = {}
+
+    def copy(t):
+        if id(t) in host_ids:
+            return t.clone()
+        return _to_meta(t, bases)
+
+    margs = [_map(copy, a) for a in args]
+    arg_keys = {_key(b): b.untyped_storage().nbytes()
+                for b in bases.values()}
+    counter = _Counter(arg_keys)
+    for i in in_place:
+        for t in _tensors(margs[i]):
+            if t.device.type == "meta":
+                counter.written.add(_key(t))
+    with _kcost.counting(counter), counter:
+        out = fn(*margs)
+    out_keys = {}
+    for t in _tensors(out):
+        if t.device.type == "meta":
+            out_keys[_key(t)] = t.untyped_storage().nbytes()
+    for k in counter.written:
+        out_keys[k] = arg_keys[k]
+    alias = sum(nb for k, nb in out_keys.items() if k in arg_keys)
+    out_new = sum(nb for k, nb in out_keys.items() if k not in arg_keys)
+    temp = max(counter.peak - out_new, 0)
+    result = JitCost(
+        hbm_bytes=float(counter.hbm_bytes),
+        flops=float(counter.flops),
+        arg_bytes=int(sum(arg_keys.values())),
+        out_bytes=int(sum(out_keys.values())),
+        alias_bytes=int(alias),
+        temp_bytes=int(temp),
+        kernel_calls=dict(counter.kernel_calls),
+    )
+    del out, margs, bases
+    return result
+
+
+# the ATen matmuls whose flops ``torch.profiler`` counts (it also counts
+# elementwise mul and add, which JAX's dot rule does not)
+PROFILER_MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def profiled_matmul_flops(fn, *args):
+    """``fn(*args)`` run for real under ``torch.profiler`` with
+    ``with_flops``: (its result, the matmul flops the profiler counted),
+    the count ``jit_cost``'s ``flops`` is held to on a device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU], with_flops=True) as prof:
+        out = fn(*args)
+    flops = sum(e.flops for e in prof.events() if e.name in PROFILER_MATMULS)
+    return out, flops

@@ -1,31 +1,138 @@
-"""The reference's wire model: bytes one meta step ships, per participant,
-per flat round and per edge class of a topology (the JAX package's
-``roofline/terms.py``, its byte counts).
+"""The roofline model of the port on an NVIDIA H100 (the JAX package's
+``roofline/terms.py``): the wire bytes one meta step ships, the compute,
+memory and collective terms of a costed program, and the least time of a
+kernel call.
 
-Every function here counts bytes from a parameter count and the configs;
-none carries a chip's rate. The JAX module also prices those bytes at a
-TPU pod's link rates (its ``ICI_LINK_BW`` and ``DCN_LINK_BW``) and holds
-the XLA cost terms; neither is the port's, and an H100 model with rates
-measured on the card is ROADMAP Queue 1, item 10. The byte constants come
-from the port's reducers (``comm.quant``, ``comm.topk``), so the model and
-the reducers' own ``comm_bytes`` accounting cannot drift apart.
+    compute    = flops            / (chips x peak BF16 FLOP/s)
+    memory     = bytes            / (chips x HBM B/s)
+    collective = collective_bytes / (chips x intra-node link B/s)
+
+The flops and bytes come from ``roofline.cost.jit_cost``; the collective
+bytes are an argument (one card has none to give: the dry run of a mesh
+fills them). ``model_flops`` (6 N D to train, 2 N D to infer) is the
+useful-work yardstick. The modeled meta-communication (``wire_bytes``,
+the byte counts of the reducers, ``comm.quant`` and ``comm.topk``) is
+priced per edge class: ``wire_s`` = intra-node bytes over the intra-node
+link rate + inter-node bytes over the inter-node one.
+
+The rates are a ``Rates`` value. ``H100_SXM`` holds the H100 SXM data
+sheet's: HBM3 3.35 TB/s; dense f32 67, TF32 494.7 and BF16 989.4
+TFLOP/s; NVLink 4 at 450 GB/s each way per GPU for the intra-node class
+and one ConnectX-7 NDR port, 400 Gb/s = 50 GB/s, for the inter-node
+class. These are data-sheet inputs, not measurements: the card's
+measured memory and matmul rates are ``chip_smoke.py``'s, and one card
+has no link to measure. The JAX module's TPU constants are not the
+port's; a test builds a ``Rates`` from them to hold ``compute_terms`` to
+JAX's field for field.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import asdict, dataclass
 from typing import Optional
 
 import numpy as np
 
 from repro_torch.comm.quant import SCALE_BYTES, VALUE_BYTES
 from repro_torch.comm.topk import INDEX_BYTES
-from repro_torch.configs.base import AsyncConfig, CommConfig
+from repro_torch.configs.base import (
+    AsyncConfig,
+    CommConfig,
+    InputShape,
+    ModelConfig,
+)
+from repro_torch.kernels.cost import KernelCost
 from repro_torch.topology import (
     avg_graph_degree,
     membership_schedule,
     mixing_matrix_stack,
     step_time_profile,
 )
+
+
+@dataclass(frozen=True)
+class Rates:
+    """The ceilings of one chip: memory bytes/s, flops/s by operand type,
+    and bytes/s of one link of each edge class."""
+
+    name: str
+    hbm_bytes_per_s: float
+    f32_flops_per_s: float
+    tf32_flops_per_s: float
+    bf16_flops_per_s: float
+    intra_link_bytes_per_s: float
+    inter_link_bytes_per_s: float
+
+    def flops_per_s(self, unit: str) -> float:
+        """The rate of a kernel's flops of ``unit`` (``KernelCost``):
+        3xTF32 takes three TF32 products per f32 product."""
+        if unit == "f32":
+            return self.f32_flops_per_s
+        if unit == "bf16":
+            return self.bf16_flops_per_s
+        if unit == "tf32x3":
+            return self.tf32_flops_per_s / 3.0
+        raise ValueError(f"unknown flop unit {unit!r}")
+
+
+# the H100 SXM data sheet (dense tensor-core rates, no sparsity); the link
+# rates are data-sheet inputs, not measured
+H100_SXM = Rates(
+    name="H100 SXM (data sheet)",
+    hbm_bytes_per_s=3.35e12,
+    f32_flops_per_s=67e12,
+    tf32_flops_per_s=494.7e12,
+    bf16_flops_per_s=989.4e12,
+    intra_link_bytes_per_s=450e9,  # NVLink 4, each way, per GPU
+    inter_link_bytes_per_s=50e9,  # one ConnectX-7 NDR port, 400 Gb/s
+)
+
+
+def kernel_bound(cost: KernelCost, rates: Rates = H100_SXM
+                 ) -> tuple[float, str]:
+    """The least time of one kernel call, in seconds: its bytes over the
+    memory rate or its flops over the rate of their type, whichever is
+    larger, and which (``"bytes"`` or ``"operations"``)."""
+    t_bytes = cost.nbytes / rates.hbm_bytes_per_s
+    t_ops = cost.flops / rates.flops_per_s(cost.unit)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def wire_seconds(intra_bytes: float, inter_bytes: float, *, chips: int = 1,
+                 rates: Rates = H100_SXM) -> float:
+    """Link time of one meta step's modeled payload: each edge class on
+    its own fabric."""
+    return (intra_bytes / (chips * rates.intra_link_bytes_per_s)
+            + inter_bytes / (chips * rates.inter_link_bytes_per_s))
+
+
+@dataclass
+class RooflineTerms:
+    arch: str
+    shape: str
+    mesh: str
+    chips: int
+    hlo_flops: float
+    hlo_bytes: float
+    collective_bytes: float
+    model_flops: float
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    bottleneck: str
+    useful_ratio: float  # model_flops / flops
+    # modeled meta-communication (comm); 0 / "dense" when not computed
+    wire_bytes: float = 0.0
+    wire_s: float = 0.0
+    comm_scheme: str = "dense"
+    # per edge class: intra-node vs inter-node payload per meta step,
+    # amortized over outer_every
+    wire_intra_bytes: float = 0.0
+    wire_inter_bytes: float = 0.0
+    topology: str = "flat"
+
+    def to_dict(self):
+        return asdict(self)
 
 
 def participant_wire_bytes(n_params: int, comm: Optional[CommConfig], *,
@@ -138,3 +245,66 @@ def topology_wire_bytes(n_params: int, comm: Optional[CommConfig],
             "total_bytes": float(intra + inter),
             "avg_degree": float(avg_deg),
             "learner_presence": learner_frac, "edge_presence": edge_frac}
+
+
+def model_flops(cfg: ModelConfig, shape: InputShape,
+                k_steps: int = 1) -> float:
+    """6 N D per processed token (training) or 2 N D (inference forward)."""
+    n = cfg.active_param_count()
+    if shape.kind == "train":
+        tokens = shape.global_batch * shape.seq_len * k_steps
+        return 6.0 * n * tokens
+    if shape.kind == "prefill":
+        tokens = shape.global_batch * shape.seq_len
+        return 2.0 * n * tokens
+    # decode: one token per sequence
+    return 2.0 * n * shape.global_batch
+
+
+def compute_terms(*, arch: str, shape: InputShape, mesh_name: str,
+                  chips: int, hlo_flops: float, hlo_bytes: float,
+                  collective_bytes: float, cfg: ModelConfig,
+                  k_steps: int = 1, per_device: bool = True,
+                  comm: Optional[CommConfig] = None, num_learners: int = 1,
+                  topology=None, rates: Rates = H100_SXM) -> RooflineTerms:
+    """The roofline terms of one costed program (``hlo_flops`` and
+    ``hlo_bytes``: ``jit_cost``'s flops and bytes, JAX's names kept).
+    ``per_device``: the numbers are one chip's already; else the
+    whole program's, divided over ``chips``."""
+    mf = model_flops(cfg, shape, k_steps)
+    div = 1 if per_device else chips
+    compute_s = hlo_flops / (div * rates.bf16_flops_per_s)
+    memory_s = hlo_bytes / (div * rates.hbm_bytes_per_s)
+    collective_s = collective_bytes / (div * rates.intra_link_bytes_per_s)
+    terms = {"compute": compute_s, "memory": memory_s,
+             "collective": collective_s}
+    bottleneck = max(terms, key=terms.get)
+    mf_dev = mf / chips if per_device else mf
+    wire_bytes = wire_s = intra_b = inter_b = 0.0
+    if comm is not None or topology is not None:
+        edge = topology_wire_bytes(cfg.param_count(), comm, topology,
+                                   num_learners=num_learners)
+        intra_b, inter_b = edge["intra_bytes"], edge["inter_bytes"]
+        wire_bytes = edge["total_bytes"]
+        wire_s = wire_seconds(intra_b, inter_b, chips=chips, rates=rates)
+    return RooflineTerms(
+        arch=arch,
+        shape=shape.name,
+        mesh=mesh_name,
+        chips=chips,
+        hlo_flops=hlo_flops,
+        hlo_bytes=hlo_bytes,
+        collective_bytes=collective_bytes,
+        model_flops=mf,
+        compute_s=compute_s,
+        memory_s=memory_s,
+        collective_s=collective_s,
+        bottleneck=bottleneck,
+        useful_ratio=mf_dev / hlo_flops if hlo_flops else 0.0,
+        wire_bytes=wire_bytes,
+        wire_s=wire_s,
+        comm_scheme=comm.scheme if comm is not None else "dense",
+        wire_intra_bytes=intra_b,
+        wire_inter_bytes=inter_b,
+        topology=topology.kind if topology is not None else "flat",
+    )

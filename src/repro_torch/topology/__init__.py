@@ -30,6 +30,19 @@ from repro_torch.topology.gossip import (
 )
 from repro_torch.topology.hierarchical import Hierarchical
 
+# the ``MetaState.topo`` entries that live on the host whatever the planes'
+# device: the membership schedule, the async clocks and counters and the
+# robust clip's ring, which the mix reads on the host
+HOST_BUFFERS = ("membership", "clock", "pull_update", "updates",
+                "robust_ring", "robust_count")
+
+
+def host_buffers(topo) -> list:
+    """The host-side tensors of a ``MetaState.topo`` (``HOST_BUFFERS``)."""
+    if not isinstance(topo, dict):
+        return []
+    return [topo[k] for k in HOST_BUFFERS if k in topo]
+
 
 def make_topology(cfg, reducer=None, dither=None) -> Topology:
     """Build the topology described by ``cfg.topology`` (an MAvgConfig).
@@ -57,6 +70,7 @@ __all__ = [
     "AsyncServer",
     "FlatAllReduce",
     "Gossip",
+    "HOST_BUFFERS",
     "Hierarchical",
     "Topology",
     "avg_graph_degree",
@@ -65,6 +79,7 @@ __all__ = [
     "effective_momentum",
     "fused_momentum_broadcast_update",
     "graph_degree",
+    "host_buffers",
     "make_topology",
     "mask_mixing_matrix",
     "membership_at",

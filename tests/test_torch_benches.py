@@ -3,7 +3,8 @@ on the port, against the JAX package's on the same inputs.
 
 * ``roofline``: every modeled cell of the comm, topology, elastic and
   async benches (qwen3-1.7b's parameter count) gives exactly JAX's bytes,
-  degree and presence.
+  degree and presence, and its link seconds are those bytes at the H100
+  data sheet's link rates, in JAX's form.
 * the robust bench, fed JAX's Trainer params and batches: its arms'
   losses within rtol 1e-5 of JAX's (the robust arm's clip factors come
   from norms each package reduces in its own order: rtol 1e-4; the
@@ -26,9 +27,9 @@ on the port, against the JAX package's on the same inputs.
   47.1 % of the values beyond).
 * ``tools/bench_compare.py`` (the reference's gate, as a subprocess)
   accepts the port's ``BENCH_robust.json`` and the ``--json`` envelopes.
-* ``run.py``: an item-10 suite in ``--only`` raises naming the item; a
-  default run says which suites it did not run; a table-returning suite
-  gets no store (the reference's own run fails there, pinned below).
+* ``run.py``: the roofline suite in ``--only`` raises naming item 10; a
+  default run says it did not run it; a table-returning suite gets no
+  store (the reference's own run fails there, pinned below).
 """
 import json
 import os
@@ -150,11 +151,26 @@ def test_meta_wire_bytes_equal_jax(scheme):
 
 
 def test_modeled_rows_carry_no_link_seconds(capsys):
+    """No TPU link seconds: every modeled row prices its bytes at the H100
+    data sheet's link rates, in JAX's form (comm: the wire over the
+    intra-node link; the others: intra over intra plus inter over
+    inter), and each bench says so."""
+    rates = roofline.H100_SXM
     rows = (comm_bench.modeled() + topology_bench.modeled()
             + elastic_bench.modeled() + async_bench.modeled())
-    assert not any("wire_s" in r for r in rows)
+    for r in rows:
+        if r["kind"] == "comm_model":
+            assert r["wire_s"] == r["wire_bytes"] / rates.intra_link_bytes_per_s
+        elif r["kind"] != "topo_accept":
+            assert r["wire_s"] == (
+                r["intra_bytes"] / rates.intra_link_bytes_per_s
+                + r["inter_bytes"] / rates.inter_link_bytes_per_s), r
     out = capsys.readouterr().out
-    assert out.count("link seconds left out") == 4
+    assert out.count("inputs, not measured") == 4
+    assert out.count("450 GB/s (NVLink 4), inter-node 50 GB/s") == 4
+    flat = next(r for r in rows if r.get("cell") == "flat_dense"
+                and r["kind"] == "topo_model")
+    assert f"{flat['wire_s']:.4f}" == "1.1011"
     accept = next(r for r in rows if r["kind"] == "topo_accept")
     assert f"{accept['inter_reduction_vs_flat']:.1f}" == "63.9"
     hier = next(r for r in rows if r.get("cell") == "hier_int8topk_outer")
@@ -417,10 +433,12 @@ def test_async_and_chaos_write_gated_envelopes(monkeypatch, tmp_path):
 # the suite runner
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("suite", ["kernel", "pack", "roofline"])
+@pytest.mark.parametrize("suite", ["roofline"])
 def test_run_only_an_item_10_suite_raises(suite):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 10"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1, item 10: the dry-run"):
         run.main(["--only", suite, "--device", "cpu"])
+    assert set(run.NOT_PORTED) == {"roofline"}
 
 
 def test_run_default_names_the_suites_it_does_not_run(monkeypatch, capsys,
@@ -433,8 +451,9 @@ def test_run_default_names_the_suites_it_does_not_run(monkeypatch, capsys,
     with pytest.raises(SystemExit, match="bad"):
         run.main(["--device", "cpu", "--bench-dir", str(tmp_path)])
     out = capsys.readouterr().out
-    for s in ("kernel", "pack", "roofline"):
-        assert f"bench,{s},not run: " in out
+    assert "bench,roofline,not run: " in out
+    for s in ("kernel", "pack"):
+        assert f"bench,{s},not run" not in out
     assert "bench,mu_p,trajectory,none (a table, no rows)" in out
     assert "bench,bad," in out and "FAILED (1 cell(s) not ok)" in out
     assert sorted(os.listdir(tmp_path)) == ["BENCH_robust.json"]

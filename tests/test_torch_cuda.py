@@ -906,3 +906,58 @@ def test_cuda_hybrid_and_ssm_match_the_cpu(cuda_device, arch):
             assert torch.equal(torch.argmax(lg, -1).cpu(),
                                torch.argmax(lc, -1))
             nxt = torch.argmax(lc, -1).to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("comm", ["dense", "int8"])
+def test_cuda_cost_model_matches_the_card(cuda_device, comm):
+    """The cost model (``roofline.cost.jit_cost``, on meta copies of the
+    state) against one meta step of the reduced dense model on the card,
+    after a warm-up step: the modeled kernel calls equal the launches,
+    the modeled matmul flops equal ``torch.profiler``'s, and the modeled
+    peak of the step's own allocations is within 5 % (and 8 MiB of the
+    allocator's 512-byte rounding) of the card's."""
+    from repro_torch.configs.base import (
+        CommConfig,
+        MAvgConfig,
+        TrainConfig,
+        get_config,
+    )
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data import uniform_batch_fn
+    from repro_torch.models import api
+    from repro_torch.roofline.cost import jit_cost, profiled_matmul_flops
+
+    cfg = get_config("qwen3-1.7b").reduced()
+    mcfg = MAvgConfig(num_learners=2, k_steps=2,
+                      comm=CommConfig(scheme=comm))
+    trainer = Trainer(
+        TrainConfig(model=cfg, mavg=mcfg, batch_per_learner=2, seq_len=16,
+                    meta_steps=1),
+        lambda p, b: api.loss_fn(p, cfg, b),
+        init_params_fn=lambda gen: api.init_params(gen, cfg, cuda_device),
+        batch_fn=uniform_batch_fn(cfg, 2, 2, 2, 16), device=cuda_device)
+
+    def step(s, b):
+        return trainer._step_fn(s, b, lr=0.01)
+
+    def batch(i):
+        return trainer.batch_fn(trainer._data_generator(i), i)
+
+    trainer.state, _ = step(trainer.state, batch(0))  # warm-up
+    b1 = batch(1)
+    jc = jit_cost(step, trainer.state, b1, in_place=(0,))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    trainer.state, _ = step(trainer.state, b1)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - before
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    assert launched == jc.kernel_calls
+    modeled = jc.peak_state_bytes - jc.arg_bytes  # the step's allocations
+    assert abs(measured - modeled) <= 0.05 * modeled + (8 << 20), (
+        measured, modeled)
+    _, flops = profiled_matmul_flops(step, trainer.state, batch(2))
+    assert flops == jc.flops > 0

@@ -24,6 +24,8 @@ The CUDA kernels (built with no FMA contraction) are held bitwise to the
 plain versions on the card by ``chip_smoke.py`` and by the ``cuda``-marked
 tests of tests/test_torch_cuda.py, which skip without a card.
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -191,7 +193,8 @@ def test_per_leaf_layout_matches_jax_ops(shape):
 
 def test_cuda_path_has_no_fallback(monkeypatch):
     """A CUDA kernel wrapper refuses CPU tensors, an unknown device has no
-    route, and a missing nvcc is an error, not a silent plain run."""
+    route, a meta tensor (the cost model's) launches nothing, and a
+    missing nvcc is an error, not a silent plain run."""
     w, g = _t(*_planes(6, n=2))
     with pytest.raises(ValueError, match="CUDA tensor"):
         sgd.sgd_apply_cuda(w, g, 0.1)
@@ -207,13 +210,15 @@ def test_cuda_path_has_no_fallback(monkeypatch):
         qk.dequantize_cuda(q, torch.ones(ROWS // 8, 1))
     with pytest.raises(ValueError, match="CUDA tensor"):
         pu.pack_update_cuda(w[None], g, None, w[None], 127, 8)
+    other = types.SimpleNamespace(device=torch.device("xla"))
+    with pytest.raises(ValueError, match="no kernel"):
+        ops._route(other, sgd.sgd_apply_plain, sgd.sgd_apply_cuda, sgd.cost)
     meta = torch.empty((8, 128), device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.sgd_apply(meta, meta, 0.1)
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.quantize(meta, lambda shape: meta, qmax=127)
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.pack_update(meta[None], meta, None, meta[None])
+    ops.reset_launch_counts()
+    assert ops.sgd_apply(meta, meta, 0.1).device.type == "meta"
+    assert ops.quantize(meta, lambda shape: meta, qmax=127)[0].is_meta
+    assert ops.pack_update(meta[None], meta, None, meta[None])[0].is_meta
+    assert not any(ops.launch_counts().values())
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
     monkeypatch.setattr(build, "_LIBRARY", None)
     monkeypatch.setattr(build.Path, "exists", lambda self: False)

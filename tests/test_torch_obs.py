@@ -633,14 +633,23 @@ def test_run_logs_match_jax(tmp_path):
 
 def test_obs_config_honoured_and_cost_analysis_refused(tmp_path):
     """Repair: ``TrainConfig.obs`` is read (the sink is written, the
-    watchdog built); a knob the port cannot honour raises."""
+    watchdog built); ``cost_analysis``, refused until the cost model was
+    ported, now writes the step's cost into the manifest, JAX's block,
+    and leaves the live state unstepped by it."""
     tr = _trainer(tmp_path, sink="jsonl", health=True)
     tr.run(2, log=None)
     tr.close()
     assert tr._monitor is not None
     assert os.path.exists(tmp_path / "run" / "run.jsonl")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _trainer(tmp_path, sink="memory", cost_analysis=True)
+    tc = _trainer(tmp_path, sink="memory", cost_analysis=True)
+    tc.run(1, log=None)
+    assert tc.state.step == 1
+    cost = tc.manifest["jit_cost"]
+    assert set(cost) == {"hbm_bytes", "flops", "arg_bytes", "out_bytes",
+                         "alias_bytes", "temp_bytes", "peak_state_bytes"}
+    assert cost["flops"] > 0 and cost["alias_bytes"] > 0
+    assert tc.jit_cost.kernel_calls == {"sgd_apply": L * K,
+                                        "fused_momentum_broadcast": 1}
 
 
 def test_packspec_hash_equals_jax():
@@ -684,8 +693,7 @@ def test_launcher_writes_a_valid_run_log(tmp_path, capsys):
 @pytest.mark.parametrize("argv,message", [
     (["--supervise"], "--supervise needs --checkpoint-dir (the verified "
                       "rollback chain lives there)"),
-    (["--obs-cost"], "ROADMAP Queue 1, item 10"),
-], ids=["supervise-without-checkpoint-dir", "obs-cost"])
+], ids=["supervise-without-checkpoint-dir"])
 def test_launcher_refusals(argv, message):
     with pytest.raises(SystemExit) as ei:
         launch_train.main(["--device", "cpu", "--steps", "1"] + argv)

@@ -8,10 +8,10 @@ attribution arithmetic, PRF3 profile_fn end to end, PRF4 profile_phases
 covers phase:step, phase:local and phase:meta_mix and leaves the passed
 state as it was, PRF5 the measured peak is cached per size.
 
-Where the port departs: XLA's cost model (``roofline.hlo_cost``) has no
-counterpart yet (ROADMAP Queue 1, item 10), so profile_fn's rows carry no
-modeled bytes, as JAX's rows do without a cost; JAX's own quantile and
-attribution arithmetic are the oracles of the port's.
+Where the port departs: profile_fn's modeled cost is the port's
+(``roofline.cost.jit_cost`` on the meta device, the eager byte model), not
+XLA's; JAX's own quantile and attribution arithmetic are the oracles of
+the port's.
 """
 import types
 
@@ -126,8 +126,12 @@ def test_prf3_profile_fn_end_to_end():
                      peak_gbps=10.0, device="cpu")
     assert row["op"] == "saxpy" and row["iters"] == 3
     assert row["median_us"] > 0 and row["backend"] == "cpu"
-    # no modeled cost in the port yet (ROADMAP Queue 1, item 10)
-    assert "modeled_hbm_bytes" not in row and "pct_of_bound" not in row
+    # the port's modeled cost: x * 2.0 reads x and writes a copy, + 1.0
+    # reads that and writes the result (4 x 16 KB); no matmul
+    assert row["modeled_hbm_bytes"] == 4 * 4096 * 4
+    assert row["modeled_flops"] == 0.0
+    assert row["pct_of_bound"] == pytest.approx(
+        100.0 * row["achieved_gbps"] / 10.0)
 
 
 def test_prf5_peak_is_cached_per_size():

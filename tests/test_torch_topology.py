@@ -33,6 +33,8 @@ dither (``interop.dither_from_numpy``). Tolerances, with their reasons:
 The in-port invariants of tests/test_topology.py (T1-T3) are pinned on
 the port alone.
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -322,11 +324,17 @@ def test_neighbor_mix_refusals():
                              np.eye(17, dtype=np.float32))
     with pytest.raises(ValueError, match="CUDA tensor"):
         pu.pack_compress_cuda(x, x, 127, 8)
+    # an unknown device has no route; a meta tensor (the cost model's)
+    # launches nothing and gets its shapes
+    other = SimpleNamespace(device=torch.device("xla"))
+    with pytest.raises(ValueError, match="no kernel"):
+        ops._route(other, nm.neighbor_mix_plain, nm.neighbor_mix_cuda,
+                   nm.cost)
     meta = torch.empty((2, 8, 128), device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.neighbor_mix(meta, np.eye(2, dtype=np.float32))
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.pack_compress(meta, meta)
+    ops.reset_launch_counts()
+    assert ops.neighbor_mix(meta, np.eye(2, dtype=np.float32)).is_meta
+    assert ops.pack_compress(meta, meta)[0].is_meta
+    assert not any(ops.launch_counts().values())
 
 
 # ---------------------------------------------------------------------------
