@@ -185,7 +185,7 @@ Phases (any failure raises and the script exits non-zero):
    (removed afterwards), the robust, topology, async and chaos stores
    checked by the port's ``obs.baseline.compare`` against
    ``benchmarks/expected/*.json`` (read as data), then the comm bench,
-   and ``--only roofline`` refused; (c) ``train_100m --width full``
+   and ``--only roofline`` run; (c) ``train_100m --width full``
    (125,848,320 parameters) with L=4, K=4, B=8, S=128 for 20 meta steps:
    the loss falls, every plane finite, the peak device memory and the
    rate printed; one more meta step profiled (the device's idle share,
@@ -245,6 +245,21 @@ Phases (any failure raises and the script exits non-zero):
    and ``tools/check_telemetry.py`` accepting the log; (d) ``run.py
    --only kernel pack`` on the card, every row ok, the attribution rows
    timing the kernels.
+19. the placement half (``repro_torch.sharding``, ``launch/mesh.py``,
+   ``launch/specs.py``, the placed meta step, the dry run): (a) phase
+   18b's step placed by ``specs.state_shardings`` on a (1, 1) DeviceMesh
+   (a fake process group of one rank) and costed as the dry run costs a
+   rank: flops, bytes and kernel calls equal 18b's unplaced ``jit_cost``
+   exactly, no collective; (b) a real one-GPU DeviceMesh (NCCL, world size
+   1) in a process of its own: phase 4's state placed the same way and
+   stepped 2 meta steps by the placed step, its planes bitwise equal to
+   the unplaced run's from the same start, with as many ``sgd_apply`` and
+   ``fused_momentum_broadcast`` launches; (c) ``python -m
+   repro_torch.launch.dryrun`` for qwen3-1.7b and deepseek-moe-16b x
+   train_4k and decode_32k on the single (32, 8) mesh in a process of its
+   own (modeled on the meta device, on the CPU): every row written, each
+   train row's meta average an all-reduce over 'data' of at least the
+   device's plane; then ``run.py --only roofline`` tabulates the rows.
 
 Each phase's header carries the seconds since the start.
 
@@ -3565,7 +3580,8 @@ def benches_on_the_card(torch, ops) -> dict:
     ``run.py --only <suite>`` with its trajectory store under ``build/``
     (removed afterwards); the robust, topology, async and chaos stores
     checked by ``compare``; then the comm bench (its ``main`` returns no
-    rows, as the reference's) and ``--only kernel`` refused. Each suite's
+    rows, as the reference's) and ``--only roofline`` run (its rows are
+    phase 19c's). Each suite's
     launches are checked against what its configuration implies. Returns
     the launches of all six."""
     from repro_torch.benchmarks import comm_bench, run
@@ -3680,12 +3696,9 @@ def benches_on_the_card(torch, ops) -> dict:
     assert counts == dict(NO_LAUNCHES, fused_momentum_broadcast=100,
                           sgd_apply=1600, pack_update=20, quantize=20,
                           dequantize=20), counts
-    try:
-        run.main(["--only", "roofline"])
-    except NotImplementedError as e:
-        print(f"  run.py --only roofline refused: {e}")
-    else:
-        raise AssertionError("run.py ran the roofline suite")
+    # the dry run's suite tabulates whatever rows build/dryrun/ holds;
+    # phase 19c writes and checks them
+    run.main(["--only", "roofline", "--bench-dir", ""])
     return total
 
 
@@ -4220,12 +4233,18 @@ def cost_against_the_card(torch, ops) -> dict:
     calls equal the launches the card counts (one fused_momentum_broadcast
     and 16 sgd_apply), the modeled matmul flops equal
     ``torch.profiler``'s exactly, and the modeled peak is within
-    COST_PEAK_RTOL of the measured one. Returns the launch counts."""
+    COST_PEAK_RTOL of the measured one. Returns the launch counts, and
+    for phase 19a the step's configs, meta copies of its state and batch
+    and their cost."""
     from repro_torch.configs.base import MAvgConfig, TrainConfig, get_config
     from repro_torch.core.trainer import Trainer
     from repro_torch.data import uniform_batch_fn
     from repro_torch.models import api
-    from repro_torch.roofline.cost import jit_cost, profiled_matmul_flops
+    from repro_torch.roofline.cost import (
+        jit_cost,
+        meta_copy,
+        profiled_matmul_flops,
+    )
     from repro_torch.roofline.terms import H100_SXM
 
     cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=DEPTH)
@@ -4245,8 +4264,11 @@ def cost_against_the_card(torch, ops) -> dict:
         return trainer.batch_fn(trainer._data_generator(i), i)
 
     batch = batches(0)
+    inputs = dict(cfg=cfg, mcfg=trainer.mcfg,
+                  args=meta_copy(trainer.state, batch))
     t0 = time.perf_counter()
     jc = jit_cost(step, trainer.state, batch, in_place=(0,))
+    inputs["cost"] = jc
     model_s = time.perf_counter() - t0
     print(f"  modeled in {model_s:.2f} s on the meta device: "
           f"{jc.flops:.6e} matmul flops, {jc.hbm_bytes / 1e9:.3f} GB moved "
@@ -4285,7 +4307,236 @@ def cost_against_the_card(torch, ops) -> dict:
     assert flops == jc.flops, (flops, jc.flops)
     del trainer, batch
     free(torch)
-    return counts
+    return counts, inputs
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the placement half (sharding rules, DeviceMesh/DTensor
+# placements, the placed meta step, the dry run of a 256-GPU mesh)
+# ---------------------------------------------------------------------------
+
+# phase 19b: the meta steps of the placed and the unplaced state
+PLACED_STEPS = 2
+# phase 19c: the dry run's rows (modeled on the meta device, on the CPU)
+DRYRUN_ARCHS = ("qwen3-1.7b", "deepseek-moe-16b")
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+
+# phase 19b's program, run in a process of its own so that its process
+# group (NCCL, world size 1) never outlives it: the same packed state
+# stepped unplaced and placed by specs.state_shardings on a (1, 1)
+# DeviceMesh; prints the planes' equality and both runs' launches
+PLACED_STEP_SCRIPT = r'''
+import dataclasses, json, sys
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs.base import MAvgConfig, get_config
+from repro_torch.core.meta import init_state, make_meta_step
+from repro_torch.data import uniform_batch_fn
+from repro_torch.kernels import ops
+from repro_torch.launch import specs as S
+from repro_torch.models import api
+from repro_torch.sharding import Spec
+from repro_torch.sharding.placed import Placement, placed_meta_step
+from repro_torch.utils.rng import seeded_generator
+
+depth, L, K, B, Sq, steps, port = map(int, sys.argv[1:8])
+lr = float(sys.argv[8])
+device, backend, width = sys.argv[9:12]  # cuda nccl full on the card
+dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                        world_size=1, rank=0)
+try:
+    mesh = init_device_mesh(device, (1, 1), mesh_dim_names=("data", "model"))
+    cfg = get_config("qwen3-1.7b")
+    cfg = dataclasses.replace(cfg if width == "full" else cfg.reduced(),
+                              num_layers=depth)
+    mcfg = MAvgConfig(algorithm="mavg", num_learners=L, k_steps=K)
+    loss = lambda p, b: api.loss_fn(p, cfg, b)
+    params = api.init_params(seeded_generator(device, 19, 0), cfg, device)
+    ref, mine = init_state(params, mcfg), init_state(params, mcfg)
+    del params
+    batch_fn = uniform_batch_fn(cfg, L, K, B, Sq)
+    batches = [batch_fn(seeded_generator(device, 19, 1 + i), i)
+               for i in range(steps)]
+    step = make_meta_step(loss, mcfg)
+    ops.reset_launch_counts()
+    for b in batches:
+        ref, mr = step(ref, b, lr=lr)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    unplaced = {k: v for k, v in ops.launch_counts().items() if v}
+    placement = Placement(mesh, ("data",))
+    st = S.place_tree(mine, S.state_shardings(cfg, mcfg, mesh), mesh)
+    ops.reset_launch_counts()
+    for b in batches:
+        bt = {k: S.place(v, Spec("data"), mesh) for k, v in b.items()}
+        st, mp = placed_meta_step(st, bt, loss_fn=loss, cfg=mcfg,
+                                  placement=placement, lr=lr)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    placed = {k: v for k, v in ops.launch_counts().items() if v}
+    equal = {f: bool(torch.equal(getattr(st, f).to_local(), getattr(ref, f)))
+             for f in ("global_params", "momentum", "learners")}
+    print(json.dumps({"equal": equal, "unplaced": unplaced, "placed": placed,
+                      "loss": [float(mr["loss"]), float(mp["loss"])],
+                      "placements": str(st.learners.placements),
+                      "rows": int(st.global_params.shape[0])}))
+finally:
+    dist.destroy_process_group()
+'''
+
+
+def placed_cost_on_a_1x1_mesh(inputs: dict) -> None:
+    """Phase 19a. Phase 18b's step placed by ``specs.state_shardings`` on
+    a (1, 1) DeviceMesh (a fake process group of one rank, destroyed
+    afterwards) and costed as the dry run costs a rank's program: its
+    flops, bytes and kernel calls equal 18b's unplaced ``jit_cost``
+    exactly, with no collective; it thereby inherits 18b's check of the
+    model against the card."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun_lib as D
+    from repro_torch.launch import specs as S
+    from repro_torch.sharding import Spec
+    from repro_torch.sharding.placed import Placement, placed_meta_step
+
+    cfg, mcfg, jc = inputs["cfg"], inputs["mcfg"], inputs["cost"]
+    state, batch = inputs["args"]
+    mesh = D.fake_mesh((1, 1), ("data", "model"))
+    try:
+        placement = Placement(mesh, ("data",))
+        st = S.place_tree(state, S.state_shardings(cfg, mcfg, mesh), mesh)
+        bt = {k: S.place(v, Spec("data"), mesh) for k, v in batch.items()}
+        loss = api_loss(cfg)
+        t0 = time.perf_counter()
+        got = D.cost_program(
+            lambda s, b: placed_meta_step(s, b, loss_fn=loss, cfg=mcfg,
+                                          placement=placement, lr=LR),
+            (st, bt), dict(in_place=(0,), groups=placement.labels))
+        print(f"  placed on (1, 1) and costed in "
+              f"{time.perf_counter() - t0:.2f} s: {got.flops:.6e} flops "
+              f"({jc.flops:.6e} unplaced), {got.hbm_bytes:.6e} bytes "
+              f"({jc.hbm_bytes:.6e}), kernel calls {got.kernel_calls} "
+              f"({jc.kernel_calls}), {got.collective_bytes:.0f} collective "
+              f"bytes")
+        assert got.flops == jc.flops, (got.flops, jc.flops)
+        assert got.hbm_bytes == jc.hbm_bytes, (got.hbm_bytes, jc.hbm_bytes)
+        assert got.kernel_calls == jc.kernel_calls
+        assert got.collective_bytes == 0 and got.collective_calls == 0
+    finally:
+        dist.destroy_process_group()
+
+
+def api_loss(cfg):
+    from repro_torch.models import api
+
+    return lambda p, b: api.loss_fn(p, cfg, b)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def placed_steps_on_the_card() -> dict:
+    """Phase 19b. A real one-GPU DeviceMesh (NCCL, world size 1) in a
+    process of its own: phase 4's state (Qwen3-1.7B widths, DEPTH layers,
+    L=4, K=4, B=8, S=64) placed by ``specs.state_shardings`` and stepped
+    PLACED_STEPS meta steps by the placed step; its planes equal the
+    unplaced run's from the same start bitwise, and it launches
+    ``sgd_apply`` and ``fused_momentum_broadcast`` as often. Returns the
+    placed run's launches."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    args = [str(x) for x in (DEPTH, L, 4, 8, 64, PLACED_STEPS, free_port(),
+                             LR, "cuda", "nccl", "full")]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", PLACED_STEP_SCRIPT, *args],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"  in {time.perf_counter() - t0:.1f} s (a process of its own): "
+          f"planes equal {out['equal']}; launches placed {out['placed']}, "
+          f"unplaced {out['unplaced']}; losses {out['loss']}; learner "
+          f"placements {out['placements']}")
+    assert all(out["equal"].values()), out
+    assert out["placed"] == out["unplaced"] == dict(
+        fused_momentum_broadcast=PLACED_STEPS,
+        sgd_apply=PLACED_STEPS * 4 * L), out
+    assert out["loss"][0] == out["loss"][1], out
+    return out["placed"]
+
+
+def start_dry_run():
+    """Phase 19c's dry run, started in a process of its own (its fake
+    process group of 256 ranks never reaches this one) so that it runs on
+    the host while 19a and 19b run: ``python -m repro_torch.launch.dryrun``
+    for DRYRUN_ARCHS x DRYRUN_SHAPES on the single (32, 8) H100 mesh.
+    Returns (the process, its start time)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           *DRYRUN_ARCHS, "--shape", *DRYRUN_SHAPES, "--mesh", "single"]
+    return (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True),
+            time.perf_counter())
+
+
+def dry_run_rows(started) -> None:
+    """Phase 19c. The dry run started by ``start_dry_run``, then
+    ``run.py --only roofline`` on the rows. Every row is written; a train
+    row's meta average is an all-reduce over 'data' of at least the
+    device's plane. Every number of a row is modeled at the data sheet's
+    rates, none measured."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun_lib as D
+    from repro_torch.launch import specs as S
+    from repro_torch.pack import make_pack_spec
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, (out[-3000:], err[-3000:])
+    print(f"  dry run of {len(DRYRUN_ARCHS) * len(DRYRUN_SHAPES)} rows "
+          f"done {time.perf_counter() - t0:.1f} s after its start (CPU, "
+          f"meta device; beside 19a and 19b)")
+    for arch in DRYRUN_ARCHS:
+        for shape in DRYRUN_SHAPES:
+            path = Path(D.result_path(arch, shape, "single"))
+            row = json.loads(path.read_text())
+            rf, mem, coll = row["roofline"], row["memory"], row["collectives"]
+            print(f"  {arch} {shape} (modeled): args "
+                  f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, temp "
+                  f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB, "
+                  f"{rf['hlo_flops']:.4e} flops, {rf['hlo_bytes']:.4e} "
+                  f"bytes, collectives {coll['by_type']} by axes "
+                  f"{coll['by_axes']}; compute {rf['compute_s']:.4g} s, "
+                  f"memory {rf['memory_s']:.4g} s, collective "
+                  f"{rf['collective_s']:.4g} s: {rf['bottleneck']}-bound")
+            assert row["cost"]["flops"] > 0 and rf["chips"] == 256, row
+            if shape.startswith("train"):
+                cfg = get_config(arch)
+                rows = make_pack_spec(S.abstract_params(cfg)).rows
+                plane = rows * 128 * 4 // (8 if rows % 64 == 0 else 1)
+                assert coll["by_type"].get("all-reduce", 0) >= plane, row
+                assert coll["by_axes"].get("data", 0) >= plane, row
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.benchmarks.run", "--only",
+         "roofline", "--bench-dir", ""], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for arch in DRYRUN_ARCHS:
+        for shape in DRYRUN_SHAPES:
+            assert f"| {arch} | {shape} | single |" in proc.stdout, (
+                arch, shape, proc.stdout[-3000:])
+    print("  run.py --only roofline tabulates the rows")
 
 
 def obs_cost_launcher(torch, tmp: Path) -> None:
@@ -4659,7 +4910,7 @@ def main() -> int:
     measured_rates(torch)
     stamp(f"phase 18b: the cost model (roofline.cost.jit_cost) of phase "
           f"4's meta step ({DEPTH} layers, L={L}) against the card")
-    cost_counts = cost_against_the_card(torch, ops)
+    cost_counts, cost_inputs = cost_against_the_card(torch, ops)
     import tempfile
 
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -4670,6 +4921,28 @@ def main() -> int:
         cost_benches(torch, ops, Path(tmp))
     print(f"  phase 18 in {time.perf_counter() - t18:.1f} s; launches on "
           f"the costed step {nonzero(cost_counts)}")
+
+    t19 = time.perf_counter()
+    dry_run = start_dry_run()
+    try:
+        stamp(f"phase 19a: phase 18b's step placed on a (1, 1) DeviceMesh, "
+              f"costed as the dry run costs a rank")
+        placed_cost_on_a_1x1_mesh(cost_inputs)
+        del cost_inputs
+        stamp(f"phase 19b: the placed meta step on a one-GPU NCCL "
+              f"DeviceMesh, {PLACED_STEPS} meta steps against the unplaced "
+              f"step")
+        placed_counts = placed_steps_on_the_card()
+    except BaseException:
+        dry_run[0].kill()  # a failed phase stops the process it started
+        dry_run[0].communicate()
+        raise
+    stamp("phase 19c: the dry run of the (32, 8) H100 mesh, "
+          f"{'/'.join(DRYRUN_ARCHS)} x {'/'.join(DRYRUN_SHAPES)}, and "
+          f"run.py --only roofline")
+    dry_run_rows(dry_run)
+    print(f"  phase 19 in {time.perf_counter() - t19:.1f} s; launches on "
+          f"the placed steps {placed_counts}")
 
     # each kernel's launches in the run of the path it serves: the dense
     # and compressed full-width runs, the reduced per-leaf runs, the gossip

@@ -9,11 +9,13 @@ mu 0 and 0.7, one seed in quick mode and seeds 0, 1, 2 otherwise.
 
 The time proxy prices a meta step at K + comm_ratio local steps. Its
 ``comm_ratio=14.0`` is the reference's model input, the collective over
-compute term of a TPU dry run (qwen3-1.7b, train_4k, single-pod mesh): it
-is printed as such, is not measured here and is no speed figure of the
-port. An H100 ratio needs a dry run's collective bytes over its compute
-term (``roofline.terms.compute_terms`` has the terms; the collective
-bytes wait for the dry-run half, ROADMAP Queue 1, item 10).
+compute term of JAX's own dry-run row (qwen3-1.7b, train_4k, single-pod
+TPU mesh); the parity tests feed it, and it is printed as such. Beside
+it the sweep prints the port's ratio for the same row on the single H100
+mesh, ``H100_COMM_RATIO``: ``collective_s / compute_s`` of the port's dry
+run (``python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape
+train_4k --mesh single``), modeled at the data sheet's rates, not
+measured; ``tests/test_torch_dryrun.py`` recomputes it.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.k_sweep --quick \\
       [--device cpu]
@@ -36,6 +38,10 @@ KS = (1, 2, 4, 8, 16)
 TOTAL_LOCAL_STEPS = 128  # S = N * K held constant
 P, BATCH = 4, 8
 COMM_RATIO = 14.0  # the reference's TPU dry-run input, not measured here
+# the port's dry run of the same row on the (32, 8) H100 mesh: the meta
+# all-reduce of the 6.88 GB plane over 'data' at 50 GB/s (0.1376 s) over
+# one learner's K=2 local steps at the bf16 rate (0.8705 s); modeled
+H100_COMM_RATIO = 0.15813133542346233
 
 
 def sweep(mu, seeds=(0, 1, 2), lr=0.15, device="cuda",
@@ -83,6 +89,8 @@ def main(quick: bool = False, comm_ratio: float = COMM_RATIO, device="cuda",
     k_opt_time = max(eff, key=eff.get)
     log(f"k_sweep,comm_ratio={comm_ratio},reference TPU dry-run ratio, "
         f"not measured here")
+    log(f"k_sweep,comm_ratio_h100={H100_COMM_RATIO},the port's dry run "
+        f"(qwen3-1.7b train_4k, single H100 mesh), modeled")
     for K in KS:
         log(f"k_sweep,time_proxy,K={K},time={times[K]},acc_per_time="
             f"{eff[K]:.2e}")

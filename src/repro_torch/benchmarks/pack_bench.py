@@ -7,12 +7,13 @@ Five layers of numbers, as the reference's:
 1. *Parity*: the packed meta step against the per-leaf path on the
    MLP, per topology (flat, hierarchical, gossip) and comm scheme (dense,
    int8 + EF, top-k + EF). Dense cells are the same algebra in another
-   layout: JAX's are bitwise, the port's within rtol 1e-5 of the meta
-   params (``DENSE_RTOL``), because ATen's CPU mean over the learner
-   axis sums a leaf narrower than its vector width (the MLP's 10-wide
-   output bias) in another order than a wide one, one rounding apart at
-   L=8 (at L=2, one add, they are bitwise: ``tests/test_torch_meta.py``);
-   the rows say whether a cell came out bitwise. int8 + EF cells agree to
+   layout: JAX's are bitwise, the port's held within rtol 1e-5 of the
+   meta params (``DENSE_RTOL``). The flat cell is bitwise on the CPU:
+   the learner mean sums in one order for every leaf width
+   (``utils/tree.py::mean_axis0``, ``tests/test_torch_mean.py``); the
+   hierarchical and gossip mixes take ATen's mean, whose CPU order
+   differs between a narrow leaf and a wide plane, one rounding apart.
+   The rows say whether a cell came out bitwise. int8 + EF cells agree to
    quantization noise (the packed wire chunks the packed layout, the
    per-leaf wire each leaf) and within 2 % final loss; top-k cells
    (whole-model against per-leaf selection) within 2 % final loss.

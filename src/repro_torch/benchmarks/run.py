@@ -13,12 +13,9 @@
   B  robust_bench.py    robust aggregation under sticky corruption
   K  kernel_bench.py    the kernels: launches, padding, measured vs modeled
   P  pack_bench.py      the packed meta plane: parity, in-place peak memory
+  R  roofline_table.py  the dry run's rows (build/dryrun/, written by
+                        repro_torch.launch.dryrun) as roofline tables
      ablations.py       block-momentum flavours
-
-The reference's ``roofline`` suite tabulates the dry run of a TPU mesh;
-it waits for the port's dry run, the dry-run and placement half of
-ROADMAP Queue 1, item 10. Naming it in ``--only`` raises; a default run
-prints that it was not run, and why.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run [--only k mu_p ...] \\
       [--full] [--device cpu] [--bench-dir build/bench_out]
@@ -45,13 +42,6 @@ import sys
 import time
 import traceback
 
-# suites of the reference that read the dry run of a mesh
-NOT_PORTED = {
-    "roofline": "benchmarks/roofline_table.py aggregates the dry run "
-                "(launch/dryrun*.py), not ported yet",
-}
-ITEM_10 = ("ROADMAP Queue 1, item 10: the dry-run and placement half "
-           "(sharding/rules.py, launch/{mesh,specs,dryrun_lib,dryrun}.py)")
 DEFAULT_BENCH_DIR = "build/bench_out"
 
 
@@ -70,6 +60,7 @@ def suites(quick: bool, device: str) -> dict:
         mu_p_sweep,
         pack_bench,
         robust_bench,
+        roofline_table,
         topology_bench,
     )
 
@@ -87,6 +78,7 @@ def suites(quick: bool, device: str) -> dict:
         "ablations": lambda: ablations.main(quick=quick, device=device),
         "kernel": lambda: kernel_bench.main(quick=quick, device=device),
         "pack": lambda: pack_bench.main(quick=quick, device=device),
+        "roofline": roofline_table.main,
     }
 
 
@@ -118,7 +110,7 @@ def main(argv=None) -> None:
     ap.add_argument("--only", nargs="*", default=None,
                     help="subset: convergence mu_p k baselines comm "
                          "topology elastic async chaos robust ablations "
-                         "kernel pack")
+                         "kernel pack roofline")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--bench-dir", default=DEFAULT_BENCH_DIR,
                     help="directory of the BENCH_<suite>.json trajectory "
@@ -130,18 +122,10 @@ def main(argv=None) -> None:
 
     table = suites(quick, args.device)
     if args.only:
-        refused = [s for s in args.only if s in NOT_PORTED]
-        if refused:
-            raise NotImplementedError(
-                f"suites {refused} are not ported: " + "; ".join(
-                    NOT_PORTED[s] for s in refused) + f" ({ITEM_10})")
         unknown = [s for s in args.only if s not in table]
         if unknown:
             ap.error(f"unknown suites {unknown}")
         table = {k: v for k, v in table.items() if k in args.only}
-    else:
-        for name, why in NOT_PORTED.items():
-            print(f"bench,{name},not run: {why} ({ITEM_10})")
 
     failed = []
     for name, fn in table.items():

@@ -306,7 +306,7 @@ def _finite_guard(learners, local_mom, gp, metrics, L):
 
 def meta_step(state: MetaState, batches, *, loss_fn: LossFn,
               cfg: MAvgConfig, lr=None, reducer=None, topology=None,
-              chaos=None) -> tuple[MetaState, dict]:
+              chaos=None, rows=None) -> tuple[MetaState, dict]:
     """One meta-iteration n -> n+1 of Algorithm 1 (or a baseline).
 
     batches: dict of (L, K, B_local, ...) tensors on the state's device.
@@ -315,7 +315,11 @@ def meta_step(state: MetaState, batches, *, loss_fn: LossFn,
     post-local-phase learner planes, where the reducer picks the payload
     up; ``cfg.finite_guard`` then screens the (possibly corrupted) planes
     before the mix. The input state is updated in place and returned; do
-    not reuse it.
+    not reuse it. ``rows``: (gather, scatter), set by the placed step of
+    one rank of a mesh (``sharding/placed.py``) when the learner planes'
+    rows are split: the local phase trains ``gather(learners)`` and
+    ``scatter(learners, trained)`` takes this rank's rows back before the
+    mix.
     """
     lr = f32(cfg.learner_lr if lr is None else lr)
     if topology is None:
@@ -327,10 +331,14 @@ def meta_step(state: MetaState, batches, *, loss_fn: LossFn,
     steps = topology.local_steps(state.topo, state.step)
     # profiler ranges named as the JAX step's named scopes
     with torch.profiler.record_function("obs.local_phase"):
+        learners = state.learners if rows is None else rows[0](
+            state.learners)
         learners, local_mom, loss, gnorm, loss_l, active = _local_phase(
-            loss_fn, state.learners, state.local_momentum, batches, cfg, lr,
+            loss_fn, learners, state.local_momentum, batches, cfg, lr,
             spec=state.spec, steps=steps,
         )
+        if rows is not None:
+            learners = rows[1](state.learners, learners)
     metrics = {
         "loss": loss,
         "grad_norm": gnorm,

@@ -71,7 +71,15 @@ class Trainer:
         batch_fn: Callable,  # (generator, step) -> batches (L, K, B, ...)
         lr_schedule: Optional[Callable] = None,
         device="cuda",
+        mesh=None,
+        state_shardings=None,
     ):
+        """``mesh``: a DeviceMesh (this process one rank of it); the state
+        is then placed by ``state_shardings`` (default
+        ``launch.specs.state_shardings`` of the model) and each step is
+        this rank's placed meta step (``sharding/placed.py``) on its
+        learners' slice of every batch. ``state_shardings`` without a mesh
+        is ignored, as in JAX."""
         from repro_torch.topology import make_topology
 
         self.cfg = train_cfg
@@ -109,6 +117,9 @@ class Trainer:
         self._step_fn = make_meta_step(loss_fn, self.mcfg,
                                        topology=self._topology,
                                        chaos=chaos_corruptor)
+        self.mesh = mesh
+        if mesh is not None:
+            self._place(mesh, state_shardings)
         # telemetry is built at the first step (the metric keys come from
         # its returned metrics)
         self._mb: Optional[MetricsBuffer] = None
@@ -128,6 +139,46 @@ class Trainer:
         self.robust_records: list[dict] = []
         self.quarantined: dict[int, int] = {}  # learner -> quarantine step
         self._anomaly_streak = None
+
+    def _place(self, mesh, state_shardings) -> None:
+        """Place the state on ``mesh`` and step it through the placed
+        meta step (the packed flat dense step; telemetry rings work, the
+        features that read or write whole planes on the host do not)."""
+        from repro_torch.launch import mesh as meshlib
+        from repro_torch.launch import specs
+        from repro_torch.sharding import Spec
+        from repro_torch.sharding.placed import (
+            Placement,
+            check_supported,
+            placed_meta_step,
+        )
+
+        check_supported(self.mcfg)
+        off = [name for name, on in (
+            ("chaos", self.cfg.chaos is not None),
+            ("checkpoint_dir", bool(self.cfg.checkpoint_dir)),
+            ("obs.cost_analysis", self.obs_cfg.cost_analysis),
+            ("obs.attribution", self.obs_cfg.attribution)) if on]
+        if off:
+            raise NotImplementedError(
+                f"a Trainer on a mesh runs without {off}: they read or "
+                f"write whole planes on the host")
+        if state_shardings is None:
+            state_shardings = specs.state_shardings(self.cfg.model, self.mcfg,
+                                                    mesh)
+        self.state = specs.place_tree(self.state, state_shardings, mesh)
+        laxes = meshlib.learner_axes(mesh)
+        placement = Placement(mesh, laxes)
+        batch_spec = Spec(laxes if len(laxes) > 1 else laxes[0])
+        loss_fn, mcfg = self.loss_fn, self.mcfg
+
+        def step(state, batches, lr=None):
+            placed = {k: specs.place(v, batch_spec, mesh)
+                      for k, v in batches.items()}
+            return placed_meta_step(state, placed, loss_fn=loss_fn, cfg=mcfg,
+                                    placement=placement, lr=lr)
+
+        self._step_fn = step
 
     # ------------------------------------------------------------------
     # telemetry assembly (once per Trainer, at the first step)

@@ -46,14 +46,20 @@ from repro_torch.kernels.planes import (
     layout,
     to_2d,
 )
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import is_dtensor, tree_map
 
 
 def _route(x: torch.Tensor, plain, cuda, cost):
     """The plain version for a CPU tensor, the kernel for a CUDA tensor,
     and for a meta tensor the meta route (``kernels/cost.py``): the plain
     version for the output shapes, ``cost`` charged to the active cost
-    counter, nothing launched."""
+    counter, nothing launched. A DTensor raises: a kernel works on one
+    rank's local pieces (``_local_pieces``), never on a DTensor, so it
+    cannot take the plain version unnoticed."""
+    if is_dtensor(x):
+        raise TypeError(
+            "a DTensor reached a kernel; pass its local piece "
+            "(x.to_local()): the kernels run on one rank's pieces")
     if x.device.type == "cpu":
         return plain
     if x.device.type == "cuda":
@@ -61,6 +67,44 @@ def _route(x: torch.Tensor, plain, cuda, cost):
     if x.device.type == "meta":
         return _kcost.on_meta(plain, cost)
     raise ValueError(f"no kernel for device {x.device}")
+
+
+def _local_pieces(*xs, stacked=()):
+    """The local pieces of the arguments of an elementwise kernel, where
+    they are DTensors, and None where they are not.
+
+    The pieces of one rank must line up element for element: every
+    DTensor on one mesh, with one layout, and each of ``stacked`` (an
+    (L, ...) stack over the others' (...)) with its split dims one further
+    and its learner dim split only over mesh dims the others are whole
+    on (this rank's learners). Anything else raises (redistribute first).
+    """
+    ds = [x for x in xs + tuple(stacked) if is_dtensor(x)]
+    if not ds:
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+
+    ref = next((x for x in xs if is_dtensor(x)), None)
+    want = ref.placements if ref is not None else None
+
+    def stacks(p, w):  # placement p of a stack over w of a plane
+        if isinstance(w, Shard):
+            return p == Shard(w.dim + 1)
+        return p in (w, Shard(0))
+
+    for x in xs + tuple(stacked):
+        if x is None:
+            continue
+        if not is_dtensor(x):
+            raise TypeError("a kernel got DTensors and plain tensors mixed")
+        pl = tuple(x.placements)
+        ok = x.device_mesh == ref.device_mesh and (
+            pl == tuple(want) if any(x is y for y in xs)
+            else all(stacks(p, w) for p, w in zip(pl, want)))
+        if not ok or any(not isinstance(p, (Shard, Replicate)) for p in pl):
+            raise ValueError(
+                f"the pieces do not line up: {pl} against {tuple(want)}")
+    return [None if x is None else x.to_local() for x in xs + tuple(stacked)]
 
 
 # ---------------------------------------------------------------------------
@@ -170,7 +214,14 @@ def neighbor_mix_tree(tree, w, *, step=None, in_place=False):
 
 def sgd_apply(w, g, lr, *, out=None):
     """(f32(w) - lr f32(g)).astype(w.dtype) on one array, into ``out``
-    when given (``out=w`` updates in place)."""
+    when given (``out=w`` updates in place). DTensors of one layout are
+    updated through their local pieces (``out`` is then required)."""
+    pieces = _local_pieces(w, g, out)
+    if pieces is not None:
+        if out is None:
+            raise ValueError("sgd_apply on DTensors updates ``out``")
+        sgd_apply(pieces[0], pieces[1], lr, out=pieces[2])
+        return out
     fn = _route(w, _sgd.sgd_apply_plain, _sgd.sgd_apply_cuda, _sgd.cost)
     if is_packed_plane(w):
         return fn(w, g, lr, out=out)
@@ -190,7 +241,20 @@ def fused_momentum_broadcast(w, v, a, *, mu, eta=1.0, num_learners,
                              ldtype=None, nesterov=False, w_out=None,
                              v_out=None, learners_out=None):
     """Block momentum + learner reset on the packed (rows, 128) meta plane
-    in one pass. Returns (w', v', learners (L, rows, 128) ``ldtype``)."""
+    in one pass. Returns (w', v', learners (L, rows, 128) ``ldtype``).
+    DTensors (the planes of one layout, the learner stack split one dim
+    further) are updated in place through their local pieces."""
+    pieces = _local_pieces(w, v, a, w_out, v_out, stacked=(learners_out,))
+    if pieces is not None:
+        if w_out is None or v_out is None or learners_out is None:
+            raise ValueError("fused_momentum_broadcast on DTensors updates "
+                             "w_out, v_out and learners_out in place")
+        pw, pv, pa, pwo, pvo, plo = pieces
+        fused_momentum_broadcast(pw, pv, pa, mu=mu, eta=eta,
+                                 num_learners=plo.shape[0], ldtype=ldtype,
+                                 nesterov=nesterov, w_out=pwo, v_out=pvo,
+                                 learners_out=plo)
+        return w_out, v_out, learners_out
     if not is_packed_plane(w):
         raise ValueError(f"not a packed (rows, 128) plane: {tuple(w.shape)}")
     fn = _route(w, _fm.fused_momentum_broadcast_plain,

@@ -22,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.utils.tree import is_dtensor
 
 # ---------------------------------------------------------------------------
 # init
@@ -124,8 +125,13 @@ def swiglu(x, p):
     """x: (..., d); wi (d, 2, f) holds [gate, up]; wo (f, d)."""
     wi = p["wi"].to(x.dtype)
     d, _, f = wi.shape
-    h = (x @ wi.reshape(d, 2 * f)).unflatten(-1, (2, f))
-    gate, up = h[..., 0, :], h[..., 1, :]
+    if is_dtensor(wi):
+        # a DTensor with f split (the dry run): two column-parallel
+        # products; merging (2, f) would gather the weight
+        gate, up = x @ wi[:, 0, :], x @ wi[:, 1, :]
+    else:
+        h = (x @ wi.reshape(d, 2 * f)).unflatten(-1, (2, f))
+        gate, up = h[..., 0, :], h[..., 1, :]
     return (F.silu(gate) * up) @ p["wo"].to(x.dtype)
 
 
@@ -164,7 +170,24 @@ def attention_scores_block(q, k, v, scale, mask):
 
 
 def _expand_kv(k, n_rep: int):
-    return k if n_rep == 1 else torch.repeat_interleave(k, n_rep, dim=2)
+    """Each of the (B, S, KV, D) heads repeated ``n_rep`` times in place
+    (``repeat_interleave`` on dim 2). A DTensor (the dry run) is expanded
+    piece by piece: a split of any dim, the heads' included, stays the
+    same split of the result (head h of the result is KV head h // n_rep),
+    where DTensor's own view rules lose or refuse it."""
+    if n_rep == 1:
+        return k
+    if is_dtensor(k):
+        from torch.distributed.tensor import DTensor
+
+        B, S, KV, D = k.shape
+        out = _expand_kv(k.to_local(), n_rep)
+        return DTensor.from_local(out, k.device_mesh, k.placements,
+                                  run_check=False,
+                                  shape=(B, S, KV * n_rep, D),
+                                  stride=(S * KV * n_rep * D,
+                                          KV * n_rep * D, D, 1))
+    return torch.repeat_interleave(k, n_rep, dim=2)
 
 
 def full_attention(q, k, v, *, causal, sliding_window=0, q_offset=0,
@@ -271,6 +294,8 @@ def attention_block(x, p, cfg: ModelConfig, positions, use_pallas=False):
 def decode_attention(q, kc, vc, valid, cfg: ModelConfig):
     """One query position against a cache (B, S, KV, D) under the (S,)
     mask ``valid``: f32 softmax, p cast to q's dtype (JAX's op order)."""
+    if is_dtensor(kc):
+        return _decode_attention_placed(q, kc, vc, valid, cfg)
     n_rep = cfg.num_heads // cfg.num_kv_heads
     kk = _expand_kv(kc.to(q.dtype), n_rep)
     vv = _expand_kv(vc.to(q.dtype), n_rep)
@@ -279,6 +304,97 @@ def decode_attention(q, kc, vc, valid, cfg: ModelConfig):
     s = torch.where(valid[None, None, None, :], s, torch.full_like(s, -1e30))
     prob = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bhqs,bshk->bqhk", prob, vv)
+
+
+def _decode_attention_placed(q, kc, vc, valid, cfg: ModelConfig):
+    """``decode_attention`` on one rank of a mesh (the dry run), the cache
+    a DTensor split along its batch and sequence dims: the query is laid
+    out like the cache's batch split with every head whole, each rank
+    scores its slice of the sequence, and the softmax is completed across
+    the sequence split by three all-reduces (the max, the sum, the
+    weighted values in f32), as a partitioned softmax is."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    mesh = kc.device_mesh
+    pl = tuple(kc.placements)
+    if any(not (isinstance(p, Replicate) or isinstance(p, Shard)
+                and p.dim in (0, 1)) for p in pl):
+        raise NotImplementedError(f"a cache placed {pl}: split it along "
+                                  "its batch and sequence dims only")
+    seq_groups = [mesh.get_group(i) for i, p in enumerate(pl)
+                  if isinstance(p, Shard) and p.dim == 1]
+    like = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in pl]
+    if not is_dtensor(q):
+        q = DTensor.from_local(q, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    ql = q.redistribute(mesh, like).to_local()
+    shape, offset = compute_local_shape_and_global_offset(kc.shape, mesh, pl)
+    lo, n = offset[1], shape[1]
+    if is_dtensor(valid):
+        valid = valid.full_tensor()
+    valid = valid[lo:lo + n]
+
+    def all_reduce(x, op):
+        for g in seq_groups:
+            x = funcol.wait_tensor(funcol.all_reduce(x, op, g))
+        return x
+
+    n_rep = cfg.num_heads // cfg.num_kv_heads
+    kk = _expand_kv(kc.to_local().to(ql.dtype), n_rep)
+    vv = _expand_kv(vc.to_local().to(ql.dtype), n_rep)
+    s = torch.einsum("bqhk,bshk->bhqs", ql, kk).to(torch.float32)
+    s = s / math.sqrt(cfg.head_dim)
+    s = torch.where(valid[None, None, None, :], s, torch.full_like(s, -1e30))
+    m = all_reduce(s.amax(dim=-1, keepdim=True), "max")
+    e = torch.exp(s - m)
+    total = all_reduce(e.sum(dim=-1, keepdim=True), "sum")
+    prob = (e / total).to(ql.dtype)
+    out = all_reduce(torch.einsum("bhqs,bshk->bqhk", prob, vv).to(
+        torch.float32), "sum").to(ql.dtype)
+    B, Q, H, D = q.shape
+    return DTensor.from_local(out, mesh, like, run_check=False,
+                              shape=(B, Q, H, D),
+                              stride=(Q * H * D, H * D, D, 1))
+
+
+def index_copy_(cache, dim: int, idx, src):
+    """``cache.index_copy_(dim, idx, src)``. A DTensor cache (the dry run
+    of a mesh) whose ``dim`` is split over a mesh axis is written rank by
+    rank: the rank holding row ``idx`` writes it and the others rewrite
+    their clamped row as it was (a masked write, no host read), ``src``
+    first laid out like the cache with ``dim`` whole. DTensor has no
+    general rule for an indexed in-place write along a split dim."""
+    if not is_dtensor(cache):
+        return cache.index_copy_(dim, idx, src)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    mesh = cache.device_mesh
+    whole = [Replicate() if isinstance(q, Shard) and q.dim == dim else q
+             for q in cache.placements]
+    if not is_dtensor(src):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    if is_dtensor(idx):
+        idx = idx.full_tensor()
+    src = src.redistribute(mesh, whole).to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        cache.shape, mesh, cache.placements)
+    lo, n = offset[dim], shape[dim]
+    local = cache.to_local()
+    j = (idx - lo).clamp(0, n - 1)
+    mine = ((idx >= lo) & (idx < lo + n)).view(
+        [-1 if d == dim else 1 for d in range(local.dim())])
+    local.index_copy_(dim, j, torch.where(mine, src,
+                                          local.index_select(dim, j)))
+    return cache
 
 
 def attention_decode(x, p, cfg: ModelConfig, k_cache, v_cache, pos):
@@ -290,8 +406,8 @@ def attention_decode(x, p, cfg: ModelConfig, k_cache, v_cache, pos):
     """
     q, k_new, v_new = _qkv(x, p, cfg, pos.view(1))
     idx = pos.view(1).long()
-    k_cache.index_copy_(1, idx, k_new.to(k_cache.dtype))
-    v_cache.index_copy_(1, idx, v_new.to(v_cache.dtype))
+    index_copy_(k_cache, 1, idx, k_new.to(k_cache.dtype))
+    index_copy_(v_cache, 1, idx, v_new.to(v_cache.dtype))
     kpos = torch.arange(k_cache.shape[1], device=x.device)
     valid = kpos <= pos
     if cfg.sliding_window:

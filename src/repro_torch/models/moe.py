@@ -12,18 +12,96 @@ sizes C for the worst case, C = T. The combine gathers each token's slots
 back and sums them in the order the reference's scatter-add adds them,
 with no atomics, so a run on the card repeats bit for bit.
 
-The reference's expert-parallel placements (``EXPERT_AXIS``,
-``SHARD_MAP_MESH``, the ``shard_map`` path) are GSPMD annotations, no-ops
-on one device; they wait for the placement of the dry-run half
-(ROADMAP Queue 1, item 10: the experts' dim over a DeviceMesh axis).
+The expert-parallel placements (``EXPERT_AXIS``, ``SHARD_MAP_MESH``,
+``set_expert_axis``), on a DeviceMesh where the weights and activations
+are DTensors (the dry run of a mesh, ``launch/dryrun_lib.py``); both are
+no-ops unless ``set_expert_axis`` was called, as in JAX:
+
+* ``_constrain_experts`` redistributes the (E, C, d) tables to the expert
+  dim split over the expert axis (JAX's ``with_sharding_constraint``),
+  so the expert matmuls stay local;
+* ``_experts_shard_map`` (serving only, as JAX's ``shard_map``, when a
+  mesh is set too): each rank runs its E / n experts on the replicated
+  token block, and one all-reduce of the f32 (T, d) partial combines
+  them.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, init_mlp, swiglu
+from repro_torch.utils.tree import is_dtensor
+
+# the mesh axis the expert dim is split over (None: no placement), and the
+# DeviceMesh of the manual expert-parallel path (None: the DTensor path)
+EXPERT_AXIS = None
+SHARD_MAP_MESH = None
+
+
+def set_expert_axis(axis, mesh=None):
+    global EXPERT_AXIS, SHARD_MAP_MESH
+    EXPERT_AXIS = axis
+    SHARD_MAP_MESH = mesh
+
+
+@contextlib.contextmanager
+def expert_axis(axis, mesh=None):
+    """``set_expert_axis`` for the ``with`` block, then back."""
+    saved = (EXPERT_AXIS, SHARD_MAP_MESH)
+    set_expert_axis(axis, mesh)
+    try:
+        yield
+    finally:
+        set_expert_axis(*saved)
+
+
+def _expert_dim(mesh) -> int:
+    return list(mesh.mesh_dim_names).index(EXPERT_AXIS)
+
+
+def _constrain_experts(x):
+    """Split the expert dim (0) of an (E, C, ...) DTensor over the expert
+    axis, every other mesh dim replicated (JAX's ``P(EXPERT_AXIS, None,
+    ...)``). Left to itself DTensor may keep the table replicated and
+    gather the expert weights instead. No-op unless ``set_expert_axis``
+    was called, or on a plain tensor (one device)."""
+    if EXPERT_AXIS is None or not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    pl = [Replicate()] * mesh.ndim
+    pl[_expert_dim(mesh)] = Shard(0)
+    return x.redistribute(mesh, pl)
+
+
+def _replicated(x):
+    """A DTensor's whole value on every rank (this rank's plain tensor)."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh,
+                          [Replicate()] * x.device_mesh.ndim).to_local()
+
+
+def _expert_piece(w, shard: int, n: int):
+    """Experts [shard E/n, (shard + 1) E/n) of an (E, ...) weight: this
+    rank's piece of a DTensor split over the expert axis (redistributed
+    there first), or a slice of a plain tensor."""
+    if is_dtensor(w):
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh = w.device_mesh
+        pl = [Replicate()] * mesh.ndim
+        pl[_expert_dim(mesh)] = Shard(0)
+        return w.redistribute(mesh, pl).to_local()
+    e = w.shape[0] // n
+    return w[shard * e:(shard + 1) * e]
 
 
 def init_moe(gen, cfg: ModelConfig, device, lead=()) -> dict:
@@ -79,20 +157,23 @@ def _assign(probs, idx, cfg: ModelConfig, dropless: bool = False):
     gates = probs.gather(1, idx)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
-    # load-balance auxiliary loss (Switch-style)
-    slot_expert = idx.reshape(-1)  # (T*k,)
-    me = probs.mean(0)
-    ce = torch.bincount(slot_expert, minlength=E).to(torch.float32) / (T * k)
-    aux = E * torch.sum(me * ce) * cfg.moe_aux_coef
-
     # slot s = (t, j) -> its position in expert slot_expert[s]'s buffer:
     # the running count of the expert's slots in flattened slot order. The
     # one-hot is (E, T*k), so the count is a scan along its inner dim (the
     # reference's (T*k, E) cumsum, transposed: along the outer dim the
     # card's scan takes 4.5 ms a layer at T*k = 24,576)
+    slot_expert = idx.reshape(-1)  # (T*k,)
     C = _capacity(T, cfg, dropless)
     experts = torch.arange(E, device=idx.device)
     counts = torch.cumsum(slot_expert[None, :] == experts[:, None], dim=1)
+
+    # load-balance auxiliary loss (Switch-style); the scan's last column
+    # is each expert's slot count (the reference's bincount, whose output
+    # length depends on the data, which DTensor cannot propagate)
+    me = probs.mean(0)
+    ce = counts[:, -1].to(torch.float32) / (T * k)
+    aux = E * torch.sum(me * ce) * cfg.moe_aux_coef
+
     pos_in_e = counts.gather(0, slot_expert[None, :])[0] - 1
     keep = pos_in_e < C
     pos_clamped = torch.clamp(pos_in_e, max=C - 1)
@@ -109,6 +190,13 @@ def moe_layer(x, p, cfg: ModelConfig, dropless: bool = False):
 
     gates, slot_expert, pos_clamped, keep, aux, C = _route(xt, p, cfg,
                                                            dropless)
+    if SHARD_MAP_MESH is not None and EXPERT_AXIS is not None:
+        out = _experts_shard_map(xt, p, cfg, gates, slot_expert,
+                                 pos_clamped, keep, C)
+        if cfg.num_shared_experts:
+            out = out + swiglu(xt, p["shared"])
+        return out.reshape(B, S, d), aux
+
     # the (E, C) dispatch table of token ids, sentinel T = empty. Dropped
     # (over-capacity) slots write to one extra cell past the table, which
     # is cut off: they must not overwrite the slot that fills the capacity
@@ -116,7 +204,7 @@ def moe_layer(x, p, cfg: ModelConfig, dropless: bool = False):
     flat = torch.where(keep, slot_expert * C + pos_clamped,
                        torch.full_like(slot_expert, E * C))
     dispatch = torch.full((E * C + 1,), T, dtype=torch.long,
-                          device=x.device).scatter_(0, flat, token_of_slot)
+                          device=x.device).scatter(0, flat, token_of_slot)
     dispatch = dispatch[:E * C].view(E, C)
     # the gates laid out like the table, out of place so that autograd
     # carries their gradient to the router
@@ -126,7 +214,7 @@ def moe_layer(x, p, cfg: ModelConfig, dropless: bool = False):
     gate_tab = gate_tab[:E * C].view(E, C)
 
     xt_pad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
-    x_e = xt_pad[dispatch]  # (E, C, d)
+    x_e = _constrain_experts(xt_pad[dispatch])  # (E, C, d)
     # each (E, C, ...) table is dropped as soon as the next is formed: a
     # dropless prefill's are 1-1.5 GB each (serving keeps no graph)
     w_in = p["w_in"].to(dt)
@@ -134,7 +222,7 @@ def moe_layer(x, p, cfg: ModelConfig, dropless: bool = False):
     h = torch.bmm(x_e, w_in.reshape(E, d, 2 * de)).view(E, C, 2, de)
     del x_e, w_in
     h = F.silu(h[..., 0, :]) * h[..., 1, :]
-    y_e = torch.bmm(h, p["w_out"].to(dt))  # (E, C, d)
+    y_e = _constrain_experts(torch.bmm(h, p["w_out"].to(dt)))  # (E, C, d)
     del h
     y_w = y_e * gate_tab[..., None].to(dt)
     del y_e
@@ -149,3 +237,60 @@ def moe_layer(x, p, cfg: ModelConfig, dropless: bool = False):
     if cfg.num_shared_experts:
         out = out + swiglu(xt, p["shared"])
     return out.reshape(B, S, d), aux
+
+
+def local_experts(xt, gates, slot_expert, pos_clamped, keep, C, w_in, w_out,
+                  lo: int, k: int):
+    """The partial (T, d) f32 output of experts [lo, lo + E_loc) (the
+    weights' pieces ``w_in`` (E_loc, d, 2, de), ``w_out`` (E_loc, de, d)):
+    their slots' rows of the token block, combined per token in slot order
+    as the dense route combines them. The sum over the shards' partials is
+    the dense route's output."""
+    T, d = xt.shape
+    dt = xt.dtype
+    E_loc = w_in.shape[0]
+    mine = keep & (slot_expert >= lo) & (slot_expert < lo + E_loc)
+    flat = torch.where(mine, (slot_expert - lo) * C + pos_clamped,
+                       torch.full_like(slot_expert, E_loc * C))
+    token_of_slot = torch.arange(T, device=xt.device).repeat_interleave(k)
+    dispatch = torch.full((E_loc * C + 1,), T, dtype=torch.long,
+                          device=xt.device).scatter(0, flat, token_of_slot)
+    dispatch = dispatch[:E_loc * C].view(E_loc, C)
+    gate_tab = torch.zeros(E_loc * C + 1, dtype=torch.float32,
+                           device=xt.device).scatter(0, flat,
+                                                     gates.reshape(-1))
+    gate_tab = gate_tab[:E_loc * C].view(E_loc, C)
+    x_e = torch.cat([xt, xt.new_zeros((1, d))], dim=0)[dispatch]
+    w_in = w_in.to(dt)
+    de = w_in.shape[-1]
+    h = torch.bmm(x_e, w_in.reshape(E_loc, d, 2 * de)).view(E_loc, C, 2, de)
+    h = F.silu(h[..., 0, :]) * h[..., 1, :]
+    y_w = torch.bmm(h, w_out.to(dt)) * gate_tab[..., None].to(dt)
+    slots = flat.view(T, k).sort(dim=-1).values
+    rows = y_w.reshape(E_loc * C, d)[slots.clamp(max=E_loc * C - 1)]
+    part = torch.where((slots < E_loc * C)[..., None], rows, 0).sum(dim=1)
+    return part.to(torch.float32)
+
+
+def _experts_shard_map(xt, p, cfg: ModelConfig, gates, slot_expert,
+                       pos_clamped, keep, C):
+    """Manual expert parallelism (serving): each rank of the expert axis
+    owns E / n experts, runs them on the replicated token block and adds
+    its partial (T, d) into one f32 all-reduce over the axis (psum in f32,
+    as JAX's). Returns the (T, d) output in ``xt``'s dtype."""
+    import torch.distributed._functional_collectives as funcol
+
+    mesh = SHARD_MAP_MESH
+    n = mesh.size(_expert_dim(mesh))
+    shard = mesh.get_local_rank(EXPERT_AXIS)
+    dt = xt.dtype
+    xt, gates, slot_expert, pos_clamped, keep = (
+        _replicated(t) for t in (xt, gates, slot_expert, pos_clamped, keep))
+    w_in = _expert_piece(p["w_in"], shard, n)
+    w_out = _expert_piece(p["w_out"], shard, n)
+    part = local_experts(xt, gates, slot_expert, pos_clamped, keep, C,
+                         w_in, w_out, shard * w_in.shape[0], cfg.moe_top_k)
+    if n > 1:
+        part = funcol.wait_tensor(funcol.all_reduce(
+            part, "sum", mesh.get_group(EXPERT_AXIS)))
+    return part.to(dt)

@@ -1,11 +1,10 @@
 """repro_torch.roofline: the port's cost model on an NVIDIA H100 (the
 JAX package's ``repro.roofline``): ``cost.jit_cost``, the cost of one call
-counted on the meta device (``hlo_cost.jit_cost``'s counterpart), and
-``terms``, the wire bytes of a meta step, the roofline terms at the
-H100's data-sheet rates and a kernel's bound. The collective bytes of a
-partitioned program (JAX's ``roofline/hlo.py``) wait for the dry run of
-a mesh (ROADMAP Queue 1, item 10)."""
-from repro_torch.roofline.cost import JitCost, jit_cost
+counted on the meta device (``hlo_cost.jit_cost``'s counterpart), with the
+collective bytes of one rank of a mesh (``roofline/hlo.py``'s
+``collective_bytes``), and ``terms``, the wire bytes of a meta step, the
+roofline terms at the H100's data-sheet rates and a kernel's bound."""
+from repro_torch.roofline.cost import JitCost, collective_bytes, jit_cost
 from repro_torch.roofline.terms import (
     H100_SXM,
     Rates,
@@ -25,6 +24,7 @@ __all__ = [
     "JitCost",
     "Rates",
     "RooflineTerms",
+    "collective_bytes",
     "compute_terms",
     "elastic_presence",
     "jit_cost",

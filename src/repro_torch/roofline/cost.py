@@ -41,10 +41,23 @@ caller's tensors are never touched. It counts:
   ``alias_bytes``.
 
 ``kernel_calls`` counts the kernel calls by name (the names of
-``kernels.ops.launch_counts``). The ``aten::bincount`` of the MoE
-router's load count has no meta kernel; on meta with ``minlength`` it
-gives its ``(minlength,)`` result here (the router's indices lie below
-it).
+``kernels.ops.launch_counts``). ``aten::bincount`` has no meta kernel; on
+meta with ``minlength`` it gives its ``(minlength,)`` result here.
+
+**One device of a mesh** (the dry run, ``launch/dryrun_lib.py``): an
+argument may be a DTensor (``torch.distributed.tensor``). The counter
+then sees what one rank runs: for an op with a DTensor argument it
+returns ``NotImplemented``, as ``CommDebugMode`` does, so DTensor lowers
+the op into the local ops of this rank's pieces and the
+``_c10d_functional`` collectives of its redistributions, and those come
+back through the counter. Only local ops are counted, and a DTensor
+argument's bytes are those of its local piece. Every collective adds its
+result bytes (JAX's rule, ``roofline/hlo.py:95-136``) under its type
+(JAX's names: ``all-reduce``, ``all-gather``, ``reduce-scatter``,
+``all-to-all``, ``collective-permute``; ``broadcast``) and under the
+mesh axes its group spans (``groups`` names them). The port runs
+eagerly, so every layer and local step is counted as it runs: no trip
+counts are needed.
 
 A host read (``.tolist()``, ``bool(t)``) of a meta tensor raises, as an
 abstract value does under ``jax.jit``: the finite guard and the robust
@@ -62,6 +75,7 @@ from collections import Counter
 from dataclasses import dataclass, field
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -99,10 +113,50 @@ _SLICING = {
 }
 
 
+# ``_c10d_functional`` collectives -> JAX's collective names
+COLLECTIVES = {
+    "all_reduce": "all-reduce",
+    "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "broadcast": "broadcast",
+    "broadcast_": "broadcast",
+    "send": "collective-permute",
+    "recv": "collective-permute",
+}
+
+
+def _collective(func):
+    """JAX's name of a functional collective, or None for another op."""
+    if func.namespace not in ("_c10d_functional",
+                              "_c10d_functional_autograd"):
+        return None
+    return COLLECTIVES.get(func._overloadpacket.__name__)
+
+
+_DTENSOR: list = []  # [DTensor class or None], imported at first use
+
+
+def _is_dtensor_type(t) -> bool:
+    if not _DTENSOR:
+        try:
+            from torch.distributed.tensor import DTensor
+        except ImportError:  # a build without torch.distributed
+            DTensor = None
+        _DTENSOR.append(DTensor)
+    return _DTENSOR[0] is not None and issubclass(t, _DTENSOR[0])
+
+
 @dataclass
 class JitCost:
     """The cost of one call of a function (JAX's fields, plus
-    ``kernel_calls``).
+    ``kernel_calls`` and the collectives).
 
     hbm_bytes        bytes the call moves (the eager model above)
     flops            matmul and convolution flops (JAX's dot/conv rule)
@@ -113,6 +167,11 @@ class JitCost:
                      in-place state update, JAX's donation)
     temp_bytes       peak bytes allocated by the call beyond its outputs
     kernel_calls     calls of the port's kernels, by name
+    collective_bytes result bytes of every collective (0 on one device)
+    collectives_by_type  the same, by JAX's collective name
+    collectives_by_axes  the same, by the mesh axes a group spans
+                     ("data", "pod,data", ...; the group name if unknown)
+    collective_calls number of collective calls
     peak_state_bytes arg + out + temp - alias
     """
 
@@ -123,6 +182,10 @@ class JitCost:
     alias_bytes: int
     temp_bytes: int
     kernel_calls: dict = field(default_factory=dict)
+    collective_bytes: float = 0.0
+    collectives_by_type: dict = field(default_factory=dict)
+    collectives_by_axes: dict = field(default_factory=dict)
+    collective_calls: int = 0
 
     @property
     def peak_state_bytes(self) -> int:
@@ -135,8 +198,11 @@ def _key(t: torch.Tensor) -> int:
 
 
 def _tensors(x) -> list:
-    """The tensors of a tensor / dataclass / dict / list / tuple tree."""
+    """The tensors of a tensor / dataclass / dict / list / tuple tree (a
+    DTensor's local piece in its place)."""
     if isinstance(x, torch.Tensor):
+        if _is_dtensor_type(type(x)):
+            return [x._local_tensor]
         return [x]
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         return [t for f in dataclasses.fields(x)
@@ -175,12 +241,16 @@ class _Counter(TorchDispatchMode):
     """Counts flops, bytes, kernel calls and live meta storages of the ATen
     ops run under it."""
 
-    def __init__(self, args: dict):
+    def __init__(self, args: dict, groups: dict | None = None):
         super().__init__()
         self.args = args  # storage key -> bytes, the arguments on meta
+        self.groups = groups or {}  # process group name -> mesh axes
         self.flops = 0.0
         self.hbm_bytes = 0.0
         self.kernel_calls = Counter()
+        self.coll_by_type = Counter()
+        self.coll_by_axes = Counter()
+        self.coll_calls = 0
         self.written: set = set()  # argument storages written in place
         self.new: dict = {}  # storage key -> bytes, allocated by the call
         self.live = 0
@@ -234,6 +304,13 @@ class _Counter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(_is_dtensor_type(t) for t in types):
+            # DTensor lowers the op into this rank's local ops and its
+            # collectives, which come back here
+            return NotImplemented
+        if any(issubclass(t, FakeTensor) for t in types):
+            # DTensor's shape propagation: no op of the program
+            return func(*args, **kwargs)
         if func is aten.bincount.default and args[0].device.type == "meta":
             out = self._bincount(*args, **kwargs)
         elif self._uncounted:
@@ -254,6 +331,9 @@ class _Counter(TorchDispatchMode):
             self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
         self._note_writes(func, args, kwargs)
         self.hbm_bytes += self._op_bytes(func, args, kwargs, out)
+        kind = _collective(func)
+        if kind is not None:
+            self._count_collective(func, kind, args, kwargs, out)
         for t in _tensors(out):
             self.track(t)
         return out
@@ -268,6 +348,17 @@ class _Counter(TorchDispatchMode):
             dtype = (torch.float32 if weights.dtype == torch.float32
                      else torch.float64)
         return torch.empty((int(minlength),), dtype=dtype, device="meta")
+
+    def _count_collective(self, func, kind, args, kwargs, out) -> None:
+        names = [a.name for a in func._schema.arguments]
+        i = names.index("group_name") if "group_name" in names else -1
+        group = (kwargs.get("group_name") if "group_name" in kwargs
+                 else args[i] if 0 <= i < len(args) else None)
+        nb = float(sum(_bytes_of(t) for t in _tensors(out)))
+        axes = self.groups.get(group, str(group))
+        self.coll_by_type[kind] += nb
+        self.coll_by_axes[axes] += nb
+        self.coll_calls += 1
 
     def _note_writes(self, func, args, kwargs) -> None:
         for i, a in enumerate(func._schema.arguments):
@@ -315,6 +406,13 @@ def _to_meta(t: torch.Tensor, bases: dict) -> torch.Tensor:
     """A meta tensor with ``t``'s shape, strides, dtype and storage
     offset, on one meta storage per storage of the arguments (views of
     one storage stay views of one)."""
+    if _is_dtensor_type(type(t)):
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(_to_meta(t._local_tensor, bases),
+                                  t.device_mesh, t.placements,
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
     storage = t.untyped_storage()
     key = storage._cdata
     if key not in bases:
@@ -327,13 +425,25 @@ def _to_meta(t: torch.Tensor, bases: dict) -> torch.Tensor:
     return m
 
 
-def jit_cost(fn, *args, in_place=(), host=()) -> JitCost:
+def meta_copy(*args):
+    """Meta copies of the tensors of ``args`` (trees kept), with their
+    shapes, strides and dtypes; views of one storage stay views of one.
+    Nothing is allocated: a costing run (``jit_cost``) can be repeated on
+    them after the real tensors are gone."""
+    bases: dict = {}
+    out = tuple(_map(lambda t: _to_meta(t, bases), a) for a in args)
+    return out[0] if len(out) == 1 else out
+
+
+def jit_cost(fn, *args, in_place=(), host=(), groups=None) -> JitCost:
     """The cost of ``fn(*args)``, counted on meta copies of the tensor
     arguments (see the module docstring). ``in_place``: indices of
     arguments that ``fn`` updates in place (the state), counted as
     aliased outputs; an argument an ATen op writes is found on its own.
     ``host``: tensors of the arguments kept on their own device (cloned)
-    because ``fn`` reads them on the host."""
+    because ``fn`` reads them on the host. ``groups``: process group name
+    -> the mesh axes it spans, the labels of ``collectives_by_axes`` (a
+    dict, or anything with its ``get``: ``sharding.placed.GroupLabels``)."""
     host_ids = {id(t) for t in host}
     bases: dict = {}
 
@@ -345,7 +455,7 @@ def jit_cost(fn, *args, in_place=(), host=()) -> JitCost:
     margs = [_map(copy, a) for a in args]
     arg_keys = {_key(b): b.untyped_storage().nbytes()
                 for b in bases.values()}
-    counter = _Counter(arg_keys)
+    counter = _Counter(arg_keys, groups)
     for i in in_place:
         for t in _tensors(margs[i]):
             if t.device.type == "meta":
@@ -369,9 +479,23 @@ def jit_cost(fn, *args, in_place=(), host=()) -> JitCost:
         alias_bytes=int(alias),
         temp_bytes=int(temp),
         kernel_calls=dict(counter.kernel_calls),
+        collective_bytes=float(sum(counter.coll_by_type.values())),
+        collectives_by_type=dict(counter.coll_by_type),
+        collectives_by_axes=dict(counter.coll_by_axes),
+        collective_calls=counter.coll_calls,
     )
     del out, margs, bases
     return result
+
+
+def collective_bytes(fn, *args, groups=None, **kwargs) -> dict:
+    """The collectives of one rank's ``fn(*args)`` (DTensor arguments on
+    a mesh), counted by ``jit_cost``: JAX's ``roofline/hlo.py``
+    ``collective_bytes`` for a program that runs eagerly. Returns
+    {'total': bytes, 'by_type': {...}, 'by_axes': {...}, 'calls': n}."""
+    c = jit_cost(fn, *args, groups=groups, **kwargs)
+    return {"total": c.collective_bytes, "by_type": c.collectives_by_type,
+            "by_axes": c.collectives_by_axes, "calls": c.collective_calls}
 
 
 # the ATen matmuls whose flops ``torch.profiler`` counts (it also counts

@@ -266,16 +266,28 @@ def compute_terms(*, arch: str, shape: InputShape, mesh_name: str,
                   collective_bytes: float, cfg: ModelConfig,
                   k_steps: int = 1, per_device: bool = True,
                   comm: Optional[CommConfig] = None, num_learners: int = 1,
-                  topology=None, rates: Rates = H100_SXM) -> RooflineTerms:
+                  topology=None, rates: Rates = H100_SXM,
+                  collectives_by_axes: Optional[dict] = None
+                  ) -> RooflineTerms:
     """The roofline terms of one costed program (``hlo_flops`` and
     ``hlo_bytes``: ``jit_cost``'s flops and bytes, JAX's names kept).
     ``per_device``: the numbers are one chip's already; else the
-    whole program's, divided over ``chips``."""
+    whole program's, divided over ``chips``. ``collectives_by_axes``:
+    the collective bytes by the mesh axes their groups span
+    (``JitCost.collectives_by_axes``); then a group inside the 'model'
+    axis (one NVLink node) moves at the NVLink rate and any other at the
+    node's network rate, instead of all at the NVLink rate."""
     mf = model_flops(cfg, shape, k_steps)
     div = 1 if per_device else chips
     compute_s = hlo_flops / (div * rates.bf16_flops_per_s)
     memory_s = hlo_bytes / (div * rates.hbm_bytes_per_s)
-    collective_s = collective_bytes / (div * rates.intra_link_bytes_per_s)
+    if collectives_by_axes is None:
+        collective_s = collective_bytes / (div * rates.intra_link_bytes_per_s)
+    else:
+        collective_s = sum(
+            b / (div * (rates.intra_link_bytes_per_s if axes == "model"
+                        else rates.inter_link_bytes_per_s))
+            for axes, b in collectives_by_axes.items())
     terms = {"compute": compute_s, "memory": memory_s,
              "collective": collective_s}
     bottleneck = max(terms, key=terms.get)

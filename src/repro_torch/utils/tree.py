@@ -9,7 +9,14 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
+
+
+def is_dtensor(x) -> bool:
+    """Is ``x`` a DTensor (``torch.distributed.tensor``)? Told by its class
+    name, so that nothing of ``torch.distributed`` is imported for it."""
+    return type(x).__name__ == "DTensor"
 
 
 def tree_leaves(tree) -> list:
@@ -66,9 +73,35 @@ def tree_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
+def mean_axis0(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the leading (learner) axis, in one summation order for
+    every width.
+
+    On the CPU, where the port is held to the JAX package, the sum is
+    XLA's: ``acc = 0; acc += x[i]`` for i = 0..L-1 in turn (f32 for a
+    16-bit dtype, as ``jnp.mean`` upcasts), then one multiplication by the
+    f32 reciprocal of L (XLA turns the mean's division by the constant L
+    into that).
+    ATen's CPU ``mean`` vectorises across the kept dims, and sums a leaf
+    narrower than its vector width (a 10-wide bias) in another order than
+    a wide plane, so a per-leaf step and a packed one came out one
+    rounding apart at L=8. Elsewhere (the card, the meta device of the
+    cost model) it is ``torch.mean``, one pass over the stack.
+    """
+    if x.device.type != "cpu":
+        return torch.mean(x, dim=0)
+    acc_dt = (torch.float32 if x.dtype in (torch.bfloat16, torch.float16)
+              else x.dtype)
+    acc = torch.zeros(x.shape[1:], dtype=acc_dt)
+    for i in range(x.shape[0]):
+        acc.add_(x[i])
+    inv = float(np.float32(1.0) / np.float32(x.shape[0]))
+    return acc.mul_(inv).to(x.dtype)
+
+
 def tree_mean_axis0(tree):
-    """Mean over the leading (learner) axis of every leaf."""
-    return tree_map(lambda x: torch.mean(x, dim=0), tree)
+    """Mean over the leading (learner) axis of every leaf (``mean_axis0``)."""
+    return tree_map(mean_axis0, tree)
 
 
 def tree_broadcast_learners(tree, num_learners: int):

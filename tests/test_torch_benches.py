@@ -27,9 +27,9 @@ on the port, against the JAX package's on the same inputs.
   47.1 % of the values beyond).
 * ``tools/bench_compare.py`` (the reference's gate, as a subprocess)
   accepts the port's ``BENCH_robust.json`` and the ``--json`` envelopes.
-* ``run.py``: the roofline suite in ``--only`` raises naming item 10; a
-  default run says it did not run it; a table-returning suite gets no
-  store (the reference's own run fails there, pinned below).
+* ``run.py``: the roofline suite tabulates the dry run's rows; a default
+  run skips no suite; a table-returning suite gets no store (the
+  reference's own run fails there, pinned below).
 """
 import json
 import os
@@ -434,11 +434,23 @@ def test_async_and_chaos_write_gated_envelopes(monkeypatch, tmp_path):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("suite", ["roofline"])
-def test_run_only_an_item_10_suite_raises(suite):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1, item 10: the dry-run"):
-        run.main(["--only", suite, "--device", "cpu"])
-    assert set(run.NOT_PORTED) == {"roofline"}
+def test_run_only_an_item_10_suite_raises(suite, monkeypatch, capsys,
+                                          tmp_path):
+    """The suite of the former item 10 (the dry run) runs now: it
+    tabulates the dry run's rows and stores none (a table, as JAX's)."""
+    from repro_torch.benchmarks import roofline_table
+
+    row = {"arch": "qwen3-1.7b", "shape": "train_4k", "mesh": "single",
+           "mode": "faithful", "algorithm": "mavg", "skipped": True,
+           "reason": "a stand-in row"}
+    (tmp_path / "row.json").write_text(json.dumps(row))
+    monkeypatch.setattr(roofline_table, "RESULTS", str(tmp_path))
+    run.main(["--only", suite, "--device", "cpu", "--bench-dir",
+              str(tmp_path / "store")])
+    out = capsys.readouterr().out
+    assert "| qwen3-1.7b | train_4k | single | SKIP: a stand-in row" in out
+    assert f"bench,{suite},trajectory,none (a table, no rows)" in out
+    assert not hasattr(run, "NOT_PORTED")
 
 
 def test_run_default_names_the_suites_it_does_not_run(monkeypatch, capsys,
@@ -451,8 +463,7 @@ def test_run_default_names_the_suites_it_does_not_run(monkeypatch, capsys,
     with pytest.raises(SystemExit, match="bad"):
         run.main(["--device", "cpu", "--bench-dir", str(tmp_path)])
     out = capsys.readouterr().out
-    assert "bench,roofline,not run: " in out
-    for s in ("kernel", "pack"):
+    for s in ("roofline", "kernel", "pack"):
         assert f"bench,{s},not run" not in out
     assert "bench,mu_p,trajectory,none (a table, no rows)" in out
     assert "bench,bad," in out and "FAILED (1 cell(s) not ok)" in out
@@ -469,7 +480,7 @@ def test_run_suite_names_are_the_references():
     from benchmarks import run as jrun
 
     src = inspect.getsource(jrun.main)
-    names = set(run.suites(True, "cpu")) | set(run.NOT_PORTED)
+    names = set(run.suites(True, "cpu"))
     for name in names:
         assert f'"{name}": ' in src, name
     assert len(names) == src.count('": lambda') + src.count(

@@ -961,3 +961,83 @@ def test_cuda_cost_model_matches_the_card(cuda_device, comm):
         measured, modeled)
     _, flops = profiled_matmul_flops(step, trainer.state, batch(2))
     assert flops == jc.flops > 0
+
+
+PLACED_SCRIPT = r'''
+import json, sys
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs.base import MAvgConfig, get_config
+from repro_torch.core.meta import init_state, make_meta_step
+from repro_torch.data import uniform_batch_fn
+from repro_torch.kernels import ops
+from repro_torch.launch import specs as S
+from repro_torch.models import api
+from repro_torch.sharding import Spec
+from repro_torch.sharding.placed import Placement, placed_meta_step
+from repro_torch.utils.rng import seeded_generator
+
+dist.init_process_group("nccl", init_method="tcp://localhost:" + sys.argv[1],
+                        world_size=1, rank=0)
+try:
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    cfg = get_config("qwen3-1.7b").reduced()
+    L, K = 4, 2
+    mcfg = MAvgConfig(num_learners=L, k_steps=K)
+    loss = lambda p, b: api.loss_fn(p, cfg, b)
+    params = api.init_params(seeded_generator("cuda", 19, 0), cfg, "cuda")
+    ref, mine = init_state(params, mcfg), init_state(params, mcfg)
+    batch_fn = uniform_batch_fn(cfg, L, K, 2, 16)
+    batches = [batch_fn(seeded_generator("cuda", 19, 1 + i), i)
+               for i in range(2)]
+    step = make_meta_step(loss, mcfg)
+    ops.reset_launch_counts()
+    for b in batches:
+        ref, _ = step(ref, b, lr=0.01)
+    unplaced = ops.launch_counts()
+    placement = Placement(mesh, ("data",))
+    st = S.place_tree(mine, S.state_shardings(cfg, mcfg, mesh), mesh)
+    ops.reset_launch_counts()
+    for b in batches:
+        bt = {k: S.place(v, Spec("data"), mesh) for k, v in b.items()}
+        st, _ = placed_meta_step(st, bt, loss_fn=loss, cfg=mcfg,
+                                 placement=placement, lr=0.01)
+    placed = ops.launch_counts()
+    torch.cuda.synchronize()
+    print(json.dumps({
+        "equal": all(torch.equal(getattr(st, f).to_local(), getattr(ref, f))
+                     for f in ("global_params", "momentum", "learners")),
+        "unplaced": unplaced, "placed": placed}))
+finally:
+    dist.destroy_process_group()
+'''
+
+
+@pytest.mark.cuda
+def test_cuda_placed_step_on_a_one_gpu_mesh_is_the_unplaced_step(
+        cuda_device):
+    """``chip_smoke.py`` phase 19b at the reduced width: the state placed
+    by ``specs.state_shardings`` on a (1, 1) NCCL DeviceMesh (a process of
+    its own, so its group ends with it) steps bitwise as the unplaced
+    state, with as many kernel launches."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    proc = subprocess.run([sys.executable, "-c", PLACED_SCRIPT, str(port)],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["equal"], out
+    assert out["placed"] == out["unplaced"]
+    assert out["placed"]["sgd_apply"] == 2 * 2 * 4
+    assert out["placed"]["fused_momentum_broadcast"] == 2

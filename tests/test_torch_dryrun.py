@@ -1,0 +1,426 @@
+"""The port's dry run (``repro_torch.launch.dryrun``, ``dryrun_lib``,
+``sharding/placed.py``) and its tables against the JAX package's.
+
+* On a (1, 1) mesh the placed meta step is the unplaced one: its
+  ``jit_cost`` equals the unplaced step's exactly (flops, bytes, kernel
+  calls; no collective), and on CPU tensors its planes equal the
+  unplaced step's bitwise (``chip_smoke.py`` phases 19a and 19b).
+* On the (4, 2) mesh of JAX's ``tests/test_dryrun_smoke.py`` (its reduced
+  config): the meta average shows as an all-reduce over 'data' of the
+  device's plane, and the per-device flops are within 1 % of JAX's row
+  under JAX's ``everything`` remat policy (JAX in a subprocess with 8
+  host devices). Pinned gap: JAX's default policy ('full') recomputes
+  every block's forward in the backward; the port's dense forward keeps
+  its activations, so JAX's default row counts more flops (its ratio to
+  the port's is printed and held between 1.2 and 1.3).
+* The collective counts match hand counts on a learner mean and a
+  row-parallel linear.
+* The CLI writes a full-size row (qwen3-1.7b, train_4k, single mesh) with
+  JAX's keys; ``run.py --only roofline`` tabulates it; E3's
+  ``H100_COMM_RATIO`` is recomputed from it.
+* The tables equal JAX's ``markdown_table`` / ``roofline_table`` /
+  ``dryrun_table`` strings on the same rows, and ``build_experiments``
+  fails on the missing ``EXPERIMENTS.md`` as JAX's does.
+
+Each file starts the fake process group it needs and destroys it at
+teardown (``fake_group``).
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import torch.distributed as dist  # noqa: E402
+
+from repro_torch.configs import base as B  # noqa: E402
+from repro_torch.core.meta import init_state, meta_step  # noqa: E402
+from repro_torch.launch import dryrun_lib as D  # noqa: E402
+from repro_torch.launch import mesh as meshlib  # noqa: E402
+from repro_torch.launch import specs as S  # noqa: E402
+from repro_torch.models import api  # noqa: E402
+from repro_torch.roofline.cost import jit_cost  # noqa: E402
+from repro_torch.sharding import Spec  # noqa: E402
+from repro_torch.sharding.placed import (  # noqa: E402
+    GroupMeanReducer,
+    Placement,
+    placed_meta_step,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMOKE_SHAPE = B.InputShape("train_4k", 64, 8, "train")  # JAX's smoke
+
+
+def _smoke_cfg():
+    return dataclasses.replace(
+        B.get_config("qwen3-1.7b").reduced(), d_model=128, num_heads=4,
+        num_kv_heads=2, head_dim=32, d_ff=256, vocab_size=256)
+
+
+@pytest.fixture
+def fake_group():
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _loss(cfg):
+    return lambda p, b: api.loss_fn(p, cfg, b)
+
+
+def _state_and_batches(cfg, mcfg, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = api.init_params(gen, cfg, device)
+    state = init_state(params, mcfg)
+    batches = {}
+    for name, (shp, dtype) in api.batch_shapes(cfg, 2, 16).items():
+        shape = (mcfg.num_learners, mcfg.k_steps) + tuple(shp)
+        batches[name] = torch.randint(0, cfg.vocab_size, shape,
+                                      generator=gen, dtype=dtype)
+    return state, batches
+
+
+def _placed(state, batches, cfg, mcfg, mesh):
+    st = S.place_tree(state, S.state_shardings(cfg, mcfg, mesh), mesh)
+    bt = {k: S.place(v, Spec("data"), mesh) for k, v in batches.items()}
+    return st, bt
+
+
+# ---------------------------------------------------------------------------
+# the (1, 1) mesh: the unplaced step, op for op
+# ---------------------------------------------------------------------------
+
+
+def test_a_1x1_placed_step_costs_the_unplaced_step_exactly(fake_group):
+    cfg = _smoke_cfg()
+    mcfg = B.MAvgConfig(num_learners=4, k_steps=2, momentum=0.7)
+    state, batches = _state_and_batches(cfg, mcfg, "cpu")
+    want = jit_cost(lambda s, b: meta_step(s, b, loss_fn=_loss(cfg),
+                                           cfg=mcfg, lr=0.01),
+                    state, batches, in_place=(0,))
+    mesh = D.fake_mesh((1, 1), ("data", "model"))
+    placement = Placement(mesh, ("data",))
+    st, bt = _placed(state, batches, cfg, mcfg, mesh)
+    got = D.cost_program(
+        lambda s, b: placed_meta_step(s, b, loss_fn=_loss(cfg), cfg=mcfg,
+                                      placement=placement, lr=0.01),
+        (st, bt), dict(in_place=(0,), groups=placement.labels))
+    assert got.flops == want.flops > 0
+    assert got.hbm_bytes == want.hbm_bytes
+    assert got.kernel_calls == want.kernel_calls == {
+        "sgd_apply": 8, "fused_momentum_broadcast": 1}
+    assert got.arg_bytes == want.arg_bytes
+    assert got.collective_bytes == 0 and got.collective_calls == 0
+
+
+def test_a_1x1_placed_step_equals_the_unplaced_step_bitwise(fake_group):
+    cfg = _smoke_cfg()
+    mcfg = B.MAvgConfig(num_learners=4, k_steps=2, momentum=0.7)
+    ref, batches = _state_and_batches(cfg, mcfg, "cpu")
+    mine, _ = _state_and_batches(cfg, mcfg, "cpu")
+    mesh = D.fake_mesh((1, 1), ("data", "model"))
+    placement = Placement(mesh, ("data",))
+    st, bt = _placed(mine, batches, cfg, mcfg, mesh)
+    for _ in range(2):
+        ref, mr = meta_step(ref, batches, loss_fn=_loss(cfg), cfg=mcfg,
+                            lr=0.01)
+        st, mp = placed_meta_step(st, bt, loss_fn=_loss(cfg), cfg=mcfg,
+                                  placement=placement, lr=0.01)
+    assert st.step == ref.step == 2
+    for f in ("global_params", "momentum", "learners"):
+        assert torch.equal(getattr(st, f).to_local(), getattr(ref, f)), f
+    assert float(mp["loss"]) == float(mr["loss"])
+
+
+# ---------------------------------------------------------------------------
+# collectives against hand counts
+# ---------------------------------------------------------------------------
+
+
+def test_learner_mean_is_one_all_reduce_of_the_local_plane(fake_group):
+    mesh = D.fake_mesh((2, 4, 2), ("pod", "data", "model"))
+    rows = 64
+    learners = S.place(torch.empty((16, rows, 128), device="meta"),
+                       Spec(("pod", "data"), "model", None), mesh)
+    gp = S.place(torch.empty((rows, 128), device="meta"),
+                 Spec("model", None), mesh)
+    placement = Placement(mesh, ("pod", "data"))
+    red = GroupMeanReducer("float32", placement)
+    c = jit_cost(lambda l, g: red.reduce(l.to_local(), g.to_local(), None,
+                                         step=0)[0],
+                 learners, gp, groups=placement.labels)
+    local_plane = rows // 2 * 128 * 4
+    assert c.collectives_by_type == {"all-reduce": local_plane}
+    assert c.collectives_by_axes == {"pod,data": local_plane}
+    assert c.collective_calls == 1
+
+
+def test_row_parallel_linear_is_one_all_reduce_over_model(fake_group):
+    from torch.distributed.tensor import Replicate
+
+    mesh = D.fake_mesh((4, 2), ("data", "model"))
+    Bt, d, f = 16, 64, 32
+    x = S.place(torch.empty(Bt, d, device="meta"), Spec(None, "model"), mesh)
+    w = S.place(torch.empty(d, f, device="meta"), Spec("model", None), mesh)
+
+    def linear(x, w):
+        return (x @ w).redistribute(mesh, [Replicate(), Replicate()])
+
+    c = jit_cost(linear, x, w, groups=Placement(mesh, ("data",)).labels)
+    assert c.flops == 2 * Bt * (d // 2) * f  # this rank's half of d
+    assert c.collectives_by_type == {"all-reduce": Bt * f * 4}
+    assert c.collectives_by_axes == {"model": Bt * f * 4}
+    assert c.arg_bytes == (Bt * d + d * f) * 4 // 2
+
+
+def test_a_row_split_plane_is_gathered_once_and_averaged_once(fake_group):
+    """Rows split over 'model': the local phase all-gathers this rank's
+    learner plane once, the mix all-reduces the local rows once."""
+    from repro_torch.pack import make_pack_spec
+
+    base = _smoke_cfg()
+    cfg = next(c for c in (dataclasses.replace(base, vocab_size=v)
+                           for v in range(256, 1024, 8))
+               if make_pack_spec(S.abstract_params(c)).rows % 16 == 0)
+    rows = make_pack_spec(S.abstract_params(cfg)).rows
+    mesh = D.fake_mesh((4, 2), ("data", "model"))
+    mcfg = B.MAvgConfig(num_learners=4, k_steps=2, momentum=0.7)
+    st, bt = _placed(S.abstract_state(cfg, mcfg),
+                     S.train_input_specs(cfg, SMOKE_SHAPE, 4, 2), cfg, mcfg,
+                     mesh)
+    assert tuple(st.learners.to_local().shape) == (1, rows // 2, 128)
+    placement = Placement(mesh, ("data",))
+    c = D.cost_program(
+        lambda s, b: placed_meta_step(s, b, loss_fn=_loss(cfg), cfg=mcfg,
+                                      placement=placement),
+        (st, bt), dict(in_place=(0,), groups=placement.labels))
+    plane = rows * 128 * 4
+    assert c.collectives_by_type["all-gather"] == plane
+    assert c.collectives_by_axes["model"] == plane
+    # the local rows' mean, then the loss and grad-norm scalars
+    assert c.collectives_by_axes["data"] == plane // 2 + 2 * 4
+
+
+# ---------------------------------------------------------------------------
+# the (4, 2) mesh against JAX's dry run
+# ---------------------------------------------------------------------------
+
+JAX_SCRIPT = r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import dataclasses, json
+from repro.configs import get_config
+from repro.configs.base import INPUT_SHAPES, InputShape
+from repro.launch import mesh as meshlib
+from repro.models import transformer
+import repro.launch.dryrun_lib as DL
+meshlib.SINGLE_POD_SHAPE = (4, 2)
+INPUT_SHAPES["train_4k"] = InputShape("train_4k", 64, 8, "train")
+cfg = dataclasses.replace(
+    get_config("qwen3-1.7b").reduced(), d_model=128, num_heads=4,
+    num_kv_heads=2, head_dim=32, d_ff=256, vocab_size=256)
+DL.get_config = lambda a: cfg
+out = {}
+for policy in ("full", "everything"):
+    transformer.set_remat_policy(policy)
+    r = DL.run_one("qwen3-1.7b", "train_4k", "single")
+    out[policy] = {"flops": r["hlo_cost"]["flops"],
+                   "coll": r["collectives"]["total"],
+                   "args": r["memory"]["argument_size_in_bytes"]}
+print(json.dumps(out))
+"""
+
+
+def test_small_mesh_dry_run_against_jax(fake_group, monkeypatch, tmp_path):
+    cfg = _smoke_cfg()
+    monkeypatch.setitem(B.INPUT_SHAPES, "train_4k", SMOKE_SHAPE)
+    monkeypatch.setattr(D, "get_config", lambda a: cfg)
+    monkeypatch.setattr(meshlib, "SINGLE_POD_SHAPE", (4, 2))
+    row = D.run_one("qwen3-1.7b", "train_4k", "single")
+    assert not row["skipped"] and row["collectives"]["total"] > 0
+    from repro_torch.pack import make_pack_spec
+
+    plane = make_pack_spec(S.abstract_params(cfg)).rows * 128 * 4
+    assert row["collectives"]["by_type"] == {
+        "all-reduce": row["collectives"]["total"]}
+    assert row["collectives"]["by_axes"]["data"] >= plane
+    assert row["kernel_calls"] == {"sgd_apply": 2,
+                                   "fused_momentum_broadcast": 1}
+
+    script = tmp_path / "jdr.py"
+    script.write_text(JAX_SCRIPT)
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, str(script)], env=env,
+                          capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    jax_rows = json.loads(proc.stdout.strip().splitlines()[-1])
+    flops = row["hlo_cost"]["flops"]
+    every = jax_rows["everything"]["flops"]
+    assert abs(flops - every) / every < 0.01, (flops, every)
+    full = jax_rows["full"]["flops"] / flops
+    print(f"JAX 'full' remat over the port: {full:.4f}")
+    assert 1.2 < full < 1.3
+    # the state and batches a device holds: JAX's bytes, less its 4-byte
+    # int32 step (the port's step is a host int)
+    assert row["memory"]["argument_size_in_bytes"] == \
+        jax_rows["everything"]["args"] - 4
+
+
+# ---------------------------------------------------------------------------
+# serving rows on the small mesh
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_serving_rows_on_a_small_mesh(fake_group, monkeypatch, arch, kind):
+    cfg = B.get_config(arch).reduced()
+    name = f"{kind}_small"
+    monkeypatch.setitem(B.INPUT_SHAPES, name,
+                        B.InputShape(name, 64, 8, kind))
+    monkeypatch.setattr(D, "get_config", lambda a: cfg)
+    monkeypatch.setattr(meshlib, "SINGLE_POD_SHAPE", (4, 2))
+    row = D.run_one(arch, name, "single")
+    assert row["cost"]["flops"] > 0 and row["collectives"]["total"] > 0
+    assert set(row["collectives"]["by_axes"]) <= {"data", "model",
+                                                  "data,model"}
+    assert row["memory"]["argument_size_in_bytes"] > 0
+    assert row["roofline"]["bottleneck"] in ("compute", "memory",
+                                             "collective")
+
+
+# ---------------------------------------------------------------------------
+# the CLI at full size, the roofline suite and E3's ratio
+# ---------------------------------------------------------------------------
+
+
+def test_cli_writes_a_full_size_row(fake_group, monkeypatch, tmp_path,
+                                    capsys):
+    from repro_torch.benchmarks import k_sweep, roofline_table, run
+    from repro_torch.launch import dryrun
+    from repro_torch.pack import make_pack_spec
+
+    monkeypatch.setattr(D, "RESULTS_DIR", str(tmp_path))
+    assert dryrun.main(["--arch", "qwen3-1.7b", "--shape", "train_4k",
+                        "--mesh", "single"]) == 0
+    path = tmp_path / "qwen3-1.7b__train_4k__single__faithful.json"
+    row = json.loads(path.read_text())
+    assert set(row["memory"]) >= {"argument_size_in_bytes",
+                                  "output_size_in_bytes",
+                                  "temp_size_in_bytes"}
+    assert row["cost"]["flops"] > 0 and row["roofline"]["chips"] == 256
+    assert "modeled" in row and "not a measurement" in row["modeled"]
+    cfg = B.get_config("qwen3-1.7b")
+    rows = make_pack_spec(S.abstract_params(cfg)).rows
+    split = 8 if rows % 64 == 0 else 1
+    plane = rows * 128 * 4 // split
+    assert row["collectives"]["by_type"]["all-reduce"] >= plane
+    assert row["collectives"]["by_axes"]["data"] >= plane
+    assert row["n_collective_sites"] >= 1
+    for key in ("generated_code_size_in_bytes", "hlo_lines", "compile_s"):
+        assert key not in row and key not in row["memory"]
+    rf = row["roofline"]
+    assert k_sweep.H100_COMM_RATIO == rf["collective_s"] / rf["compute_s"]
+    # the roofline suite tabulates it
+    monkeypatch.setattr(roofline_table, "RESULTS", str(tmp_path))
+    capsys.readouterr()
+    run.main(["--only", "roofline", "--bench-dir", ""])
+    out = capsys.readouterr().out
+    assert "| qwen3-1.7b | train_4k | single |" in out
+    assert "bench,roofline," in out and ",ok" in out
+    with pytest.raises(SystemExit, match="no counterpart"):
+        dryrun.main(["--save-hlo"])
+
+
+# ---------------------------------------------------------------------------
+# the tables
+# ---------------------------------------------------------------------------
+
+
+
+
+def test_tables_equal_jax(fake_group, monkeypatch, tmp_path):
+    from benchmarks import build_experiments as jbe
+    from benchmarks import roofline_table as jrt
+    from repro_torch.benchmarks import build_experiments as tbe
+    from repro_torch.benchmarks import roofline_table as trt
+
+    skipped = D.run_one("hubert-xlarge", "decode_32k", "single")
+    assert skipped["skipped"]
+    cfg = _smoke_cfg()
+    monkeypatch.setitem(B.INPUT_SHAPES, "train_4k", SMOKE_SHAPE)
+    monkeypatch.setattr(D, "get_config", lambda a: cfg)
+    monkeypatch.setattr(meshlib, "SINGLE_POD_SHAPE", (4, 2))
+    rows = [D.run_one("qwen3-1.7b", "train_4k", "single"),
+            skipped]
+    multi = dict(rows[0], mesh="multi", arch="deepseek-moe-16b")
+    rows.append(multi)
+    for i, r in enumerate(rows):
+        (tmp_path / f"r{i}.json").write_text(json.dumps(r))
+    assert trt.markdown_table(rows) == jrt.markdown_table(rows)
+    monkeypatch.setattr(jrt, "RESULTS", str(tmp_path))
+    assert trt.load_results(mesh="single", results=str(tmp_path)) == \
+        jrt.load_results(mesh="single")
+    assert tbe.roofline_table(str(tmp_path)) == jbe.roofline_table()
+    assert tbe.dryrun_table(str(tmp_path)) == jbe.dryrun_table()
+    assert trt.summarize(rows) == jrt.summarize(rows)
+
+
+def test_build_experiments_fails_without_its_target_as_jax(tmp_path):
+    from benchmarks import build_experiments as jbe
+    from repro_torch.benchmarks import build_experiments as tbe
+
+    assert not os.path.exists(os.path.join(REPO, "EXPERIMENTS.md"))
+    with pytest.raises(FileNotFoundError):
+        jbe.main()
+    with pytest.raises(FileNotFoundError):
+        tbe.main()
+    target = tmp_path / "EXP.md"
+    target.write_text("a\n<!-- AUTOGEN:roofline -->\nold\n"
+                      "<!-- /AUTOGEN:roofline -->\nb\n")
+    tbe.main(str(target), results=str(tmp_path))
+    text = target.read_text()
+    assert "old" not in text and "| arch | shape | mesh | HLO FLOPs/dev" in text
+
+
+def test_a_dtensor_reaches_the_kernels_through_its_local_pieces(fake_group):
+    """``kernels/ops.py``: the elementwise kernels take DTensors of one
+    layout through this rank's pieces (and charge the pieces' cost);
+    anything else raises, and ``_route`` refuses a DTensor outright."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.local_sgd import cost as sgd_cost
+
+    mesh = D.fake_mesh((4, 2), ("data", "model"))
+    w, g, whole = (S.place(torch.empty((64, 128), device="meta"), spec, mesh)
+                   for spec in (Spec("model", None), Spec("model", None),
+                                Spec(None, None)))
+    c = jit_cost(lambda w, g: kops.sgd_apply(w, g, 0.1, out=w), w, g,
+                 in_place=(0,))
+    assert c.kernel_calls == {"sgd_apply": 1}
+    piece = torch.empty((32, 128), device="meta")
+    assert c.hbm_bytes == sgd_cost(piece, piece, 0.1).nbytes
+    with pytest.raises(TypeError, match="DTensor reached a kernel"):
+        kops._route(w, None, None, None)
+    with pytest.raises(ValueError, match="do not line up"):
+        jit_cost(lambda w, g: kops.sgd_apply(w, g, 0.1, out=w), w, whole)
+    dist.destroy_process_group()
+    mesh = D.fake_mesh((1, 1), ("data", "model"))
+    gen = torch.Generator().manual_seed(0)
+    gp, v, a = (torch.randn((16, 128), generator=gen) for _ in range(3))
+    lrn = torch.randn((3, 16, 128), generator=gen)
+    plain = [t.clone() for t in (gp, v, a, lrn)]
+    kops.fused_momentum_broadcast(*plain[:3], mu=0.7, num_learners=3,
+                                  w_out=plain[0], v_out=plain[1],
+                                  learners_out=plain[3])
+    placed = [S.place(t, Spec("model", None), mesh) for t in (gp, v, a)]
+    placed.append(S.place(lrn, Spec("data", "model", None), mesh))
+    kops.fused_momentum_broadcast(*placed[:3], mu=0.7, num_learners=3,
+                                  w_out=placed[0], v_out=placed[1],
+                                  learners_out=placed[3])
+    for p, q in zip(placed, plain):
+        assert torch.equal(p.to_local(), q)
