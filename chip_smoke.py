@@ -186,7 +186,8 @@ Phases (any failure raises and the script exits non-zero):
    checked by the port's ``obs.baseline.compare`` against
    ``benchmarks/expected/*.json`` (read as data), then the comm bench,
    and ``--only roofline`` run; (c) ``train_100m --width full``
-   (125,848,320 parameters) with L=4, K=4, B=8, S=128 for 20 meta steps:
+   (125,848,320 parameters) with L=4, K=4, B=8, S=128 for 10 meta steps
+   (20 until the whole run neared its limit):
    the loss falls, every plane finite, the peak device memory and the
    rate printed; one more meta step profiled (the device's idle share,
    the bigram draws' device span), one draw timed alone; 2 meta steps of
@@ -226,10 +227,11 @@ Phases (any failure raises and the script exits non-zero):
    500,706,448) served with phase 10b's request in bf16 compute, no
    kernel launched, teacher forcing within the bf16 limit, prefill and
    decode timed and profiled, peak < 80 GB; (c) phase 4 on each at full
-   width (depth in ``FAMILY_TRAIN_DEPTH``), L=4, K=4, B=8, S=64, 2 meta
-   steps counted (one fused launch and 16 ``sgd_apply`` a step), peak <
-   80 GB, one more profiled. The training forward recomputes each Hymba
-   block and xLSTM super-block in the backward pass, as JAX's remat.
+   width (depth in ``FAMILY_TRAIN_DEPTH``), L=4, K=4, B=8, S=64,
+   ``FAMILY_TRAIN_STEPS`` meta steps counted (one fused launch and 16
+   ``sgd_apply`` a step), peak < 80 GB, one more profiled. The training
+   forward recomputes each Hymba block and xLSTM super-block in the
+   backward pass, as JAX's remat.
 18. the cost model (``repro_torch.roofline``) against the card: (a) the
    card's memory rate (the triad over 1 GiB, ``measured_peak_gbps``) and
    its bf16 and TF32 ``torch.matmul`` rates at 8192^3, beside the data
@@ -237,7 +239,8 @@ Phases (any failure raises and the script exits non-zero):
    DEPTH layers, L=4, K=4, B=8, S=64) on meta copies of the state, then
    the step on the card: the modeled kernel calls equal the launches (1
    fused_momentum_broadcast, 16 sgd_apply), the modeled matmul flops
-   equal ``torch.profiler``'s (``with_flops``) exactly, and the modeled
+   equal ``torch.profiler``'s (``with_flops``) exactly (with remat's
+   early stop off: see phase 20c), and the modeled
    peak (``peak_state_bytes``) is within COST_PEAK_RTOL (5 %) of the
    step's ``max_memory_allocated`` above the allocation before the
    trainer was built; (c) ``launch/train.py --obs-cost`` for 2 meta steps
@@ -254,12 +257,34 @@ Phases (any failure raises and the script exits non-zero):
    1) in a process of its own: phase 4's state placed the same way and
    stepped 2 meta steps by the placed step, its planes bitwise equal to
    the unplaced run's from the same start, with as many ``sgd_apply`` and
-   ``fused_momentum_broadcast`` launches; (c) ``python -m
-   repro_torch.launch.dryrun`` for qwen3-1.7b and deepseek-moe-16b x
-   train_4k and decode_32k on the single (32, 8) mesh in a process of its
+   ``fused_momentum_broadcast`` launches; (c) the dry run's CLI for the
+   rows of ``DRYRUN_ROWS`` (Qwen3-1.7B and DeepSeekMoE-16B train_4k and
+   decode_32k among them) on the single (32, 8) mesh in a process of its
    own (modeled on the meta device, on the CPU): every row written, each
    train row's meta average an all-reduce over 'data' of at least the
    device's plane; then ``run.py --only roofline`` tabulates the rows.
+   The dry run starts after phase 3, in a process of its own on the host,
+   and runs beside the phases between: its rows are layer-scaled
+   (``dryrun_lib.scaled_cost``) and add Hymba's and xLSTM's serving rows
+   (decode_32k; xLSTM's prefill_32k), a 32k prefill row of Qwen3-1.7B and
+   the train_4k rows of Hymba and xLSTM (xLSTM's scaled over its 4,096
+   steps too).
+20. block remat, the placed ``mavg_mlocal`` step and costed robust and
+   guarded steps: (a) full-width Qwen3-1.7B at all 28 layers, one local
+   step's forward and backward (f32 planes, bf16 compute, B=8, S=512,
+   uniform tokens) under ``set_remat_policy`` ``full``, ``dots`` and
+   ``everything``: peak memory (``max_memory_allocated`` above the
+   params) beside the cost model's, ms a step (CUDA-event median of 3),
+   the losses equal and each gradient leaf within REMAT_RTOL of
+   ``full``'s; ``full`` has the lowest peak; (b) phase 19b's program for
+   ``mavg_mlocal`` (local momentum 0.5): the placed planes, the
+   local-momentum plane included, bitwise the unplaced ones; (c)
+   ``jit_cost`` of phase 9's robust step (trimmed mean, clip, scores,
+   finite guard; no corruption) and of a guarded flat dense step, each
+   then run on the card: the modeled kernel calls equal the launches,
+   and the modeled flops equal ``torch.profiler``'s with the
+   checkpoint's early stop off (with it on, the profiler also counts the
+   down projection the early stop ends before its kernel).
 
 Each phase's header carries the seconds since the start.
 
@@ -986,9 +1011,11 @@ def check_robust_reduce(torch, rr, rows, rows_cut) -> dict:
     ms = cuda_ms(torch, lambda: rr.robust_reduce_cuda(x, 1, out=out))
     ms0 = cuda_ms(torch, lambda: rr.robust_reduce_cuda(x, 0, out=out))
     mean_ms = cuda_ms(torch, lambda: torch.mean(x, dim=0, out=out))
+    # the plain trimmed mean takes ~5 s and the quantile ~1.3 s a plane:
+    # one timed call each (no warm-up) keeps the run inside its limit
     plain_ms = sum(cuda_ms(
-        torch, lambda sl=sl: rr.robust_reduce_plain(x[:, sl], 1), warmup=1,
-        iters=3) for sl in windows(rows))
+        torch, lambda sl=sl: rr.robust_reduce_plain(x[:, sl], 1), warmup=0,
+        iters=1) for sl in windows(rows))
     plain0_ms = sum(cuda_ms(
         torch, lambda sl=sl: rr.robust_reduce_plain(x[:, sl], 0), warmup=1,
         iters=3) for sl in windows(rows))
@@ -1008,8 +1035,8 @@ def check_robust_reduce(torch, rr, rows, rows_cut) -> dict:
     # two roundings of lerp against one of the kernel's sum: a few ulps
     # of the largest |value| of the window
     q_tol = 4 * 2.0 ** -23 * float(x[:, head].abs().max())
-    library_ms = sum(cuda_ms(torch, lambda sl=sl: quantile(sl), warmup=1,
-                             iters=3)
+    library_ms = sum(cuda_ms(torch, lambda sl=sl: quantile(sl), warmup=0,
+                             iters=1)
                      for sl in (slice(r0, min(r0 + q_rows, rows))
                                 for r0 in range(0, rows, q_rows)))
     del x, out
@@ -2603,7 +2630,8 @@ def checkpoint_full_width(torch, ops) -> dict:
     layers, flat dense M-AVG, L=2, K=4, B=8, S=64, 2 meta steps; then save,
     verify, restore in place into a fresh Trainer (bitwise, no second
     state on the card), one more step from both, and the corrupt and torn
-    save faults. Returns the training run's launch counts."""
+    save faults (on the reduced model's state). Returns the training run's
+    launch counts."""
     import tempfile
 
     from repro_torch.checkpoint import (
@@ -2619,10 +2647,12 @@ def checkpoint_full_width(torch, ops) -> dict:
         _host,
     )
     from repro_torch.configs.base import MAvgConfig, TrainConfig, get_config
+    from repro_torch.core.meta import init_state
     from repro_torch.core.trainer import Trainer
     from repro_torch.data import uniform_batch_fn
     from repro_torch.models import api
     from repro_torch.optim import warmup_cosine
+    from repro_torch.utils.rng import seeded_generator
 
     full = get_config("qwen3-1.7b")
     cfg = dataclasses.replace(full, num_layers=CKPT_DEPTH)
@@ -2718,8 +2748,16 @@ def checkpoint_full_width(torch, ops) -> dict:
         del resumed
         free(torch)
 
-        bad = save_state(str(work), live.state, CKPT_STEPS + 2,
-                         fault="corrupt")
+        # the save faults on the reduced model's state, in a directory of
+        # their own: the writer and the verifier do not depend on the
+        # state's size, and at full width the faults wrote and read ~20 GB
+        # more on the host (~45 s)
+        faults = work / "faults"
+        small = init_state(api.init_params(
+            seeded_generator("cuda", 12, 0), full.reduced(), "cuda"),
+            MAvgConfig(algorithm="mavg", num_learners=CKPT_L, k_steps=k))
+        good = save_state(str(faults), small, CKPT_STEPS)
+        bad = save_state(str(faults), small, CKPT_STEPS + 2, fault="corrupt")
         try:
             verify_checkpoint(bad)
         except CheckpointVerifyError as e:
@@ -2728,12 +2766,14 @@ def checkpoint_full_width(torch, ops) -> dict:
             raise AssertionError("a corrupt save passed verify_checkpoint")
         Path(bad).unlink()
         Path(bad + CRC_SUFFIX).unlink()
-        torn = save_state(str(work), live.state, CKPT_STEPS + 3, fault="torn")
+        torn = save_state(str(faults), small, CKPT_STEPS + 3, fault="torn")
         assert not Path(torn + CRC_SUFFIX).exists()
-        got = latest_verified_checkpoint(str(work))
-        assert got == path, (got, path)
-        print(f"  torn save ({Path(torn).stat().st_size / 1e9:.3f} GB, no "
-              f"sidecar) skipped: latest verified is {Path(got).name}")
+        got = latest_verified_checkpoint(str(faults))
+        assert got == good, (got, good)
+        print(f"  torn save ({Path(torn).stat().st_size / 1e6:.3f} MB of the "
+              f"reduced model's state, no sidecar) skipped: latest verified "
+              f"is {Path(got).name}")
+        del small
     finally:
         shutil.rmtree(work, ignore_errors=True)
     del live
@@ -2748,10 +2788,12 @@ def checkpoint_full_width(torch, ops) -> dict:
 
 OBS_STEPS, OBS_MORE = 4, 2
 # 13c's depth: every width of Qwen3-1.7B, 1 of its 28 layers. The
-# supervised run saves four snapshots, verifies two and loads one, all on
-# the host at ~0.3 GB/s; at phase 12's 6 layers (9.81 GB) the phase took
-# 262 s on the card, at 1 layer the state is 5.78 GB
-SUP_DEPTH, SUP_STEPS = 1, 6
+# supervised run saves three snapshots (steps 2 and 4, and the halt's),
+# verifies two and loads one, all on the host at ~0.3 GB/s; at phase 12's
+# 6 layers (9.81 GB) the phase took 262 s on the card, at 1 layer the
+# state is 5.78 GB; 5 target steps (6, and a fourth snapshot, until the
+# whole run neared its time limit)
+SUP_DEPTH, SUP_STEPS = 1, 5
 
 
 def check_telemetry(path: Path) -> str:
@@ -3402,7 +3444,7 @@ E2_RUNS = [(P, 40) for P in (2, 4, 8, 16) for _ in range(5)]  # (P, steps)
 E3_RUNS = [(128 // K, K) for _ in (0.0, 0.7) for K in (1, 2, 4, 8, 16)]
 # the topology gate's flat_dense loss baseline, a value of JAX's stream
 FIXED_SEED = "fixed-seed smoke run"
-TRAIN_100M = ["--width", "full", "--steps", "20", "--learners", "4", "--k",
+TRAIN_100M = ["--width", "full", "--steps", "10", "--learners", "4", "--k",
               "4", "--batch", "8", "--seq", "128"]
 
 
@@ -3785,22 +3827,22 @@ def train_100m_card_vs_cpu(torch, ops, batch_fn) -> None:
 
 def examples_on_the_card(torch, ops) -> dict:
     """Phase 15c. ``train_100m --width full`` (125.8M parameters), L=4,
-    K=4, B=8, S=128, 20 meta steps on the card: the loss falls, every
+    K=4, B=8, S=128, 10 meta steps on the card: the loss falls, every
     plane is finite, the peak device memory printed; one more meta step
     profiled (the device's idle share, the bigram draws' host time and
     device span); 2 meta steps of its widths at F32_100M_DEPTH layers card
     vs CPU (``train_100m_card_vs_cpu``); then ``serve_batch`` on the reduced
     archs it serves (dense, MoE, the VLM's decode-only demo). Returns the
-    20-step run's launches."""
+    10-step run's launches."""
     from repro_torch.examples import serve_batch, train_100m
 
     free(torch)
     torch.cuda.reset_peak_memory_stats()
     (trainer, hist, ev, n), counts, seconds = timed(
-        torch, ops, "train_100m --width full, 20 meta steps",
+        torch, ops, "train_100m --width full, 10 meta steps",
         lambda: train_100m.main(TRAIN_100M))
     peak = torch.cuda.max_memory_allocated() / 1e9
-    # the Trainer's rate over its last log window (steps 10-19)
+    # the Trainer's rate over its last log window
     rate = hist[-1]["meta_steps_per_sec"]
     print(f"  train_100m: {n:,} parameters; loss {hist[0]['loss']:.4f} -> "
           f"{hist[-1]['loss']:.4f}, eval loss {ev:.4f}, "
@@ -3814,7 +3856,7 @@ def examples_on_the_card(torch, ops) -> dict:
     for f in ("global_params", "momentum", "learners"):
         assert bool(torch.isfinite(getattr(trainer.state, f)).all()), f
     assert math.isfinite(ev)
-    expect_flat(counts, 20, 20 * 4 * 4, "train_100m")
+    expect_flat(counts, 10, 10 * 4 * 4, "train_100m")
     draw = trainer.batch_fn
 
     def traced_draw(gen, step):
@@ -4028,9 +4070,11 @@ META_PLANE_TOL = {"xlstm-350m": dict(rtol=1e-5, atol=1e-5)}
 # layers of the full-width M-AVG training runs (of 32 and 24): at full
 # depth a meta step took 23.0 s for Hymba (peak 60.05 GB) and 36 s for
 # xLSTM at 8 layers, host-bound (measured on one H100); xLSTM keeps
-# one super-block (3 mLSTM + 1 sLSTM), its smallest whole unit
-FAMILY_TRAIN_DEPTH = {"hymba-1.5b": 8, "xlstm-350m": 4}
-FAMILY_TRAIN_STEPS = 2
+# one super-block (3 mLSTM + 1 sLSTM), its smallest whole unit. Hymba
+# went from 8 layers to 4 when the whole run neared its time limit
+FAMILY_TRAIN_DEPTH = {"hymba-1.5b": 4, "xlstm-350m": 4}
+# meta steps of those runs (2 until the whole run neared its time limit)
+FAMILY_TRAIN_STEPS = 1
 # prompt tokens of 17b's profiled prefill: xLSTM's recurrences launch the
 # same kernels at every position (~570 a token), and the profiler takes
 # about a millisecond an event to digest, so its prefill is profiled on
@@ -4296,15 +4340,24 @@ def cost_against_the_card(torch, ops) -> dict:
     assert launched == dict(fused_momentum_broadcast=1, sgd_apply=k * L)
     assert (abs(measured - jc.peak_state_bytes)
             <= COST_PEAK_RTOL * jc.peak_state_bytes), (measured, jc)
-    # the next step under the profiler: its matmul flops
-    _, flops = profiled_matmul_flops(step, trainer.state, batches(1))
+    # the next step under the profiler: its matmul flops. The blocks run
+    # under the default remat, whose early stop ends a block's recompute
+    # inside the autograd wrapper of its last product, after the profiler
+    # has recorded it: the two are compared with the early stop off
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
+    with set_checkpoint_early_stop(False):
+        whole = jit_cost(step, inputs["args"][0], inputs["args"][1],
+                         in_place=(0,))
+        _, flops = profiled_matmul_flops(step, trainer.state, batches(1))
     torch.cuda.synchronize()
-    print(f"  torch.profiler counts {flops:.6e} matmul flops, modeled "
-          f"{jc.flops:.6e}; the step's compute term at the data sheet's "
+    print(f"  torch.profiler counts {flops:.6e} matmul flops with the "
+          f"early stop off, modeled {whole.flops:.6e} ({jc.flops:.6e} "
+          f"with it on); the step's compute term at the data sheet's "
           f"bf16 rate {jc.flops / H100_SXM.bf16_flops_per_s * 1e3:.3f} ms, "
           f"its memory term {jc.hbm_bytes / H100_SXM.hbm_bytes_per_s * 1e3:.3f} "
           f"ms, measured {step_s * 1e3:.1f} ms")
-    assert flops == jc.flops, (flops, jc.flops)
+    assert flops == whole.flops, (flops, whole.flops)
     del trainer, batch
     free(torch)
     return counts, inputs
@@ -4317,9 +4370,26 @@ def cost_against_the_card(torch, ops) -> dict:
 
 # phase 19b: the meta steps of the placed and the unplaced state
 PLACED_STEPS = 2
-# phase 19c: the dry run's rows (modeled on the meta device, on the CPU)
-DRYRUN_ARCHS = ("qwen3-1.7b", "deepseek-moe-16b")
-DRYRUN_SHAPES = ("train_4k", "decode_32k")
+# phase 19c: the dry run's rows (modeled on the meta device, on the CPU,
+# layer-scaled). Left out: DeepSeekMoE-16B's prefill_32k (at one sequence
+# a 'data' rank DTensor cannot view the MoE combine's (T, d) back to (B,
+# S, d); ROADMAP Queue 3) and Hymba-1.5B's (its 32,896 tokens with the
+# meta prefix give 128-token attention blocks, JAX's largest divisor:
+# 66,049 blocks a layer, minutes each)
+DRYRUN_ROWS = (
+    ("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "decode_32k"),
+    ("qwen3-1.7b", "prefill_32k"), ("deepseek-moe-16b", "train_4k"),
+    ("deepseek-moe-16b", "decode_32k"), ("hymba-1.5b", "train_4k"),
+    ("hymba-1.5b", "decode_32k"), ("xlstm-350m", "train_4k"),
+    ("xlstm-350m", "decode_32k"), ("xlstm-350m", "prefill_32k"))
+# the rows one after the other, in the dry run's CLI
+DRYRUN_PROGRAM = (
+    "import os, sys\n"
+    "os.nice(19)  # the host's cores go to the phases first\n"
+    "from repro_torch.launch import dryrun\n"
+    "rcs = [dryrun.main(['--arch', a, '--shape', s, '--mesh', 'single'])\n"
+    "       for a, s in {rows!r}]\n"
+    "sys.exit(max(rcs))\n")
 
 # phase 19b's program, run in a process of its own so that its process
 # group (NCCL, world size 1) never outlives it: the same packed state
@@ -4350,37 +4420,48 @@ try:
     cfg = get_config("qwen3-1.7b")
     cfg = dataclasses.replace(cfg if width == "full" else cfg.reduced(),
                               num_layers=depth)
-    mcfg = MAvgConfig(algorithm="mavg", num_learners=L, k_steps=K)
     loss = lambda p, b: api.loss_fn(p, cfg, b)
-    params = api.init_params(seeded_generator(device, 19, 0), cfg, device)
-    ref, mine = init_state(params, mcfg), init_state(params, mcfg)
-    del params
     batch_fn = uniform_batch_fn(cfg, L, K, B, Sq)
     batches = [batch_fn(seeded_generator(device, 19, 1 + i), i)
                for i in range(steps)]
-    step = make_meta_step(loss, mcfg)
-    ops.reset_launch_counts()
-    for b in batches:
-        ref, mr = step(ref, b, lr=lr)
-    if device == "cuda":
-        torch.cuda.synchronize()
-    unplaced = {k: v for k, v in ops.launch_counts().items() if v}
     placement = Placement(mesh, ("data",))
-    st = S.place_tree(mine, S.state_shardings(cfg, mcfg, mesh), mesh)
-    ops.reset_launch_counts()
-    for b in batches:
-        bt = {k: S.place(v, Spec("data"), mesh) for k, v in b.items()}
-        st, mp = placed_meta_step(st, bt, loss_fn=loss, cfg=mcfg,
-                                  placement=placement, lr=lr)
-    if device == "cuda":
-        torch.cuda.synchronize()
-    placed = {k: v for k, v in ops.launch_counts().items() if v}
-    equal = {f: bool(torch.equal(getattr(st, f).to_local(), getattr(ref, f)))
-             for f in ("global_params", "momentum", "learners")}
-    print(json.dumps({"equal": equal, "unplaced": unplaced, "placed": placed,
-                      "loss": [float(mr["loss"]), float(mp["loss"])],
-                      "placements": str(st.learners.placements),
-                      "rows": int(st.global_params.shape[0])}))
+    for algorithm in sys.argv[12].split(","):
+        mcfg = MAvgConfig(algorithm=algorithm, num_learners=L, k_steps=K,
+                          local_momentum=0.5 if algorithm == "mavg_mlocal"
+                          else 0.0)
+        params = api.init_params(seeded_generator(device, 19, 0), cfg,
+                                 device)
+        ref, mine = init_state(params, mcfg), init_state(params, mcfg)
+        del params
+        step = make_meta_step(loss, mcfg)
+        ops.reset_launch_counts()
+        for b in batches:
+            ref, mr = step(ref, b, lr=lr)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        unplaced = {k: v for k, v in ops.launch_counts().items() if v}
+        st = S.place_tree(mine, S.state_shardings(cfg, mcfg, mesh), mesh)
+        ops.reset_launch_counts()
+        for b in batches:
+            bt = {k: S.place(v, Spec("data"), mesh) for k, v in b.items()}
+            st, mp = placed_meta_step(st, bt, loss_fn=loss, cfg=mcfg,
+                                      placement=placement, lr=lr)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        placed = {k: v for k, v in ops.launch_counts().items() if v}
+        fields = ("global_params", "momentum", "learners") + (
+            ("local_momentum",) if algorithm == "mavg_mlocal" else ())
+        equal = {f: bool(torch.equal(getattr(st, f).to_local(),
+                                     getattr(ref, f))) for f in fields}
+        print(json.dumps({"algorithm": algorithm, "equal": equal,
+                          "unplaced": unplaced, "placed": placed,
+                          "loss": [float(mr["loss"]), float(mp["loss"])],
+                          "placements": str(st.learners.placements),
+                          "rows": int(st.global_params.shape[0])}),
+              flush=True)
+        del ref, mine, st
+        if device == "cuda":
+            torch.cuda.empty_cache()
 finally:
     dist.destroy_process_group()
 '''
@@ -4442,46 +4523,77 @@ def free_port() -> int:
 
 
 def placed_steps_on_the_card() -> dict:
-    """Phase 19b. A real one-GPU DeviceMesh (NCCL, world size 1) in a
-    process of its own: phase 4's state (Qwen3-1.7B widths, DEPTH layers,
-    L=4, K=4, B=8, S=64) placed by ``specs.state_shardings`` and stepped
-    PLACED_STEPS meta steps by the placed step; its planes equal the
-    unplaced run's from the same start bitwise, and it launches
-    ``sgd_apply`` and ``fused_momentum_broadcast`` as often. Returns the
-    placed run's launches."""
+    """Phases 19b and 20b. A real one-GPU DeviceMesh (NCCL, world size 1)
+    in a process of its own: phase 4's state (Qwen3-1.7B widths, DEPTH
+    layers, L=4, K=4, B=8, S=64) placed by ``specs.state_shardings`` and
+    stepped PLACED_STEPS meta steps by the placed step, for ``mavg`` and
+    then ``mavg_mlocal`` (local momentum 0.5); its planes (the
+    local-momentum plane too) equal the unplaced run's from the same start
+    bitwise, and it launches ``sgd_apply`` and
+    ``fused_momentum_broadcast`` as often. Returns each algorithm's
+    result line."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     args = [str(x) for x in (DEPTH, L, 4, 8, 64, PLACED_STEPS, free_port(),
-                             LR, "cuda", "nccl", "full")]
+                             LR, "cuda", "nccl", "full", "mavg,mavg_mlocal")]
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", PLACED_STEP_SCRIPT, *args],
                           cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
-    print(f"  in {time.perf_counter() - t0:.1f} s (a process of its own): "
-          f"planes equal {out['equal']}; launches placed {out['placed']}, "
-          f"unplaced {out['unplaced']}; losses {out['loss']}; learner "
-          f"placements {out['placements']}")
-    assert all(out["equal"].values()), out
-    assert out["placed"] == out["unplaced"] == dict(
-        fused_momentum_broadcast=PLACED_STEPS,
-        sgd_apply=PLACED_STEPS * 4 * L), out
-    assert out["loss"][0] == out["loss"][1], out
-    return out["placed"]
+    outs = {}
+    for line in proc.stdout.strip().splitlines():
+        if line.startswith("{"):
+            out = json.loads(line)
+            outs[out["algorithm"]] = out
+    print(f"  both algorithms in {time.perf_counter() - t0:.1f} s (a process "
+          f"of its own)")
+    for algorithm, out in outs.items():
+        assert all(out["equal"].values()), out
+        # mavg_mlocal's local steps update with momentum in plain ops: no
+        # sgd_apply launch
+        want = dict(fused_momentum_broadcast=PLACED_STEPS)
+        if algorithm != "mavg_mlocal":
+            want["sgd_apply"] = PLACED_STEPS * 4 * L
+        assert out["placed"] == out["unplaced"] == want, out
+        assert out["loss"][0] == out["loss"][1], out
+    assert set(outs) == {"mavg", "mavg_mlocal"}, outs
+    assert "local_momentum" in outs["mavg_mlocal"]["equal"], outs
+    return outs
+
+
+def print_placed(out: dict) -> None:
+    print(f"  {out['algorithm']}: planes equal {out['equal']}; launches "
+          f"placed {out['placed']}, unplaced {out['unplaced']}; losses "
+          f"{out['loss']}; learner placements {out['placements']}")
 
 
 def start_dry_run():
-    """Phase 19c's dry run, started in a process of its own (its fake
-    process group of 256 ranks never reaches this one) so that it runs on
-    the host while 19a and 19b run: ``python -m repro_torch.launch.dryrun``
-    for DRYRUN_ARCHS x DRYRUN_SHAPES on the single (32, 8) H100 mesh.
-    Returns (the process, its start time)."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-           *DRYRUN_ARCHS, "--shape", *DRYRUN_SHAPES, "--mesh", "single"]
-    return (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                             stderr=subprocess.PIPE, text=True),
-            time.perf_counter())
+    """Phase 19c's dry run, started after phase 3 in a process of its own
+    (its fake process group of 256 ranks never reaches this one) so that
+    it runs on the host beside phases 4-19b: the dry run's CLI for each
+    of DRYRUN_ROWS on the single (32, 8) H100 mesh, one thread, its
+    output in a file under
+    ``build/`` (a pipe would fill and stall it). The process is killed at
+    exit if it still runs. Returns (the process, its log, its start
+    time)."""
+    import atexit
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-c", DRYRUN_PROGRAM.format(rows=DRYRUN_ROWS)]
+    (ROOT / "build").mkdir(exist_ok=True)
+    log = ROOT / "build" / "dryrun_smoke.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f,
+                                stderr=subprocess.STDOUT, text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, log, time.perf_counter()
 
 
 def dry_run_rows(started) -> None:
@@ -4496,46 +4608,50 @@ def dry_run_rows(started) -> None:
     from repro_torch.pack import make_pack_spec
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc, t0 = started
+    proc, log, t0 = started
+    waited = time.perf_counter()
     try:
-        out, err = proc.communicate(timeout=900)
+        proc.wait(timeout=300)
     finally:
         if proc.poll() is None:
             proc.kill()
-            proc.communicate()
-    assert proc.returncode == 0, (out[-3000:], err[-3000:])
-    print(f"  dry run of {len(DRYRUN_ARCHS) * len(DRYRUN_SHAPES)} rows "
+            proc.wait()
+    out = log.read_text()
+    assert proc.returncode == 0, out[-4000:]
+    counted = [line for line in out.splitlines()
+               if line.strip().startswith("counted in")]
+    print(f"  dry run of {len(DRYRUN_ROWS)} rows "
           f"done {time.perf_counter() - t0:.1f} s after its start (CPU, "
-          f"meta device; beside 19a and 19b)")
-    for arch in DRYRUN_ARCHS:
-        for shape in DRYRUN_SHAPES:
-            path = Path(D.result_path(arch, shape, "single"))
-            row = json.loads(path.read_text())
-            rf, mem, coll = row["roofline"], row["memory"], row["collectives"]
-            print(f"  {arch} {shape} (modeled): args "
-                  f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, temp "
-                  f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB, "
-                  f"{rf['hlo_flops']:.4e} flops, {rf['hlo_bytes']:.4e} "
-                  f"bytes, collectives {coll['by_type']} by axes "
-                  f"{coll['by_axes']}; compute {rf['compute_s']:.4g} s, "
-                  f"memory {rf['memory_s']:.4g} s, collective "
-                  f"{rf['collective_s']:.4g} s: {rf['bottleneck']}-bound")
-            assert row["cost"]["flops"] > 0 and rf["chips"] == 256, row
-            if shape.startswith("train"):
-                cfg = get_config(arch)
-                rows = make_pack_spec(S.abstract_params(cfg)).rows
-                plane = rows * 128 * 4 // (8 if rows % 64 == 0 else 1)
-                assert coll["by_type"].get("all-reduce", 0) >= plane, row
-                assert coll["by_axes"].get("data", 0) >= plane, row
+          f"meta device, layer-scaled; beside phases 4-19b; waited "
+          f"{time.perf_counter() - waited:.1f} s here); {counted}")
+    for arch, shape in DRYRUN_ROWS:
+        path = Path(D.result_path(arch, shape, "single"))
+        row = json.loads(path.read_text())
+        rf, mem, coll = row["roofline"], row["memory"], row["collectives"]
+        print(f"  {arch} {shape} (modeled in {row['lower_s']} s): args "
+              f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, temp "
+              f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB, "
+              f"{rf['hlo_flops']:.4e} flops, {rf['hlo_bytes']:.4e} "
+              f"bytes, collectives {coll['by_type']} by axes "
+              f"{coll['by_axes']}; compute {rf['compute_s']:.4g} s, "
+              f"memory {rf['memory_s']:.4g} s, collective "
+              f"{rf['collective_s']:.4g} s: {rf['bottleneck']}-bound")
+        assert row["cost"]["flops"] > 0 and rf["chips"] == 256, row
+        assert row["layer_scaled"], row
+        if shape.startswith("train"):
+            cfg = get_config(arch)
+            rows = make_pack_spec(S.abstract_params(cfg)).rows
+            plane = rows * 128 * 4 // (8 if rows % 64 == 0 else 1)
+            assert coll["by_type"].get("all-reduce", 0) >= plane, row
+            assert coll["by_axes"].get("data", 0) >= plane, row
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.benchmarks.run", "--only",
          "roofline", "--bench-dir", ""], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    for arch in DRYRUN_ARCHS:
-        for shape in DRYRUN_SHAPES:
-            assert f"| {arch} | {shape} | single |" in proc.stdout, (
-                arch, shape, proc.stdout[-3000:])
+    for arch, shape in DRYRUN_ROWS:
+        assert f"| {arch} | {shape} | single |" in proc.stdout, (
+            arch, shape, proc.stdout[-3000:])
     print("  run.py --only roofline tabulates the rows")
 
 
@@ -4586,6 +4702,171 @@ def cost_benches(torch, ops, tmp: Path) -> dict:
                  "pack_compress", "flash_attention_f32"):
         assert counts[name] > 0, (name, counts)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 20: block remat, the placed mavg_mlocal step, costed robust and
+# guarded steps
+# ---------------------------------------------------------------------------
+
+# phase 20a: one local step of full-width, full-depth Qwen3-1.7B
+REMAT_B, REMAT_S, REMAT_ITERS = 8, 512, 3
+# each gradient leaf under dots and everything against full's, as the
+# norm of the difference over the norm of full's: the three recompute the
+# same bf16 products, but the embedding's and the attention's backward
+# accumulate with atomics on the card
+REMAT_RTOL = 1e-3
+
+
+def remat_on_the_card(torch) -> dict:
+    """Phase 20a. Full-width Qwen3-1.7B, 28 layers, f32 params (the
+    planes' dtype) and bf16 compute: one local step's forward and backward
+    (``torch.autograd.grad`` of the loss, B=8, S=512 uniform tokens) under
+    each remat policy. For each: the peak device memory above the params
+    (``max_memory_allocated``) beside ``jit_cost``'s peak on meta copies,
+    and ms a step (CUDA-event median of REMAT_ITERS after one warm-up).
+    The losses are equal, every gradient leaf within REMAT_RTOL of full's,
+    and full's peak is the lowest. A policy that does not fit is printed
+    and skipped. Returns {policy: (peak bytes, ms)}."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api, transformer
+    from repro_torch.roofline.cost import jit_cost, meta_copy
+    from repro_torch.utils.rng import seeded_generator
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config("qwen3-1.7b")
+    free(torch)
+    params = api.init_params(seeded_generator("cuda", 20, 0), cfg, "cuda")
+    leaves = [x.requires_grad_(True) for x in tree_leaves(params)]
+    toks = torch.randint(0, cfg.vocab_size, (REMAT_B, REMAT_S),
+                         generator=seeded_generator("cuda", 20, 1),
+                         device="cuda")
+    batch = {"tokens": toks, "labels": toks}
+
+    def step(p, b):
+        loss = api.loss_fn(p, cfg, b)[0]
+        return loss.detach(), torch.autograd.grad(loss, tree_leaves(p))
+
+    mparams, mbatch = meta_copy(params, batch)
+    base = torch.cuda.memory_allocated()
+    print(f"  params {base / 1e9:.3f} GB (f32), {cfg.num_layers} layers, "
+          f"B={REMAT_B}, S={REMAT_S}")
+    saved = transformer.REMAT_POLICY
+    out, ref = {}, None
+    try:
+        for policy in ("full", "dots", "everything"):
+            transformer.set_remat_policy(policy)
+            modeled = jit_cost(step, mparams, mbatch)
+            free(torch)
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                loss, grads = step(params, batch)
+                torch.cuda.synchronize()
+            except torch.cuda.OutOfMemoryError:
+                print(f"  {policy}: does not fit on the card")
+                free(torch)
+                continue
+            peak = torch.cuda.max_memory_allocated() - base
+            times = []
+            for _ in range(REMAT_ITERS):
+                del grads
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                loss, grads = step(params, batch)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            ms = statistics.median(times)
+            print(f"  {policy}: peak {peak / 1e9:.3f} GB above the params "
+                  f"(modeled {(modeled.peak_state_bytes - modeled.arg_bytes) / 1e9:.3f} "
+                  f"GB), {ms:.2f} ms a step (median of {times}), "
+                  f"{modeled.flops:.4e} flops modeled, loss "
+                  f"{float(loss):.6f}")
+            if ref is None:
+                ref = (loss, grads)
+            else:
+                assert torch.equal(loss, ref[0]), (policy, loss, ref[0])
+                worst = max(float((g - r).norm() / r.norm().clamp_min(
+                    1e-30)) for g, r in zip(grads, ref[1]))
+                print(f"  {policy}: loss equal to full's; gradient leaves "
+                      f"within {worst:.3e} of full's (relative norm)")
+                assert worst <= REMAT_RTOL, (policy, worst)
+            del grads
+            out[policy] = (peak, ms)
+    finally:
+        transformer.REMAT_POLICY = saved
+    del params, leaves, ref
+    free(torch)
+    assert "full" in out and all(out["full"][0] <= v[0]
+                                 for v in out.values()), out
+    return out
+
+
+def costed_steps_on_the_card(torch, ops) -> dict:
+    """Phase 20c. ``Trainer._cost`` (the ``--obs-cost`` path) of phase 9's
+    robust step (Qwen3-1.7B widths, DEPTH layers, L=4, K=4, B=8, S=64,
+    ROBUST and the finite guard, no corruption) and of a guarded flat
+    dense step, each then run on the card: the modeled kernel calls equal
+    the launches, and the modeled flops equal ``torch.profiler``'s with
+    the checkpoint's early stop off. Returns the launches of the robust
+    step."""
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
+    from repro_torch.configs.base import (
+        MAvgConfig,
+        RobustConfig,
+        TrainConfig,
+        get_config,
+    )
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data import uniform_batch_fn
+    from repro_torch.models import api
+    from repro_torch.roofline.cost import profiled_matmul_flops
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=DEPTH)
+    k, batch, seq = 4, 8, 64
+    launched = {}
+    for label, mcfg in (
+            ("robust", MAvgConfig(algorithm="mavg", num_learners=L,
+                                  k_steps=k, finite_guard=True,
+                                  robust=RobustConfig(**ROBUST))),
+            ("guarded", MAvgConfig(algorithm="mavg", num_learners=L,
+                                   k_steps=k, finite_guard=True))):
+        free(torch)
+        trainer = Trainer(
+            TrainConfig(model=cfg, mavg=mcfg, batch_per_learner=batch,
+                        seq_len=seq, meta_steps=1),
+            lambda p, b: api.loss_fn(p, cfg, b),
+            init_params_fn=lambda gen: api.init_params(gen, cfg, "cuda"),
+            batch_fn=uniform_batch_fn(cfg, L, k, batch, seq),
+            device="cuda")
+        step = lambda s, b: trainer._step_fn(s, b, lr=LR)  # noqa: E731
+        b0 = trainer.batch_fn(trainer._data_generator(0), 0)
+        t0 = time.perf_counter()
+        with set_checkpoint_early_stop(False):
+            trainer._cost(b0, LR)
+        jc = trainer.jit_cost
+        assert jc is not None, label
+        print(f"  {label}: jit_cost in {time.perf_counter() - t0:.2f} s: "
+              f"{jc.flops:.6e} flops, {jc.hbm_bytes / 1e9:.3f} GB moved, "
+              f"peak_state {jc.peak_state_bytes / 1e9:.3f} GB, kernel calls "
+              f"{jc.kernel_calls}")
+        ops.reset_launch_counts()
+        with set_checkpoint_early_stop(False):
+            (trainer.state, _), flops = profiled_matmul_flops(
+                step, trainer.state, b0)
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in ops.launch_counts().items() if c}
+        print(f"  {label}: the step on the card launched {counts}; "
+              f"torch.profiler counts {flops:.6e} matmul flops")
+        assert counts == jc.kernel_calls, (label, counts, jc.kernel_calls)
+        assert flops == jc.flops, (label, flops, jc.flops)
+        launched[label] = counts
+        del trainer, step, b0
+    free(torch)
+    assert launched["robust"]["robust_reduce"] == 1, launched
+    return launched["robust"]
 
 
 def main() -> int:
@@ -4710,6 +4991,8 @@ def main() -> int:
         print(f"  {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
               f"ms by {r['bound_by']}), plain {r['plain_ms']:.3f} ms, "
               f"library {r['library_ms']}")
+    # phase 19c's dry run, on the host beside the phases to come
+    dry_run = start_dry_run()
 
     stamp(f"phase 4: full-width Qwen3-1.7B M-AVG trainer ({DEPTH} "
           f"layers), dense")
@@ -4847,7 +5130,7 @@ def main() -> int:
           "benches, quick, through run.py --only (stores under build/), "
           "gated; the comm bench")
     bench_counts = benches_on_the_card(torch, ops)
-    stamp("phase 15c: train_100m --width full (L=4, K=4, B=8, S=128, 20 "
+    stamp("phase 15c: train_100m --width full (L=4, K=4, B=8, S=128, 10 "
           "meta steps) and serve_batch on the reduced archs")
     e2e_counts = examples_on_the_card(torch, ops)
     print(f"  phase 15 in {time.perf_counter() - t15:.1f} s; launches: "
@@ -4923,26 +5206,38 @@ def main() -> int:
           f"the costed step {nonzero(cost_counts)}")
 
     t19 = time.perf_counter()
-    dry_run = start_dry_run()
-    try:
-        stamp(f"phase 19a: phase 18b's step placed on a (1, 1) DeviceMesh, "
-              f"costed as the dry run costs a rank")
-        placed_cost_on_a_1x1_mesh(cost_inputs)
-        del cost_inputs
-        stamp(f"phase 19b: the placed meta step on a one-GPU NCCL "
-              f"DeviceMesh, {PLACED_STEPS} meta steps against the unplaced "
-              f"step")
-        placed_counts = placed_steps_on_the_card()
-    except BaseException:
-        dry_run[0].kill()  # a failed phase stops the process it started
-        dry_run[0].communicate()
-        raise
-    stamp("phase 19c: the dry run of the (32, 8) H100 mesh, "
-          f"{'/'.join(DRYRUN_ARCHS)} x {'/'.join(DRYRUN_SHAPES)}, and "
-          f"run.py --only roofline")
+    stamp("phase 19a: phase 18b's step placed on a (1, 1) DeviceMesh, "
+          "costed as the dry run costs a rank")
+    placed_cost_on_a_1x1_mesh(cost_inputs)
+    del cost_inputs
+    stamp(f"phase 19b: the placed meta step on a one-GPU NCCL "
+          f"DeviceMesh, {PLACED_STEPS} meta steps against the unplaced "
+          f"step (mavg, and mavg_mlocal for 20b, in one process)")
+    placed_runs = placed_steps_on_the_card()
+    print_placed(placed_runs["mavg"])
+    placed_counts = placed_runs["mavg"]["placed"]
+    stamp(f"phase 19c: the dry run of the (32, 8) H100 mesh, "
+          f"{len(DRYRUN_ROWS)} rows, and run.py --only roofline")
     dry_run_rows(dry_run)
     print(f"  phase 19 in {time.perf_counter() - t19:.1f} s; launches on "
           f"the placed steps {placed_counts}")
+
+    t20 = time.perf_counter()
+    stamp(f"phase 20a: block remat on the card: full-width Qwen3-1.7B, 28 "
+          f"layers, one local step (B={REMAT_B}, S={REMAT_S}) under full, "
+          f"dots and everything")
+    remat_on_the_card(torch)
+    stamp(f"phase 20b: the placed mavg_mlocal meta step on a one-GPU NCCL "
+          f"DeviceMesh, {PLACED_STEPS} meta steps against the unplaced "
+          f"step (run in 19b's process)")
+    print_placed(placed_runs["mavg_mlocal"])
+    mlocal_counts = placed_runs["mavg_mlocal"]["placed"]
+    stamp(f"phase 20c: jit_cost of phase 9's robust step and of a guarded "
+          f"step ({DEPTH} layers, L={L}) against the card")
+    costed_counts = costed_steps_on_the_card(torch, ops)
+    print(f"  phase 20 in {time.perf_counter() - t20:.1f} s; launches: "
+          f"placed mavg_mlocal {mlocal_counts}, costed robust step "
+          f"{costed_counts}")
 
     # each kernel's launches in the run of the path it serves: the dense
     # and compressed full-width runs, the reduced per-leaf runs, the gossip

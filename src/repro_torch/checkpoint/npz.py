@@ -44,6 +44,15 @@ Where the port departs from JAX:
     buffer without copying it again, so the host holds about twice the
     state rather than three times.
 
+**On a mesh** (``Trainer(mesh=...)``: the state's planes are DTensors):
+every rank calls ``save_state`` and ``load_state``. The save gathers
+each placed plane piece by piece on rank 0 (each distinct piece sent once
+by the first rank holding it, ``_gathered``), so the ``.npz`` has the
+keys and bytes one process writes for the same state; only rank 0 writes
+files, and every rank leaves the save together (a barrier). The load
+reads the file on every rank and writes each rank's pieces into its
+local tensors, in place.
+
 Host topology keys (``membership``, ``robust_ring``, ``robust_count`` and
 the async server's int32 ``clock``, ``pull_update`` and ``updates``) live
 on the CPU in the port's state and are restored there; the async
@@ -62,6 +71,7 @@ import torch
 
 from repro_torch.core.meta import MetaState
 from repro_torch.utils.retry import retry_io
+from repro_torch.utils.tree import is_dtensor
 
 PACKSPEC_KEY = "__packspec__"
 
@@ -112,6 +122,51 @@ def _host(key: str, leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def _piece(leaf):
+    """(this rank's local tensor, its slices of the global shape) of a
+    DTensor."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    shape, offset = compute_local_shape_and_global_offset(
+        leaf.shape, leaf.device_mesh, leaf.placements)
+    return leaf.to_local(), tuple(slice(o, o + n)
+                                  for o, n in zip(offset, shape))
+
+
+def _gathered(leaf):
+    """A DTensor's global value on the host of rank 0 (None on the other
+    ranks): every distinct piece is sent to rank 0 once, by the first rank
+    that holds it, and written into place. Every rank of the default
+    group calls it, in the same order."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    local, where = _piece(leaf)
+    metas = [None] * dist.get_world_size()
+    dist.all_gather_object(metas, [(sl.start, sl.stop) for sl in where])
+    full = (torch.empty(leaf.shape, dtype=leaf.dtype) if rank == 0
+            else None)
+    seen = set()
+    for src, meta in enumerate(metas):
+        key = tuple(map(tuple, meta))
+        if key in seen:
+            continue
+        seen.add(key)
+        region = tuple(slice(a, b) for a, b in meta)
+        if src == rank == 0:
+            full[region] = local.cpu()
+        elif rank == src:
+            dist.send(local.contiguous(), dst=0)
+        elif rank == 0:
+            buf = torch.empty([b - a for a, b in meta], dtype=leaf.dtype,
+                              device=local.device)
+            dist.recv(buf, src=src)
+            full[region] = buf.cpu()
+    return full
+
+
 def _atomic_write(path: str, data) -> None:
     """tmp + flush + fsync + rename: a reader never observes a partial
     file at ``path``; transient OSErrors get the bounded retry."""
@@ -159,11 +214,29 @@ def save_state(directory: str, state, step: int, manifest=None, *,
     buffers. Pass the state a step returned: the meta step consumes its
     input state.
     """
-    os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"step_{step:08d}.npz")
     entries = _entries(state)
     if any(isinstance(x, torch.Tensor) and x.is_cuda for _, x in entries):
         torch.cuda.synchronize()
+    if any(is_dtensor(x) for _, x in entries):  # one rank of a mesh
+        import torch.distributed as dist
+
+        entries = [(k, _gathered(x) if is_dtensor(x) else x)
+                   for k, x in entries]
+        if dist.get_rank() != 0:
+            dist.barrier()
+            return path
+        try:
+            return _save(directory, path, state, step, entries, manifest,
+                         keep, fault)
+        finally:
+            dist.barrier()
+    return _save(directory, path, state, step, entries, manifest, keep,
+                 fault)
+
+
+def _save(directory, path, state, step, entries, manifest, keep, fault):
+    os.makedirs(directory, exist_ok=True)
     flat, dtypes = {}, {}
     for key, leaf in entries:
         flat[key], dtypes[key] = _host(key, leaf)
@@ -471,6 +544,9 @@ def _load_state(path, data, template):
                 arr = spec.pack_numpy(arrs, dtype=arrs[0].dtype)
             if key == "step" and isinstance(leaf, int):
                 step = int(arr)
+            elif is_dtensor(leaf):  # this rank's pieces, in place
+                local, where = _piece(leaf)
+                local.copy_(_to_tensor(np.ascontiguousarray(arr[where])))
             else:
                 leaf.copy_(_to_tensor(arr))
     if step is not None:

@@ -130,14 +130,16 @@ def init_state(params, cfg: MAvgConfig, reducer=None,
 # ---------------------------------------------------------------------------
 
 
-def _grad_into(loss_fn: LossFn, w, batch, g):
+def _grad_into(loss_fn: LossFn, w, batch, g, grad_mean=None):
     """Loss at params ``w`` (a tree of views), with its gradient
     accumulated into the zeroed buffers ``g`` (a tree of the same shapes).
 
     Each leaf is a detached alias of the learner's storage with ``.grad``
     preset to its gradient buffer: autograd then adds the leaf gradient
     into that buffer in place, and no second full-model gradient is ever
-    allocated.
+    allocated. ``grad_mean`` (the placed step of a learner whose batch is
+    split over ranks): ``loss -> loss`` averaged over the ranks, which also
+    averages the gradient in place, before its norm is taken.
     """
 
     def leaf(wi, gi):
@@ -149,7 +151,10 @@ def _grad_into(loss_fn: LossFn, w, batch, g):
     params = tree_map(leaf, w, g)
     loss, _aux = loss_fn(params, batch)
     loss.backward()
-    return loss.detach(), tree_norm(g)
+    loss = loss.detach()
+    if grad_mean is not None:
+        loss = grad_mean(loss)
+    return loss, tree_norm(g)
 
 
 @torch.no_grad()
@@ -172,10 +177,13 @@ def _sgd_update(w, mom, g, cfg: MAvgConfig, lr: float):
 
 def _local_phase(loss_fn: LossFn, learners, local_mom, batches,
                  cfg: MAvgConfig, lr: float, spec: Optional[PackSpec] = None,
-                 steps=None):
+                 steps=None, grad_mean=None):
     """batches: dict of (L, K, B_local, ...) tensors. ``steps``: None, or
     the L active local-step counts: learner j runs only its first
     ``steps[j]`` of the K steps (an absent learner runs none).
+    ``grad_mean``: ``(loss, gradient plane) -> loss``, the mean over the
+    ranks that share a learner's batch (``sharding/placed.py``, packed
+    planes only).
 
     Updates ``learners`` (and ``local_mom``) in place and returns
     (learners, local_mom, mean loss, mean grad-norm, per-learner mean
@@ -210,7 +218,9 @@ def _local_phase(loss_fn: LossFn, learners, local_mom, batches,
             mom = tree_map(torch.zeros_like, w_upd)  # not carried over
         for k in range(counts[j]):
             batch = {key: val[j, k] for key, val in batches.items()}
-            loss, gnorm = _grad_into(loss_fn, w_tree, batch, grads)
+            loss, gnorm = _grad_into(
+                loss_fn, w_tree, batch, grads,
+                None if grad_mean is None else partial(grad_mean, g=g_upd))
             _sgd_update(w_upd, mom, g_upd, cfg, lr)
             losses.append(loss)
             gnorms.append(gnorm)
@@ -261,7 +271,11 @@ def _loss_spread(loss_l, active):
 def _learner_finite_mask(tree) -> list[bool] | None:
     """Per learner j, True where every float element of its planes is
     finite; None when the tree has no float leaves. One plane and one
-    window at a time, and one read back to the host for all learners."""
+    window at a time, and one read back to the host for all learners.
+    A costed step (``roofline.cost.jit_cost``: meta planes, no values) is
+    counted as a clean one: its ``isfinite`` passes are charged, and the
+    read gives every learner finite, so nothing is written (JAX's
+    ``where`` writes every learner)."""
     leaves = [x for x in tree_leaves(tree) if x.is_floating_point()]
     if not leaves:
         return None
@@ -274,7 +288,10 @@ def _learner_finite_mask(tree) -> list[bool] | None:
             for sl in windows(xj.numel()):
                 ok &= torch.isfinite(xj[sl]).all()
         flags.append(ok)
-    return torch.stack(flags).tolist()
+    flags = torch.stack(flags)
+    if flags.device.type == "meta":
+        return [True] * L
+    return flags.tolist()
 
 
 def _finite_guard(learners, local_mom, gp, metrics, L):
@@ -306,7 +323,8 @@ def _finite_guard(learners, local_mom, gp, metrics, L):
 
 def meta_step(state: MetaState, batches, *, loss_fn: LossFn,
               cfg: MAvgConfig, lr=None, reducer=None, topology=None,
-              chaos=None, rows=None) -> tuple[MetaState, dict]:
+              chaos=None, rows=None, grad_mean=None
+              ) -> tuple[MetaState, dict]:
     """One meta-iteration n -> n+1 of Algorithm 1 (or a baseline).
 
     batches: dict of (L, K, B_local, ...) tensors on the state's device.
@@ -317,9 +335,11 @@ def meta_step(state: MetaState, batches, *, loss_fn: LossFn,
     before the mix. The input state is updated in place and returned; do
     not reuse it. ``rows``: (gather, scatter), set by the placed step of
     one rank of a mesh (``sharding/placed.py``) when the learner planes'
-    rows are split: the local phase trains ``gather(learners)`` and
-    ``scatter(learners, trained)`` takes this rank's rows back before the
-    mix.
+    rows are split: the local phase trains ``gather(learners, local
+    momentum)`` and ``scatter(learners, local momentum, trained learners,
+    trained momentum)`` takes this rank's rows of both back before the
+    mix. ``grad_mean``: see ``_local_phase`` (the placed step's batch
+    split over 'model').
     """
     lr = f32(cfg.learner_lr if lr is None else lr)
     if topology is None:
@@ -331,14 +351,17 @@ def meta_step(state: MetaState, batches, *, loss_fn: LossFn,
     steps = topology.local_steps(state.topo, state.step)
     # profiler ranges named as the JAX step's named scopes
     with torch.profiler.record_function("obs.local_phase"):
-        learners = state.learners if rows is None else rows[0](
-            state.learners)
+        learners, local_mom = state.learners, state.local_momentum
+        if rows is not None:
+            learners, local_mom = rows[0](learners, local_mom)
         learners, local_mom, loss, gnorm, loss_l, active = _local_phase(
-            loss_fn, learners, state.local_momentum, batches, cfg, lr,
-            spec=state.spec, steps=steps,
+            loss_fn, learners, local_mom, batches, cfg, lr,
+            spec=state.spec, steps=steps, grad_mean=grad_mean,
         )
         if rows is not None:
-            learners = rows[1](state.learners, learners)
+            learners, local_mom = rows[1](state.learners,
+                                          state.local_momentum, learners,
+                                          local_mom)
     metrics = {
         "loss": loss,
         "grad_norm": gnorm,

@@ -142,8 +142,10 @@ class Trainer:
 
     def _place(self, mesh, state_shardings) -> None:
         """Place the state on ``mesh`` and step it through the placed
-        meta step (the packed flat dense step; telemetry rings work, the
-        features that read or write whole planes on the host do not)."""
+        meta step (the packed flat dense step; telemetry rings and
+        checkpoints work: every rank saves, rank 0 writes the file, every
+        rank loads its pieces). Chaos, the cost analysis and the
+        attribution rows on a mesh are ROADMAP Queue 1 item 14, step 5."""
         from repro_torch.launch import mesh as meshlib
         from repro_torch.launch import specs
         from repro_torch.sharding import Spec
@@ -156,13 +158,12 @@ class Trainer:
         check_supported(self.mcfg)
         off = [name for name, on in (
             ("chaos", self.cfg.chaos is not None),
-            ("checkpoint_dir", bool(self.cfg.checkpoint_dir)),
             ("obs.cost_analysis", self.obs_cfg.cost_analysis),
             ("obs.attribution", self.obs_cfg.attribution)) if on]
         if off:
             raise NotImplementedError(
-                f"a Trainer on a mesh runs without {off}: they read or "
-                f"write whole planes on the host")
+                f"a Trainer on a mesh runs without {off}: ROADMAP Queue 1 "
+                f"item 14, step 5")
         if state_shardings is None:
             state_shardings = specs.state_shardings(self.cfg.model, self.mcfg,
                                                     mesh)
@@ -219,9 +220,10 @@ class Trainer:
         """The cost of the bare ``(state, batches, lr)`` step, once before
         step 0 (JAX's ``core/trainer.py:185-200``): ``jit_cost`` on meta
         copies of the state, its planes counted as updated in place, so
-        the live state is not stepped. Best-effort telemetry, as in JAX:
-        a step that reads values on the host (the finite guard, robust
-        aggregation) leaves ``jit_cost`` None."""
+        the live state is not stepped. The finite guard and robust
+        aggregation are costed as a clean step (``roofline/cost.py``).
+        Best-effort telemetry, as in JAX: a step that reads values on the
+        host leaves ``jit_cost`` None."""
         from repro_torch.roofline.cost import jit_cost
         from repro_torch.topology import host_buffers
 

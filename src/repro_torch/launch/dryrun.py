@@ -47,10 +47,9 @@ def main(argv=None) -> int:
                     help="label suffix for perf-iteration results")
     ap.add_argument("--remat", default="full",
                     choices=["full", "dots", "everything"],
-                    help="accepted for JAX's flag set: the port's dense "
-                         "training forward keeps its activations (JAX's "
-                         "'everything'); only 'full' and 'everything' "
-                         "name what it runs")
+                    help="activation-checkpoint policy of the dense and MoE "
+                         "blocks in train rows (models.transformer."
+                         "set_remat_policy)")
     ap.add_argument("--mlstm-chunk", type=int, default=0,
                     help="chunkwise-parallel mLSTM chunk length (0=recurrent)")
     ap.add_argument("--k", type=int, default=2,
@@ -69,6 +68,9 @@ def main(argv=None) -> int:
     if args.save_hlo:
         raise SystemExit("--save-hlo has no counterpart in the port: it runs "
                          "eagerly and compiles no module to save")
+    from repro_torch.models import transformer
+
+    transformer.set_remat_policy(args.remat)
     if args.mlstm_chunk:
         from repro_torch.models import xlstm
 

@@ -15,7 +15,9 @@ collectives. Nothing is allocated or computed.
 * **train**: the placed meta step of one rank (``sharding/placed.py``):
   its learners' K local steps on their whole planes, then the meta
   average over the learner axes as one all-reduce and the fused
-  momentum-broadcast kernel on the local rows.
+  momentum-broadcast kernel on the local rows. Under ``tp_mode="fsdp"``
+  a learner's local batch is split over 'model' where it divides (as
+  JAX's), and each local step averages the gradient over 'model'.
 * **prefill / decode**: the model's forward and ``decode_step`` with the
   weights placed by ``serve_param_shardings`` (Megatron tensor
   parallelism over 'model', FSDP over 'data' above 20e9 parameters), the
@@ -24,6 +26,28 @@ collectives. Nothing is allocated or computed.
   ``all-reduce``). Its redistributions are not GSPMD's: the collective
   counts differ from JAX's by design, and no attempt is made to imitate
   GSPMD.
+
+**Layer-scaled costing** (the default): JAX counts a scanned stack's
+body once and multiplies it by the scan's trip count. The port runs every
+layer eagerly, which at 32k tokens (DTensor runs ~2,048 attention blocks
+a layer) or over xLSTM's 4,096-step recurrences takes minutes a layer.
+So ``scaled_cost`` counts the row's program with one layer of each
+distinct stack (the first dense layers, the dense or MoE ``blocks``,
+Hymba's blocks, xLSTM's super-blocks; ``models/transformer.py::
+LAYER_LIMIT``, the other layers idle), then with two layers of one stack
+at a time, and adds each stack's second-layer difference once per layer
+beyond the first: the embedding, the head, the state, the meta step and
+its collectives are counted once, at full size. xLSTM's recurrences over
+time (JAX's scans, the port's Python loops) are scaled the same way from
+their first one and two steps (``models/xlstm.py::STEP_LIMIT``). Every
+layer of a stack, and every step after the first, costs the same, so
+this equals the eager count (``layer_scaled=False``;
+``tests/test_torch_dryrun.py`` holds the two equal at 3 layers) in
+flops, bytes, collectives and kernel calls. The temporaries are a peak,
+not a sum: scaled the same way where autograd keeps each layer's
+activations, the anchors' largest where nothing is kept (serving); exact
+for the dense and MoE rows, within 11 % for Hymba's and xLSTM's, whose
+peaks move between the anchors and the whole program.
 
 A row has JAX's keys: ``memory`` (the per-device ``argument_size_in_bytes``,
 ``output_size_in_bytes`` and ``temp_size_in_bytes`` of ``jit_cost``),
@@ -41,6 +65,7 @@ measurement of a card.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import time
@@ -125,11 +150,6 @@ def build_train(cfg: ModelConfig, mesh, shape: InputShape, *,
                 compute_dtype: str = "float32"):
     from repro_torch.sharding.placed import Placement, placed_meta_step
 
-    if tp_mode == "fsdp":
-        raise NotImplementedError(
-            "tp_mode 'fsdp' splits a learner's batch over 'model', which "
-            "needs a gradient all-reduce over 'model' inside the local phase; "
-            "the placed step runs 'megatron' and 'dp'")
     L = (meshlib.mesh_size(mesh) if tp_mode == "dp"
          else meshlib.num_learners(mesh, hierarchical=hierarchical))
     mcfg = MAvgConfig(algorithm=algorithm, num_learners=L, k_steps=k_steps,
@@ -142,10 +162,17 @@ def build_train(cfg: ModelConfig, mesh, shape: InputShape, *,
         S.state_shardings(cfg, mcfg, mesh, hierarchical=hierarchical,
                           tp_mode=tp_mode), mesh)
     lax_spec = laxes if len(laxes) > 1 else laxes[0]
-    batches = {name: S.place(x, Spec(lax_spec), mesh)
+    b_loc = shape.global_batch // L
+    if tp_mode == "fsdp" and b_loc % meshlib.mesh_shape(mesh)["model"] == 0:
+        # a learner's local batch split over 'model' (JAX's
+        # dryrun_lib.py:93-97), its gradient averaged over 'model'
+        batch_spec, batch_axis = Spec(lax_spec, None, "model"), "model"
+    else:
+        batch_spec, batch_axis = Spec(lax_spec), None
+    batches = {name: S.place(x, batch_spec, mesh)
                for name, x in S.train_input_specs(cfg, shape, L,
                                                   k_steps).items()}
-    placement = Placement(mesh, laxes)
+    placement = Placement(mesh, laxes, batch_axis)
 
     def loss_fn(params, batch):
         return model_api.loss_fn(params, cfg, batch)
@@ -204,12 +231,122 @@ def cost_program(fn, args, kwargs):
     return jit_cost(run, *args, **kwargs)
 
 
+def stack_depths(cfg: ModelConfig) -> dict:
+    """The model's stacks of identical layers, by the names
+    ``models/transformer.py::LAYER_LIMIT`` takes, and their depths."""
+    if cfg.family == "ssm":
+        return {"groups": cfg.num_layers // cfg.slstm_every}
+    nd = cfg.first_dense_layers if cfg.num_experts else 0
+    depths = {"blocks": cfg.num_layers - nd}
+    if nd:
+        depths["dense_blocks"] = nd
+    return depths
+
+
+@contextlib.contextmanager
+def layer_limit(limits: dict):
+    """Run only the first ``limits[name]`` layers of each named stack."""
+    from repro_torch.models import transformer
+
+    saved = dict(transformer.LAYER_LIMIT)
+    transformer.LAYER_LIMIT.update(limits)
+    try:
+        yield
+    finally:
+        transformer.LAYER_LIMIT.clear()
+        transformer.LAYER_LIMIT.update(saved)
+
+
+_COST_NUMBERS = ("hbm_bytes", "flops", "arg_bytes", "out_bytes",
+                 "alias_bytes", "temp_bytes", "collective_bytes",
+                 "collective_calls")
+_COST_TABLES = ("kernel_calls", "collectives_by_type",
+                "collectives_by_axes")
+
+
+def _affine(base, terms):
+    """``base`` + sum of m x (c - base) over the (m, c) of ``terms``,
+    field by field (the tables key by key)."""
+    out = {f: getattr(base, f) + sum(m * (getattr(c, f) - getattr(base, f))
+                                     for m, c in terms)
+           for f in _COST_NUMBERS}
+    for f in _COST_TABLES:
+        keys = set(getattr(base, f)).union(*(getattr(c, f) for _, c in terms))
+        b = getattr(base, f)
+        table = {k: b.get(k, 0) + sum(m * (getattr(c, f).get(k, 0)
+                                          - b.get(k, 0)) for m, c in terms)
+                 for k in sorted(keys)}
+        out[f] = {k: v for k, v in table.items() if v}
+    return dataclasses.replace(base, **out)
+
+
+@contextlib.contextmanager
+def step_limit(n):
+    """Run only the first ``n`` time steps of xLSTM's recurrences."""
+    from repro_torch.models import xlstm
+
+    saved = xlstm.STEP_LIMIT
+    xlstm.STEP_LIMIT = n
+    try:
+        yield
+    finally:
+        xlstm.STEP_LIMIT = saved
+
+
+def scaled_cost(fn, args, kwargs, cfg: ModelConfig, seq_len: int = 1,
+                grad: bool = True):
+    """The layer-scaled cost of a row's program (see the module
+    docstring): one layer of every stack, plus for each deeper stack its
+    depth - 1 times the cost of its second layer. xLSTM's recurrences
+    (``seq_len`` steps in each block, ``MLSTM_CHUNK`` off) scale the same
+    way over time: with G super-blocks and S steps, from the runs of
+    (1 or 2 super-blocks) x (1 or 2 steps), c(G, S) = c11 + (G-1) dG +
+    (S-1) dS + (G-1)(S-1) dGS, dGS = c22 - c21 - c12 + c11."""
+    from repro_torch.models import xlstm
+
+    depths = stack_depths(cfg)
+    one = {name: 1 for name in depths}
+
+    def run(limits, steps=None):
+        with layer_limit(limits), step_limit(steps):
+            return cost_program(fn, args, kwargs)
+
+    timed = (cfg.family == "ssm" and seq_len > 2
+             and not (xlstm.MLSTM_CHUNK and seq_len % xlstm.MLSTM_CHUNK
+                      == 0))
+    steps = 1 if timed else None
+    base = run(one, steps)
+    terms = []
+    for name, depth in depths.items():
+        if depth > 1:
+            terms.append((depth - 1, run({**one, name: 2}, steps)))
+    if timed:
+        (name, G), = depths.items()
+        c12 = run(one, 2)
+        terms.append((seq_len - 1, c12))
+        if G > 1:
+            c21, c22 = terms[0][1], run({name: 2}, 2)
+            m = (G - 1) * (seq_len - 1)
+            terms += [(m, c22), (-m, c21), (-m, c12)]
+    cost = _affine(base, terms)
+    if not grad:
+        # the peak of a forward without autograd sits in one layer (or
+        # step): the anchors' largest, not a sum over the layers
+        cost = dataclasses.replace(cost, temp_bytes=max(
+            c.temp_bytes for c in [base] + [c for _, c in terms]))
+    return cost
+
+
 def run_one(arch: str, shape_name: str, mesh_name: str, *,
             hierarchical: bool = False, algorithm: str = "mavg",
             save_hlo: bool = False, tp_mode: str = "megatron",
             compute_dtype: str = "float32", variant: str = "",
             k_steps: int = S.DRYRUN_K_STEPS,
-            expert_shard_map: bool = False) -> dict:
+            expert_shard_map: bool = False,
+            layer_scaled: bool = True) -> dict:
+    """One row. ``layer_scaled=False`` counts every layer eagerly instead
+    of scaling one layer of each stack by its depth (the same numbers,
+    much slower at 32k tokens)."""
     if save_hlo:
         raise NotImplementedError(
             "--save-hlo has no counterpart: the port runs eagerly, and there "
@@ -252,8 +389,12 @@ def run_one(arch: str, shape_name: str, mesh_name: str, *,
         else:
             fn, args, kw = build_decode(cfg_eff, mesh, shape)
             k_steps = 1
-        cost = cost_program(fn, args, kw)
+        cost = (scaled_cost(fn, args, kw, cfg_eff,
+                            1 if shape.is_decode else shape.seq_len,
+                            grad=shape.kind == "train")
+                if layer_scaled else cost_program(fn, args, kw))
     result["modeled"] = MODELED
+    result["layer_scaled"] = layer_scaled
     result["memory"] = {
         "argument_size_in_bytes": float(cost.arg_bytes),
         "output_size_in_bytes": float(cost.out_bytes),

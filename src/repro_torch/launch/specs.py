@@ -157,7 +157,8 @@ def state_shardings(cfg: ModelConfig, mcfg: MAvgConfig, mesh, *,
         global_params=gp_specs,
         momentum=gp_specs,
         learners=learner_specs,
-        local_momentum=None,
+        local_momentum=(learner_specs if mcfg.algorithm == "mavg_mlocal"
+                        else None),
         step=Spec(),
         comm_residual=learner_specs if uses_error_feedback(mcfg) else None,
         topo=_topo_specs(topo, learner_specs,
@@ -191,7 +192,7 @@ def _packed_state_shardings(cfg: ModelConfig, mcfg: MAvgConfig, mesh,
         global_params=plane,
         momentum=plane,
         learners=stacked,
-        local_momentum=None,
+        local_momentum=stacked if mcfg.algorithm == "mavg_mlocal" else None,
         step=Spec(),
         comm_residual=stacked if uses_error_feedback(mcfg) else None,
         topo=_topo_specs(topo, stacked, mcfg.topology.kind == "gossip"),

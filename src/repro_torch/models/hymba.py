@@ -31,6 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _layer_views
 from repro_torch.models.xlstm import _causal_conv
+from repro_torch.utils.tree import is_dtensor
 
 # ---------------------------------------------------------------------------
 # init
@@ -247,11 +248,15 @@ def _embed(params, cfg: ModelConfig, tokens):
 
 
 def forward(params, cfg: ModelConfig, batch, *, use_pallas: bool = False):
-    """-> (logits (B, meta + S, V) f32, aux)."""
+    """-> (logits (B, meta + S, V) f32, aux). On a mesh (DTensor tokens,
+    the dry run) the model runs on this rank's batch slice
+    (``layers.BatchPieces``)."""
     del use_pallas
+    if is_dtensor(batch["tokens"]):
+        return L.forward_on_batch_pieces(forward, params, cfg, batch)
     x = _embed(params, cfg, batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)
-    for bp in _layer_views(params["blocks"]):
+    for bp in _layer_views(params["blocks"], "blocks"):
         x = L.remat(_block_fwd, x, bp, cfg, positions)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return (L.lm_head(params["embed"], cfg, x),
@@ -309,7 +314,7 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: int, *,
     n = min(S, W)
     dst, src = slice(W - n, W), slice(S - n, S)
     meta = cfg.meta_tokens
-    for i, bp in enumerate(_layer_views(params["blocks"])):
+    for i, bp in enumerate(_layer_views(params["blocks"], "blocks")):
         x, k, v, (conv_s, ssm_s) = _block(x, bp, cfg, positions)
         cache["k"][i, :, dst] = k[:, src]
         cache["v"][i, :, dst] = v[:, src]
@@ -336,8 +341,13 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, *,
     """tokens: (B,) -> (logits (B, V) f32, the cache updated in place with
     pos + 1). The window shifts left one slot a step; window slots whose
     position is below ``meta_tokens`` are masked (the meta tokens attend
-    from ``k_meta``, ``v_meta``, which the prefill fills)."""
+    from ``k_meta``, ``v_meta``, which the prefill fills). On a mesh
+    (DTensor tokens, the dry run) the step runs on this rank's batch slice
+    (``layers.BatchPieces``)."""
     del use_pallas
+    if is_dtensor(tokens):
+        return L.decode_on_batch_pieces(decode_step, params, cfg, cache,
+                                        tokens)
     pos = cache["pos"]  # absolute position of the new token
     W = cache["k"].shape[2]
     x = L.embed_tokens(params["embed"], cfg, tokens[:, None])
@@ -345,7 +355,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, *,
     valid = torch.cat([torch.ones(cfg.meta_tokens, dtype=torch.bool,
                                   device=x.device),
                        win_pos >= cfg.meta_tokens])
-    for i, bp in enumerate(_layer_views(params["blocks"])):
+    for i, bp in enumerate(_layer_views(params["blocks"], "blocks")):
         kc, vc = cache["k"][i], cache["v"][i]
         xn = L.rmsnorm(x, bp["norm"], cfg.norm_eps)
         q, k_new, v_new = L._qkv(xn, bp["attn"], cfg, pos.view(1))

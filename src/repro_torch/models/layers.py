@@ -193,6 +193,13 @@ def _expand_kv(k, n_rep: int):
 def full_attention(q, k, v, *, causal, sliding_window=0, q_offset=0,
                    prefix_global=0):
     """Reference attention (materialises the score matrix)."""
+    if is_dtensor(q):
+        out = _on_local_pieces(
+            full_attention, q, k, v, causal=causal,
+            sliding_window=sliding_window, q_offset=q_offset,
+            prefix_global=prefix_global)
+        if out is not None:
+            return out
     _, sq, nq, hd = q.shape
     sk = k.shape[1]
     n_rep = nq // k.shape[2]
@@ -218,6 +225,13 @@ def chunked_attention(q, k, v, *, causal, sliding_window=0, q_chunk=512,
     block at a time. Chunks are the largest divisors of S up to the given
     sizes, as in JAX; the running max starts at -inf and p is cast to q's
     dtype before the PV product, as there."""
+    if is_dtensor(q):
+        out = _on_local_pieces(
+            chunked_attention, q, k, v, causal=causal,
+            sliding_window=sliding_window, q_chunk=q_chunk,
+            kv_chunk=kv_chunk, prefix_global=prefix_global)
+        if out is not None:
+            return out
     B, S, nq, hd = q.shape
     n_rep = nq // k.shape[2]
     scale = 1.0 / math.sqrt(hd)
@@ -257,6 +271,36 @@ def chunked_attention(q, k, v, *, causal, sliding_window=0, q_chunk=512,
         out = acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
         outs.append(out.to(q.dtype))
     return torch.cat(outs, dim=1)
+
+
+def _on_local_pieces(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)`` for (B, S, H, D) DTensors (the dry run of a
+    mesh) split alike along the batch and head dims only: attention is
+    independent per sequence and head, so each rank runs ``fn`` on its
+    pieces with plain ops and the result keeps q's placements. At 32k
+    tokens the blockwise loop is ~2,048 blocks a layer, each op of which
+    DTensor would dispatch, and torch 2.11's DTensor refuses the score
+    product's views of split heads. None where the pieces do not line up
+    (then DTensor runs ``fn``)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    pl, mesh = tuple(q.placements), q.device_mesh
+    if not all(is_dtensor(t) and tuple(t.placements) == pl
+               and t.device_mesh == mesh for t in (k, v)):
+        return None
+    # a rank's query heads must be the ones its key heads serve: the heads
+    # split evenly, or not at all
+    if not all(isinstance(p, Replicate) or isinstance(p, Shard) and (
+            p.dim == 0 or p.dim == 2 and q.shape[2] % mesh.size(i) == 0
+            and k.shape[2] % mesh.size(i) == 0) for i, p in enumerate(pl)):
+        return None
+    # the result's layout as declared below (the plain path's out_proj
+    # copies a permuted result as well)
+    out = fn(q.to_local(), k.to_local(), v.to_local(), **kw).contiguous()
+    B, S, H, D = q.shape
+    return DTensor.from_local(out, q.device_mesh, pl, run_check=False,
+                              shape=(B, S, H, D),
+                              stride=(S * H * D, H * D, D, 1))
 
 
 # Sequences above this length take the blockwise ``chunked_attention``, as
@@ -362,6 +406,98 @@ def _decode_attention_placed(q, kc, vc, valid, cfg: ModelConfig):
                               stride=(Q * H * D, H * D, D, 1))
 
 
+def _map_dtensors(tree, fn):
+    """``fn`` on every DTensor of a dict / list / tuple tree, the tree
+    rebuilt around it; other leaves kept."""
+    if is_dtensor(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_dtensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_dtensors(v, fn) for v in tree)
+    return tree
+
+
+class BatchPieces:
+    """One rank's serving program of a family that splits nothing over
+    'model' (Hymba, xLSTM; the dry run of a mesh): every DTensor argument
+    is laid out with the tokens' batch split kept and every other dim
+    whole (the weights and states gathered over 'model'), the model runs
+    on this rank's batch slice in plain ops, and its results are placed
+    back. Their recurrences, SSM scans and 25 attention heads then go
+    through no DTensor view rule, which differ between torch versions."""
+
+    def __init__(self, tokens):
+        self.mesh = tokens.device_mesh
+        self.batch = tokens.shape[0]
+        self.dims = {i for i, p in enumerate(tokens.placements)
+                     if p.is_shard(0)}
+
+    def layout(self, t):
+        from torch.distributed.tensor import Replicate
+
+        return [p if i in self.dims else Replicate()
+                for i, p in enumerate(t.placements)]
+
+    def local(self, tree):
+        return _map_dtensors(tree, lambda t: t.redistribute(
+            self.mesh, self.layout(t)).to_local())
+
+    def placed(self, out):
+        """A (B, ...) result of this rank's slice as a DTensor split along
+        the batch as the tokens are."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        shape = (self.batch,) + tuple(out.shape[1:])
+        stride = [1] * len(shape)
+        for i in range(len(shape) - 2, -1, -1):
+            stride[i] = stride[i + 1] * shape[i + 1]
+        return DTensor.from_local(
+            out, self.mesh, [Shard(0) if i in self.dims else Replicate()
+                             for i in range(self.mesh.ndim)],
+            run_check=False, shape=shape, stride=tuple(stride))
+
+    def write_back(self, placed, local) -> None:
+        """Each DTensor of ``placed`` takes its piece of the same leaf of
+        ``local`` (this rank's batch slice, other dims whole), in place."""
+        from torch.distributed.tensor import DTensor
+
+        if is_dtensor(placed):
+            whole = DTensor.from_local(local, self.mesh, self.layout(placed),
+                                       run_check=False, shape=placed.shape,
+                                       stride=placed.stride())
+            placed.to_local().copy_(whole.redistribute(
+                self.mesh, placed.placements).to_local())
+        elif isinstance(placed, dict):
+            for k in placed:
+                self.write_back(placed[k], local[k])
+        elif isinstance(placed, (list, tuple)):
+            for p, q in zip(placed, local):
+                self.write_back(p, q)
+
+
+def forward_on_batch_pieces(forward, params, cfg: ModelConfig, batch):
+    """``forward(params, cfg, batch)`` of a ``BatchPieces`` family on a
+    mesh: (logits placed along the batch, aux)."""
+    pieces = BatchPieces(batch["tokens"])
+    logits, aux = forward(pieces.local(params), cfg, pieces.local(batch))
+    return pieces.placed(logits), aux
+
+
+def decode_on_batch_pieces(decode_step, params, cfg: ModelConfig, cache,
+                           tokens):
+    """``decode_step`` of a ``BatchPieces`` family on a mesh: the placed
+    cache updated in place, piece by piece (logits placed along the batch,
+    the cache with pos + 1)."""
+    pieces = BatchPieces(tokens)
+    local_cache = pieces.local(cache)
+    logits, _ = decode_step(pieces.local(params), cfg, local_cache,
+                            pieces.local(tokens))
+    pieces.write_back({k: v for k, v in cache.items() if k != "pos"},
+                      {k: v for k, v in local_cache.items() if k != "pos"})
+    return pieces.placed(logits), dict(cache, pos=cache["pos"] + 1)
+
+
 def index_copy_(cache, dim: int, idx, src):
     """``cache.index_copy_(dim, idx, src)``. A DTensor cache (the dry run
     of a mesh) whose ``dim`` is split over a mesh axis is written rank by
@@ -416,14 +552,54 @@ def attention_decode(x, p, cfg: ModelConfig, k_cache, v_cache, pos):
     return out_proj(out, p, x.dtype), k_cache, v_cache
 
 
-def remat(fn, *args):
+# the products a ``dots`` checkpoint keeps: matmuls with no batch dims
+# (JAX's ``dots_with_no_batch_dims_saveable``); attention's batched
+# products (``aten.bmm``) are recomputed with everything else
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _requires_grad(x) -> bool:
+    """Does a tensor of ``x`` (a tensor, or a dict, list or tuple of
+    them) require a gradient?"""
+    if isinstance(x, torch.Tensor):
+        return x.requires_grad
+    if isinstance(x, dict):
+        x = x.values()
+    elif not isinstance(x, (list, tuple)):
+        return False
+    return any(_requires_grad(v) for v in x)
+
+
+def remat(fn, *args, policy: str = "full"):
     """``fn(*args)``; while autograd records, its activations are
     recomputed in the backward pass instead of kept
-    (``torch.utils.checkpoint``), as JAX's ``jax.checkpoint`` with
-    ``nothing_saveable`` does. The numbers are the same either way."""
-    if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    (``torch.utils.checkpoint``, non-reentrant), as JAX's
+    ``jax.checkpoint`` does under ``policy``: ``full``
+    (``nothing_saveable``: everything recomputed), ``dots``
+    (``dots_with_no_batch_dims_saveable``: the outputs of ``aten.mm`` and
+    ``aten.addmm`` kept, a selective checkpoint) or ``everything`` (all
+    kept: ``fn(*args)`` itself). The numbers are the same under each.
+    With no input that requires a gradient (serving), ``fn`` just runs."""
+    if (policy == "everything" or not torch.is_grad_enabled()
+            or not _requires_grad(args)):
+        return fn(*args)
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_dots_contexts)
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------

@@ -10,10 +10,13 @@ JAX (``blocks/attn/wq`` is (layers, d_model, heads, head_dim)), so the
 packed layout and weight carry-over match key for key. MoE configs with
 ``first_dense_layers`` keep the leading dense blocks in a separate
 ``dense_blocks`` stack, and ``blocks`` then holds the MoE blocks (``moe``
-in place of ``mlp``). The JAX forward scans each stack under remat; the
-port loops over ``unbind`` views of it and keeps the activations (remat
-changes no numbers, and at the training shapes this path runs, B=8 and
-S=64, they take a few GB).
+in place of ``mlp``). The JAX forward scans each stack under
+``jax.checkpoint(policy=REMAT_POLICY)``; the port loops over ``unbind``
+views of it and wraps each block in ``layers.remat`` under the same
+policy (``set_remat_policy``: ``full``, the default, recomputes the whole
+block in the backward pass; ``dots`` keeps its matmul outputs;
+``everything`` keeps every activation). Remat acts only while autograd
+records, and changes no number: serving is not affected.
 
 The KV cache is ``{"k", "v"}`` of shape (layers, B, S, KV, D) in
 ``cfg.dtype`` and ``"pos"``, a 0-d int32 tensor on the device, as JAX's;
@@ -31,6 +34,19 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe, moe_layer
 from repro_torch.utils.tree import tree_leaves, tree_map
+
+
+# the activation-checkpoint policy of every dense and MoE block in the
+# training forward (JAX's ``REMAT_POLICY``, by name): "full" recomputes
+# everything (JAX's default, ``nothing_saveable``), "dots" keeps the
+# matmul outputs with no batch dims, "everything" keeps all
+REMAT_POLICY = "full"
+
+
+def set_remat_policy(name: str) -> None:
+    global REMAT_POLICY
+    REMAT_POLICY = {"full": "full", "dots": "dots",
+                    "everything": "everything"}[name]
 
 
 def _init_stack(gen, cfg: ModelConfig, device, n: int, moe: bool) -> dict:
@@ -83,13 +99,23 @@ def _block_fwd(x, bp, cfg: ModelConfig, positions, moe: bool,
     return _ffn_residual(h, bp, cfg, moe, dropless)
 
 
-def _layer_views(stack: dict) -> list[dict]:
+# the layers a stack runs, by stack name ("dense_blocks", "blocks", and
+# xLSTM's "groups"): the first n, the others idle. Set only by the dry
+# run's layer-scaled costing (``launch/dryrun_lib.py::layer_limit``); empty,
+# every layer runs
+LAYER_LIMIT: dict = {}
+
+
+def _layer_views(stack: dict, name: str | None = None) -> list[dict]:
     """Per-layer param dicts. ``unbind`` gives every layer's slice of a
     stacked leaf at once, and its backward stacks the layer gradients in
     one pass (indexing layer by layer would allocate a full-size zero
-    gradient per layer)."""
+    gradient per layer). A stack named in ``LAYER_LIMIT`` keeps its first
+    layers only (every layer is still unbound: an idle layer's gradient
+    is a zero)."""
     per_leaf = tree_map(lambda x: x.unbind(0), stack)
     n = len(tree_leaves(per_leaf)[0])
+    n = min(n, LAYER_LIMIT.get(name, n))
     return [tree_map(lambda xs: xs[i], per_leaf) for i in range(n)]
 
 
@@ -98,9 +124,11 @@ def _layers(params, cfg: ModelConfig) -> list[tuple[dict, bool]]:
     first, then ``blocks``."""
     out = []
     if "dense_blocks" in params:
-        out += [(bp, False) for bp in _layer_views(params["dense_blocks"])]
+        out += [(bp, False) for bp in _layer_views(params["dense_blocks"],
+                                                   "dense_blocks")]
     moe = cfg.num_experts > 0
-    return out + [(bp, moe) for bp in _layer_views(params["blocks"])]
+    return out + [(bp, moe) for bp in _layer_views(params["blocks"],
+                                                   "blocks")]
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch):
@@ -149,8 +177,8 @@ def forward(params, cfg: ModelConfig, batch, *, use_pallas: bool = False,
     positions = torch.arange(x.shape[1], device=x.device)
     aux_total = torch.zeros((), device=x.device)
     for bp, moe in _layers(params, cfg):
-        x, aux = _block_fwd(x, bp, cfg, positions, moe, use_pallas,
-                            dropless=not train)
+        x, aux = L.remat(_block_fwd, x, bp, cfg, positions, moe, use_pallas,
+                         not train, policy=REMAT_POLICY)
         if aux is not None:
             aux_total = aux_total + aux
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _layer_views
+from repro_torch.utils.tree import is_dtensor
 
 # ---------------------------------------------------------------------------
 # init
@@ -116,6 +117,17 @@ MLSTM_CHUNK = 0
 def set_mlstm_chunk(n: int) -> None:
     global MLSTM_CHUNK
     MLSTM_CHUNK = n
+
+
+# the time steps the recurrent mLSTM and sLSTM run: the first n, each
+# later step's output a copy of the last one run. Set only by the dry
+# run's scaled costing (``launch/dryrun_lib.py::scaled_cost``, JAX's scan
+# trip count over time); None runs every step
+STEP_LIMIT = None
+
+
+def _steps(S: int) -> int:
+    return S if STEP_LIMIT is None else min(S, STEP_LIMIT)
 
 
 def _key_scale(hd: int, dtype, device):
@@ -228,7 +240,7 @@ def mlstm_seq(bp, cfg: ModelConfig, x, state=None):
         bp, cfg, x, state)
     f32 = torch.float32
     hs = []
-    for t in range(S):
+    for t in range(_steps(S)):
         it, ft = i_pre[:, t], f_pre[:, t]  # (B, nh)
         qt, kt, vt = q[:, t].to(f32), k[:, t].to(f32), v[:, t].to(f32)
         m_new = torch.maximum(ft + m, it)
@@ -241,6 +253,7 @@ def mlstm_seq(bp, cfg: ModelConfig, x, state=None):
         den = torch.clamp(torch.abs((n * qt).sum(-1))[..., None], min=1.0)
         hs.append((num / den).to(dt))
         m = m_new
+    hs += hs[-1:] * (S - len(hs))
     h = torch.stack(hs, dim=1).reshape(B, S, d_in)
     return _mlstm_out(bp, cfg, x, h, z), (C, n, m, new_conv_buf)
 
@@ -271,7 +284,7 @@ def slstm_seq(bp, cfg: ModelConfig, x, state=None):
     # the four recurrent products in one (nh, hd, 4 hd) matmul a step
     r = torch.cat([bp[f"r_{g}"] for g in ("i", "f", "z", "o")], dim=-1)
     hs = []
-    for t in range(S):
+    for t in range(_steps(S)):
         rec = (h.transpose(0, 1) @ r).transpose(0, 1).split(hd, dim=-1)
         ip, fp, zp, op = (p[:, t] + rg for p, rg in zip(pre, rec))
         m_new = torch.maximum(fp + m, ip)
@@ -282,6 +295,7 @@ def slstm_seq(bp, cfg: ModelConfig, x, state=None):
         h = torch.sigmoid(op) * c / torch.clamp(n, min=1e-6)
         m = m_new
         hs.append(h)
+    hs += hs[-1:] * (S - len(hs))
     hseq = torch.stack(hs, dim=1).reshape(B, S, d).to(dt)
     hseq = L.rmsnorm(hseq, bp["out_norm"], cfg.norm_eps)
     x = x + hseq
@@ -323,8 +337,9 @@ def _scan_groups(params, cfg: ModelConfig, x, states=None):
     recomputed in the backward pass (``layers.remat``); with ``states`` (the
     cache's (m, s) tuples) returns (x, [per super-block: ([per mLSTM block:
     state], sLSTM state)])."""
-    mviews = [_layer_views(g) for g in _layer_views(params["mlstm"])]
-    sviews = _layer_views(params["slstm"])
+    mviews = [_layer_views(g) for g in _layer_views(params["mlstm"],
+                                                    "groups")]
+    sviews = _layer_views(params["slstm"], "groups")
     if states is None:
         for mps, sp in zip(mviews, sviews):
             x = L.remat(_group_out, mps, sp, cfg, x)
@@ -341,8 +356,12 @@ def _scan_groups(params, cfg: ModelConfig, x, states=None):
 
 def forward(params, cfg: ModelConfig, batch, *, use_pallas: bool = False):
     """-> (logits (B, S, V) f32, aux). ``use_pallas`` is accepted and
-    ignored, as in JAX (the family has no kernel)."""
+    ignored, as in JAX (the family has no kernel). On a mesh (DTensor
+    tokens, the dry run) the model runs on this rank's batch slice
+    (``layers.BatchPieces``)."""
     del use_pallas
+    if is_dtensor(batch["tokens"]):
+        return L.forward_on_batch_pieces(forward, params, cfg, batch)
     x = L.embed_tokens(params["embed"], cfg, batch["tokens"])
     x, _ = _scan_groups(params, cfg, x)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -405,8 +424,13 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, *,
                 use_pallas: bool = False):
     """One token: tokens (B,) -> (logits (B, V) f32, the cache with its
     states updated in place and pos + 1). S = 1 takes the recurrent
-    mLSTM (the chunked form needs S > 1)."""
+    mLSTM (the chunked form needs S > 1). On a mesh (DTensor tokens, the
+    dry run) the step runs on this rank's batch slice
+    (``layers.BatchPieces``)."""
     del use_pallas
+    if is_dtensor(tokens):
+        return L.decode_on_batch_pieces(decode_step, params, cfg, cache,
+                                        tokens)
     x = L.embed_tokens(params["embed"], cfg, tokens[:, None])
     x, out = _scan_groups(params, cfg, x, (cache["m"], cache["s"]))
     _store(cache, out)

@@ -19,9 +19,8 @@ once:
 JAX joins it with ``roofline.hlo_cost``): ``modeled_hbm_bytes``,
 ``modeled_flops``, ``achieved_gbps`` (modeled bytes over the measured
 seconds) and ``pct_of_bound`` against ``measured_peak_gbps``. A function
-that reads values on the host (the finite guard, the robust aggregator)
-has no meta cost: its row carries the timing alone, as JAX's rows do
-without a cost. ``profile_phases`` times the three parts of one meta
+that reads values on the host has no meta cost: its row carries the
+timing alone, as JAX's rows do without a cost. ``profile_phases`` times the three parts of one meta
 iteration: the whole step, the local phase alone and the meta mix alone.
 
 JAX times functional copies of its donated step. The port's step updates

@@ -99,12 +99,15 @@ def _displacements(stack, anchor):
 def gram(stack, anchor=None) -> torch.Tensor:
     """The (L, L) f32 Gram matrix of the displacement stack (see
     ``_displacements``), summed over windows and leaves on the stack's
-    device and returned on the host."""
+    device and returned on the host (left on the meta device when the
+    step is costed, ``roofline.cost.jit_cost``)."""
     G = None
     with _full_f32_matmul():
         for d in _displacements(stack, anchor):
             g = d @ d.T
             G = g if G is None else G + g
+    if G.device.type == "meta":  # costed (roofline.cost): no host read
+        return G
     return G.cpu()
 
 
@@ -115,10 +118,11 @@ def scores_from_gram(G: torch.Tensor, neighbors: int = 0) -> torch.Tensor:
     L = G.shape[0]
     sq = torch.diagonal(G)
     d2 = torch.maximum(sq[:, None] + sq[None, :] - 2.0 * G,
-                       torch.zeros((), dtype=G.dtype))
-    d2 = d2 + torch.where(torch.eye(L, dtype=torch.bool),
-                          torch.full((), float("inf")),
-                          torch.zeros(()))
+                       torch.zeros((), dtype=G.dtype, device=G.device))
+    dev = G.device
+    d2 = d2 + torch.where(torch.eye(L, dtype=torch.bool, device=dev),
+                          torch.full((), float("inf"), device=dev),
+                          torch.zeros((), device=dev))
     k = neighbors if neighbors > 0 else max(L - 2, 1)
     k = min(k, L - 1)
     return torch.sort(d2, dim=1).values[:, :k].sum(dim=1)
@@ -132,12 +136,13 @@ def anomaly_scores(delta, *, neighbors: int = 0) -> torch.Tensor:
 
 def _median(x: torch.Tensor) -> torch.Tensor:
     """``jnp.median`` of a 1-d f32 tensor: the mean of the two middle
-    values, (lo + hi) * 0.5, and NaN if any value is NaN."""
-    if bool(torch.isnan(x).any()):
-        return torch.full((), float("nan"))
+    values, (lo + hi) * 0.5, and NaN if any value is NaN (a ``where`` on
+    the tensor's device: no host read)."""
     s = torch.sort(x).values
     n = s.numel()
-    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
+    mid = (s[(n - 1) // 2] + s[n // 2]) * 0.5
+    return torch.where(torch.isnan(x).any(),
+                       torch.full((), float("nan"), device=x.device), mid)
 
 
 class RobustAggregator:
@@ -191,7 +196,10 @@ class RobustAggregator:
         G = gram(stack, anchor) if (self.has_clip or self.cfg.score) else None
         if self.has_clip:
             norms = torch.sqrt(torch.diagonal(G))
-            ring, count = topo["robust_ring"], int(topo["robust_count"])
+            # the ring on the Gram matrix's device: the host, or meta
+            # when costed
+            ring = topo["robust_ring"].to(G.device)
+            count = int(topo["robust_count"])
             W = self.cfg.clip_window
             full = count >= W
             budget = torch.tensor(f32(self.cfg.clip_mult)) * _median(ring)
@@ -220,7 +228,12 @@ class RobustAggregator:
 
     @staticmethod
     def _clipped(scale) -> list[tuple[int, float]]:
-        """(learner, its f32 factor) of every learner the clip scales."""
+        """(learner, its f32 factor) of every learner the clip scales: a
+        host read of the factors. A costed step (meta factors, no values)
+        is counted as a clean one, where no learner is clipped and none
+        is written (JAX's ``where`` writes every learner)."""
+        if scale.device.type == "meta":
+            return []
         return [(j, float(s)) for j, s in enumerate(scale.tolist())
                 if s < 1.0]
 

@@ -59,12 +59,22 @@ mesh axes its group spans (``groups`` names them). The port runs
 eagerly, so every layer and local step is counted as it runs: no trip
 counts are needed.
 
+Only ops on the device count: an op with no meta tensor among its
+arguments and results runs on the host and is not counted.
+
 A host read (``.tolist()``, ``bool(t)``) of a meta tensor raises, as an
-abstract value does under ``jax.jit``: the finite guard and the robust
-aggregator read values, and their steps cannot be costed. The host-side
-buffers a step reads on purpose (membership schedules, the async
-clocks), which the caller names in ``host``, are cloned on their own
+abstract value does under ``jax.jit``. The finite guard and the robust
+clip, which read a mask or clip factors once a step on a real device,
+take a clean step on meta instead (every learner finite, none clipped:
+``core/meta.py::_learner_finite_mask``, ``robust/aggregator.py``), with
+their passes over the planes counted. The host-side buffers a step
+reads on purpose (membership schedules, the async clocks, the clip's
+ring), which the caller names in ``host``, are cloned on their own
 device instead of moved to meta.
+
+Remat (``torch.utils.checkpoint``) is counted as it runs: the recomputed
+forward in the backward pass, up to the checkpoint's early stop (the
+last saved input recomputed), as XLA counts the recompute it keeps.
 """
 from __future__ import annotations
 
@@ -326,6 +336,12 @@ class _Counter(TorchDispatchMode):
                 if r is not NotImplemented:
                     return r
             out = func(*args, **kwargs)
+        if not any(t.device.type == "meta" for t in _tensors(out)
+                   + _tensors(list(args)) + _tensors(kwargs)):
+            # a host op: a ``host`` buffer of the step, or DTensor's own
+            # bookkeeping of shard sizes and offsets (done once, then
+            # cached); nothing on the device
+            return out
         packet = func._overloadpacket
         if packet in flop_registry:
             self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
@@ -506,7 +522,11 @@ PROFILER_MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 def profiled_matmul_flops(fn, *args):
     """``fn(*args)`` run for real under ``torch.profiler`` with
     ``with_flops``: (its result, the matmul flops the profiler counted),
-    the count ``jit_cost``'s ``flops`` is held to on a device."""
+    the count ``jit_cost``'s ``flops`` is held to on a device. The
+    profiler records an op when it is dispatched, so it also counts a
+    product a checkpoint's early stop ends inside its autograd wrapper,
+    before its kernel; ``jit_cost`` does not. Compare the two with
+    ``torch.utils.checkpoint.set_checkpoint_early_stop(False)``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU], with_flops=True) as prof:

@@ -3,7 +3,9 @@
 pieces through the port's own ``core/meta.py::meta_step``.
 
 What one rank runs, for the packed flat dense meta step (the default
-configuration, the one JAX's dry run lowers):
+configuration, the one JAX's dry run lowers; ``mavg``, ``kavg``, ``sync``
+and ``mavg_mlocal``, whose local-momentum plane is placed, gathered and
+taken back as the learners' are):
 
 * its L_loc = L / |learner axes| learners (the learner dim of the
   (L, rows, 128) stack is split over the learner axes);
@@ -19,6 +21,12 @@ configuration, the one JAX's dry run lowers):
   momentum-broadcast kernel on the local planes;
 * the loss and grad-norm metrics averaged across the learner axes (one
   small all-reduce each).
+
+Under ``tp_mode="fsdp"`` (JAX's dry run: a learner's local batch split
+over 'model' where it divides) each rank of a learner's 'model' group
+runs the local phase on its slice of the batch, and the gradient plane
+and the loss are averaged over 'model' (one all-reduce each) before every
+local SGD step, so each rank applies the learner's whole-batch step.
 
 On a mesh of size 1 every step of this is the unplaced step's, op for op:
 no all-gather, no all-reduce, the same kernel launches
@@ -77,36 +85,61 @@ class GroupLabels:
                         if len({c[i] for c in coords}) > 1) or "self"
 
 
+def _group_of(mesh, axes):
+    """(the process group spanning ``axes`` of ``mesh``, its size), or
+    (None, 1) when the axes hold one rank."""
+    names = tuple(mesh.mesh_dim_names)
+    n = _prod(mesh.size(names.index(a)) for a in axes)
+    if n == 1:
+        return None, 1
+    sub = mesh[tuple(axes)]
+    if len(axes) > 1:
+        sub = sub._flatten()
+    return sub.get_group(0), n
+
+
+def _mean_over(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The mean of ``x`` over ``group`` (one all-reduce; x itself when
+    the group is None)."""
+    if group is None:
+        return x
+    import torch.distributed._functional_collectives as funcol
+
+    out = funcol.all_reduce(x, "sum", group)
+    out = funcol.wait_tensor(out) if hasattr(funcol, "wait_tensor") \
+        else out.wait()
+    return out.mul_(1.0 / n)
+
+
 class Placement:
     """The mesh of a placed state and its learner axes: the process group
     that completes the learner mean, and the labels of the mesh's groups
-    for the cost model (``GroupLabels``)."""
+    for the cost model (``GroupLabels``). ``batch_axis`` ('model' under
+    ``tp_mode="fsdp"``, or None): the axis a learner's batch is split
+    over, whose group averages the gradient in the local phase."""
 
-    def __init__(self, mesh, learner_axes):
+    def __init__(self, mesh, learner_axes, batch_axis=None):
         self.mesh = mesh
         self.learner_axes = tuple(learner_axes)
-        names = tuple(mesh.mesh_dim_names)
-        self.n_groups = _prod(mesh.size(names.index(a))
-                              for a in self.learner_axes)
         self.labels = GroupLabels(mesh)
-        self.learner_group = None
-        if self.n_groups > 1:
-            sub = mesh[self.learner_axes]
-            if len(self.learner_axes) > 1:
-                sub = sub._flatten()
-            self.learner_group = sub.get_group(0)
+        self.learner_group, self.n_groups = _group_of(mesh,
+                                                      self.learner_axes)
+        self.batch_group, self.n_batch = (
+            _group_of(mesh, (batch_axis,)) if batch_axis else (None, 1))
 
     def all_mean_(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of ``x`` over the learner groups (x itself when there
         is one group)."""
-        if self.learner_group is None:
-            return x
-        import torch.distributed._functional_collectives as funcol
+        return _mean_over(x, self.learner_group, self.n_groups)
 
-        out = funcol.all_reduce(x, "sum", self.learner_group)
-        out = funcol.wait_tensor(out) if hasattr(funcol, "wait_tensor") \
-            else out.wait()
-        return out.mul_(1.0 / self.n_groups)
+    def grad_mean(self, loss, g):
+        """The loss and, in place, the gradient plane ``g`` averaged over
+        the ranks sharing a learner's batch (``core/meta.py::
+        _local_phase``)."""
+        if self.batch_group is None:
+            return loss
+        g.copy_(_mean_over(g, self.batch_group, self.n_batch))
+        return _mean_over(loss, self.batch_group, self.n_batch)
 
 
 class GroupMeanReducer(DenseReducer):
@@ -181,27 +214,50 @@ class RowGather:
 
 
 def check_supported(cfg: MAvgConfig) -> None:
-    if not cfg.packed or cfg.topology.kind != "flat" or \
-            cfg.comm.scheme != "dense" or cfg.robust is not None or \
-            cfg.finite_guard or cfg.algorithm == "mavg_mlocal":
+    """The placed step runs the packed flat dense step of ``mavg``,
+    ``kavg``, ``sync`` and ``mavg_mlocal``. Compressed comm and the
+    hierarchical topology on a mesh, then per-leaf planes, gossip, the
+    async server, robust aggregation and the finite guard, are ROADMAP
+    Queue 1 item 14's steps 4 and 5."""
+    off = [name for name, on in (
+        ("per-leaf planes (packed=False)", not cfg.packed),
+        (f"topology {cfg.topology.kind!r}", cfg.topology.kind != "flat"),
+        (f"comm {cfg.comm.scheme!r}", cfg.comm.scheme != "dense"),
+        ("robust aggregation", cfg.robust is not None),
+        ("the finite guard", cfg.finite_guard),
+        (f"algorithm {cfg.algorithm!r}",
+         cfg.algorithm not in ("mavg", "kavg", "sync", "mavg_mlocal")))
+        if on]
+    if off:
         raise NotImplementedError(
-            "the placed meta step runs the packed flat dense meta step (the "
-            "dry run's and JAX's default); this config is "
-            f"packed={cfg.packed}, topology={cfg.topology.kind}, "
-            f"comm={cfg.comm.scheme}, algorithm={cfg.algorithm}")
+            "the placed meta step runs the packed flat dense meta step; "
+            f"{', '.join(off)} on a mesh: ROADMAP Queue 1 item 14, steps "
+            "4-5")
 
 
 def placed_meta_step(state: MetaState, batches, *, loss_fn, cfg: MAvgConfig,
                      placement: Placement, lr=None):
     """One meta step of this rank: ``state`` placed (DTensors), ``batches``
-    (L, K, B_local, ...) DTensors split over the learner axes, or this
-    rank's (L_loc, K, B_local, ...) pieces. Updates the state's pieces in
-    place; returns (state, metrics), the metrics averaged over all
-    learners."""
+    (L, K, B_local, ...) DTensors split over the learner axes (and along
+    B_local over the placement's batch axis), or this rank's pieces.
+    Updates the state's pieces in place; returns (state, metrics), the
+    metrics averaged over all learners."""
     check_supported(cfg)
     from repro_torch.topology import make_topology
 
     rows = RowGather(state.learners)
+    mom_rows = (None if state.local_momentum is None
+                else RowGather(state.local_momentum))
+
+    def gather(learners, mom):
+        return (rows.gather(learners),
+                mom if mom_rows is None else mom_rows.gather(mom))
+
+    def scatter(learners, mom, trained, trained_mom):
+        return (rows.scatter(learners, trained),
+                trained_mom if mom_rows is None
+                else mom_rows.scatter(mom, trained_mom))
+
     loc = local_state(state)
     L_loc = loc.learners.shape[0]
     cfg_loc = dataclasses.replace(cfg, num_learners=L_loc)
@@ -209,8 +265,9 @@ def placed_meta_step(state: MetaState, batches, *, loss_fn, cfg: MAvgConfig,
         cfg_loc, GroupMeanReducer(cfg.meta_dtype, placement))
     new, metrics = meta_step(
         loc, {k: _local(v) for k, v in batches.items()}, loss_fn=loss_fn,
-        cfg=cfg_loc, lr=lr, topology=topology,
-        rows=(rows.gather, rows.scatter))
+        cfg=cfg_loc, lr=lr, topology=topology, rows=(gather, scatter),
+        grad_mean=(placement.grad_mean if placement.batch_group is not None
+                   else None))
     for k in ("loss", "grad_norm"):
         metrics[k] = placement.all_mean_(metrics[k])
     return dataclasses.replace(state, step=new.step), metrics

@@ -7,26 +7,39 @@ route.
   (``einsum("bhk,bhk->bh")``), the port as a multiply and a sum
   (``(n * q).sum(-1)``), so the port counts 2 B S d_inner fewer flops an
   mLSTM block (pinned).
-* Gradient FLOPs under JAX's ``set_remat_policy("everything")`` (the
-  port keeps activations, so only that policy is comparable; restored
-  after): dense and MoE exactly; Hymba's pinned: the backward of the SSM
-  readout y = h C (``einsum("bsfn,bsn->bsf")``) forms dL/dh as an outer
-  product, which XLA rewrites into a multiply and the port runs as a
-  ``bmm`` with a contraction of 1, 2 B (S + meta) d_inner N flops a
-  layer.
+* Gradient FLOPs under each of JAX's remat policies (``full``, ``dots``,
+  ``everything``), the port's ``set_remat_policy`` set to the same one
+  (both restored after): dense and MoE exactly, the recomputed forward
+  included; Hymba's and xLSTM's blocks keep their own remat in both
+  packages, whatever the policy. Hymba's gap is pinned: the backward of
+  the SSM readout y = h C (``einsum("bsfn,bsn->bsf")``) forms dL/dh as
+  an outer product, which XLA rewrites into a multiply and the port runs
+  as a ``bmm`` with a contraction of 1, 2 B (S + meta) d_inner N flops a
+  layer. xLSTM's gap is pinned as the sum of three terms, each found op
+  by op against JAX's HLO dots: the same outer product in the backward
+  of the mLSTM readout C q (dC = dnum q^T, 2 B S nh hd^2 a block, +);
+  the q . n normaliser of the forward above, run twice under remat (-);
+  and the sLSTM's first step, whose recurrent input is the zero initial
+  state: autograd forms no gradient for it, JAX's scan does (one
+  (B nh, hd) x (hd, 4 hd) product a block, -). None of them is work the
+  port adds.
 * The meta route: a kernel wrapper given meta tensors charges the
   kernel's declared cost and launches nothing; CPU tensors take the plain
   version and charge nothing; the caller's tensors are not touched.
 * The cost runs on every main-path configuration (flat dense, int8 + EF,
-  gossip, hierarchical, elastic, async) and DeepSeekMoE's router count;
-  a step that reads values on the host (the finite guard) has none.
+  gossip, hierarchical, elastic, async), DeepSeekMoE's router count, and
+  the finite guard and robust aggregation, costed as a clean step (the
+  guard's bytes exact; the bytes of JAX's ``where`` it leaves out
+  printed); a step whose loss reads a value on the host has none.
 * The in-place flat mix's argument, output and alias bytes are exact;
   the byte model's rules (views, gathers, scatters) on single ops; the
   matmul flops equal ``torch.profiler``'s on a real CPU step; and
   ``launch/train.py --obs-cost`` writes a manifest ``jit_cost`` that
-  ``tools/check_telemetry.py`` accepts.
+  ``tools/check_telemetry.py`` accepts, with ``--robust`` and
+  ``--finite-guard`` too.
 """
 import contextlib
+import dataclasses
 import importlib.util
 import json
 from pathlib import Path
@@ -49,10 +62,13 @@ from repro_torch.configs.base import (  # noqa: E402
     ElasticConfig,
     MAvgConfig,
     ObsConfig,
+    RobustConfig,
     TopologyConfig,
     TrainConfig,
     get_config,
 )
+from repro_torch.core import meta as core_meta  # noqa: E402
+from repro_torch.core.meta import make_meta_step  # noqa: E402
 from repro_torch.core.trainer import Trainer  # noqa: E402
 from repro_torch.data import lm_batch_fn  # noqa: E402
 from repro_torch.kernels import cost as kcost  # noqa: E402
@@ -116,32 +132,60 @@ def test_forward_flops_equal_jax(arch):
         assert got == 84_934_656
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-moe-16b",
-                                  "hymba-1.5b"])
-def test_gradient_flops_equal_jax_under_the_everything_policy(arch):
+def _xlstm_gradient_gap(cfg) -> int:
+    """The port's gradient flops less JAX's for the xLSTM config (see the
+    module docstring): + the dC outer products, - the normaliser dots of
+    the forward and its recompute, - the sLSTM's first recurrent step."""
+    G = cfg.num_layers // cfg.slstm_every
+    d_in = cfg.ssm_expand * cfg.d_model
+    nh = cfg.num_heads
+    hd, hd_s = d_in // nh, cfg.d_model // nh
+    outer = 2 * B * S * nh * hd * hd * G * (cfg.slstm_every - 1)
+    first = 2 * B * nh * hd_s * 4 * hd_s * G
+    return outer - 2 * _xlstm_normaliser_dots(cfg) - first
+
+
+GRAD_ARCHS = ["qwen3-1.7b", "deepseek-moe-16b", "hymba-1.5b", "xlstm-350m"]
+
+
+@pytest.mark.parametrize("arch,policy", [
+    pytest.param(a, p, id=a if p == "everything" else f"{a}-{p}")
+    for p in ("everything", "full", "dots") for a in GRAD_ARCHS])
+def test_gradient_flops_equal_jax_under_the_everything_policy(arch, policy):
+    """Under each policy, JAX and the port set to it (the test keeps its
+    name: it held JAX's ``everything`` alone before the port had remat;
+    that case keeps its id, the bare architecture)."""
+    from repro_torch.models import transformer
+
     jcfg, jparams, jbatch = _jax_inputs(arch)
-    saved = jtransformer.REMAT_POLICY
+    saved = jtransformer.REMAT_POLICY, transformer.REMAT_POLICY
     try:
-        jtransformer.set_remat_policy("everything")
+        jtransformer.set_remat_policy(policy)
+        transformer.set_remat_policy(policy)
         want = jjit_cost(jax.grad(
             lambda p, b: japi.loss_fn(p, jcfg, b)[0]), jparams,
             jbatch).flops
+        cfg, params, batch = _port_inputs(arch, grad=True)
+
+        def grads(p, b):
+            loss = api.loss_fn(p, cfg, b)[0]
+            return torch.autograd.grad(loss, tree_leaves(p),
+                                       allow_unused=True)
+
+        got = jit_cost(grads, params, batch).flops
     finally:
-        jtransformer.REMAT_POLICY = saved
-    cfg, params, batch = _port_inputs(arch, grad=True)
-
-    def grads(p, b):
-        loss = api.loss_fn(p, cfg, b)[0]
-        return torch.autograd.grad(loss, tree_leaves(p), allow_unused=True)
-
-    got = jit_cost(grads, params, batch).flops
+        jtransformer.REMAT_POLICY, transformer.REMAT_POLICY = saved
     pinned = 0
     if cfg.family == "hybrid":  # dL/dh of y = h C, an outer product
         pinned = (2 * B * (S + cfg.meta_tokens) * cfg.ssm_expand
                   * cfg.d_model * cfg.ssm_state * cfg.num_layers)
+    if cfg.family == "ssm":
+        pinned = _xlstm_gradient_gap(cfg)
+        assert pinned == 3_866_624  # the gap found op by op
     assert got - want == pinned
     if arch == "qwen3-1.7b":
-        assert got == 254_803_968
+        assert got == {"everything": 254_803_968, "dots": 255_852_544,
+                       "full": 314_572_800}[policy]
 
 
 # ---------------------------------------------------------------------------
@@ -294,9 +338,75 @@ def test_moe_router_count_is_costed_through_bincount():
 
 
 def test_a_step_that_reads_values_on_the_host_has_no_cost():
-    tr = _trainer(MAvgConfig(num_learners=2, k_steps=1, finite_guard=True))
+    """A loss that reads a value on the host (``float``) cannot be run on
+    meta copies: the Trainer's cost is None, best-effort as JAX's. (The
+    finite guard and robust aggregation no longer read values in a costed
+    step: see the next test.)"""
+    tr = _trainer(MAvgConfig(num_learners=2, k_steps=1))
+    inner = tr.loss_fn
+
+    def reading(p, b):
+        loss, aux = inner(p, b)
+        assert float(loss.detach()) == float(loss.detach())  # a host read
+        return loss, aux
+
+    tr.loss_fn = reading
+    tr._step_fn = make_meta_step(reading, tr.mcfg, topology=tr._topology)
     tr._cost(tr.batch_fn(tr._data_generator(0), 0), 0.01)
     assert tr.jit_cost is None
+
+
+@pytest.mark.parametrize("name", ["guard", "robust", "robust_guard"])
+def test_guarded_and_robust_steps_are_costed(name):
+    """The finite guard and robust aggregation (trimmed mean or median,
+    the norm clip, the anomaly scores) are costed as a clean step: the
+    guard's ``isfinite`` passes are charged and its read gives every
+    learner finite; the clip's factors and the Gram matrix stay on the
+    meta device and no learner is clipped. Neither writes a learner, where
+    JAX's ``where`` reads and writes every learner plane and w~ (the
+    bytes printed: the port's count leaves them out)."""
+    rcfg = RobustConfig(estimator="median" if name == "robust_guard"
+                        else "trimmed", trim=1, clip_mult=3.0,
+                        clip_window=2, score=True)
+    L = 2 if name == "guard" else 4
+    cfg = MAvgConfig(num_learners=L, k_steps=1,
+                     finite_guard=name != "robust",
+                     robust=None if name == "guard" else rcfg)
+    plain = dataclasses.replace(cfg, finite_guard=False, robust=None)
+    costs = []
+    for c in (cfg, plain):
+        tr = _trainer(c)
+        before = [t.clone() for t in tree_leaves(tr.state.learners)]
+        tr._cost(tr.batch_fn(tr._data_generator(0), 0), 0.01)
+        assert tr.jit_cost is not None
+        costs.append(tr.jit_cost)
+        # the live state was not touched
+        assert all(torch.equal(a, b) for a, b in
+                   zip(before, tree_leaves(tr.state.learners)))
+    got, base = costs
+    rows = tr.state.spec.rows
+    n = rows * 128
+    calls = {"sgd_apply": L, "fused_momentum_broadcast": 1}
+    if cfg.robust is not None:
+        calls["robust_reduce"] = 1
+    assert got.kernel_calls == calls
+    # the Gram matrix of the displacements: one (L, w) x (w, L) product a
+    # window, in f32
+    gram = 2 * L * L * n if cfg.robust is not None else 0
+    assert got.flops == base.flops + gram
+    if name == "guard":
+        # the guard adds its isfinite passes over the learner planes (the
+        # mask alone, costed on its own: ``isfinite`` as ATen decomposes
+        # it, reading every value at least once) and writes nothing
+        isz = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
+                          ).element_size()
+        mask = jit_cost(core_meta._learner_finite_mask,
+                        tr.state.learners).hbm_bytes
+        assert got.hbm_bytes - base.hbm_bytes == mask >= L * n * isz
+        where = 2 * L * n * isz + n * 4
+        print(f"finite guard: {mask:.0f} bytes charged; JAX's where over "
+              f"the learners moves {where} more (reads and writes the {L} "
+              f"learner planes, reads w~)")
 
 
 def test_in_place_flat_mix_bytes_are_exact():
@@ -351,17 +461,34 @@ def test_byte_model_rules_on_single_ops():
 
 
 def test_matmul_flops_equal_the_profilers_on_a_real_step():
+    """The step's blocks run under the default remat (``full``): a
+    block's recompute stops once its last saved input is back (the
+    checkpoint's early stop), inside the autograd wrapper of the block's
+    last product (the MLP's down projection), before its kernel. The
+    profiler has recorded that product by then; the counter, below
+    autograd, sees what ran. So the two are held equal with the early
+    stop off (every recomputed op runs), and with it on the profiler
+    counts one down projection a block and a local step more."""
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
     tr = _trainer(MAIN_PATH["flat_dense"])
+    cfg, mcfg = tr.cfg.model, tr.mcfg
     batch = tr.batch_fn(tr._data_generator(0), 0)
 
     def step(s, b):
         return tr._step_fn(s, b, lr=0.01)
 
     jc = jit_cost(step, tr.state, batch, in_place=(0,))
-    ops.reset_launch_counts()
-    (state, _), flops = profiled_matmul_flops(step, tr.state, batch)
-    assert flops == jc.flops > 0
+    with set_checkpoint_early_stop(False):
+        whole = jit_cost(step, tr.state, batch, in_place=(0,))
+        ops.reset_launch_counts()
+        (state, _), flops = profiled_matmul_flops(step, tr.state, batch)
+    assert flops == whole.flops > 0
     assert state.step == 1
+    (state, _), stopped = profiled_matmul_flops(step, state, batch)
+    down = 2 * B * S * cfg.d_ff * cfg.d_model
+    steps = mcfg.num_learners * mcfg.k_steps * cfg.num_layers
+    assert whole.flops - jc.flops == stopped - jc.flops == steps * down
 
 
 def _check_telemetry():
@@ -372,12 +499,18 @@ def _check_telemetry():
     return mod
 
 
-def test_obs_cost_launcher_writes_a_checked_jit_cost(tmp_path, capsys):
+@pytest.mark.parametrize("flags", [
+    pytest.param([], id="plain"),
+    pytest.param(["--robust", "trimmed", "--robust-clip", "3"], id="robust"),
+    pytest.param(["--finite-guard"], id="finite_guard")])
+def test_obs_cost_launcher_writes_a_checked_jit_cost(tmp_path, capsys,
+                                                     flags):
     run_dir = tmp_path / "run"
-    launch_train.main(["--device", "cpu", "--learners", "2", "--k", "2",
-                       "--steps", "2", "--batch", "2", "--seq", "16",
+    learners = "4" if "--robust" in flags else "2"
+    launch_train.main(["--device", "cpu", "--learners", learners, "--k",
+                       "2", "--steps", "2", "--batch", "2", "--seq", "16",
                        "--obs-sink", "jsonl", "--run-dir", str(run_dir),
-                       "--obs-cost"])
+                       "--obs-cost"] + flags)
     assert "final train loss" in capsys.readouterr().out
     recs = [json.loads(line) for line in open(run_dir / "run.jsonl")]
     cost = recs[0]["jit_cost"]
