@@ -137,17 +137,17 @@ Phases (any failure raises and the script exits non-zero):
    written, no alert fires; 2 steps with the profiler off before and 2
    after give the unprofiled meta step with telemetry on, printed beside
    2 steps of the same configuration with telemetry off;
-   (b) ``profile_phases`` on phase 12's configuration at DEPTH layers (L=2;
+   (b) ``profile_phases`` on phase 12's configuration (CKPT_DEPTH layers, L=2;
    a clone of the full-depth L=4 state would not fit the card): the whole
    step, the local phase and the meta mix, median and IQR, and
    ``measured_peak_gbps``; (c) the Supervisor on phase 12's configuration
    at 1 of 28 layers (widths unchanged, L=2,
-   K=4, B=8, S=64: the run saves four snapshots, verifies two and loads
+   K=4, B=8, S=64: the run saves two snapshots, verifies them and loads
    one on the host, and at 6 layers the phase took 262 s), with the finite
-   guard, a checkpoint every 2 steps, log_every=1 and the watchdogs, a NaN
-   batch on learner 0 at step 3 of 6 (the token batches carry a
+   guard, a checkpoint every 3 steps, log_every=1 and the watchdogs, a NaN
+   batch on learner 0 at step 3 of 5 (the token batches carry a
    per-sequence loss weight of ones, the float leaf the NaN poisoner
-   writes into): the run reaches step 6 with every plane finite, the
+   writes into): the run reaches step 5 with every plane finite, the
    first fault is ``nonfinite_loss`` on learner 0, the first recovery is
    attempt 1 with a rollback, the log passes the checker, the peak device
    memory stays under twice the state and at most 256 MB of the failed
@@ -189,9 +189,12 @@ Phases (any failure raises and the script exits non-zero):
    (125,848,320 parameters) with L=4, K=4, B=8, S=128 for 10 meta steps
    (20 until the whole run neared its limit):
    the loss falls, every plane finite, the peak device memory and the
-   rate printed; one more meta step profiled (the device's idle share,
-   the bigram draws' device span), one draw timed alone; 2 meta steps of
-   the same widths at 2 of 12 layers (PR 22; 12 before) in f32 (L=4, K=2,
+   rate printed; one more meta step at 2 of its 12 blocks timed and
+   profiled (the device's idle share, the bigram draws' device span; all
+   12 blocks until the whole run neared its limit), one draw timed alone;
+   2 meta steps of
+   the same widths at 1 of 12 layers (2 until the whole run neared its
+   limit, 12 before that) in f32 (L=4, K=2,
    B=2), TF32 off, card against CPU on
    the same params and batches (dtheta within 5e-5 of its norm, losses
    within rtol 1e-5); then ``serve_batch`` on the reduced archs (dense,
@@ -214,7 +217,7 @@ Phases (any failure raises and the script exits non-zero):
    products (``aten::bmm``), the dispatch and combine gathers
    (``aten::index``) and the table scatters by input shape; (c) phase 4
    on DeepSeekMoE-16B at
-   full width, depth cut to 3 layers (1 dense + 2 MoE, a 6.72 GB plane;
+   full width, depth cut to ``MOE_TRAIN_DEPTH`` layers (1 dense + 1 MoE;
    at 28 layers one plane is 65.5 GB): L=4, K=4, B=8, S=64, capacity
    dropping, 3 meta steps counted (one fused launch and 16 ``sgd_apply`` a
    step), finite, peak < 80 GB, one more profiled.
@@ -254,21 +257,30 @@ Phases (any failure raises and the script exits non-zero):
    (a fake process group of one rank) and costed as the dry run costs a
    rank: flops, bytes and kernel calls equal 18b's unplaced ``jit_cost``
    exactly, no collective; (b) a real one-GPU DeviceMesh (NCCL, world size
-   1) in a process of its own: phase 4's state placed the same way and
-   stepped 2 meta steps by the placed step, its planes bitwise equal to
-   the unplaced run's from the same start, with as many ``sgd_apply`` and
-   ``fused_momentum_broadcast`` launches; (c) the dry run's CLI for the
-   rows of ``DRYRUN_ROWS`` (Qwen3-1.7B and DeepSeekMoE-16B train_4k and
-   decode_32k among them) on the single (32, 8) mesh in a process of its
-   own (modeled on the meta device, on the CPU): every row written, each
-   train row's meta average an all-reduce over 'data' of at least the
-   device's plane; then ``run.py --only roofline`` tabulates the rows.
-   The dry run starts after phase 3, in a process of its own on the host,
-   and runs beside the phases between: its rows are layer-scaled
-   (``dryrun_lib.scaled_cost``) and add Hymba's and xLSTM's serving rows
-   (decode_32k; xLSTM's prefill_32k), a 32k prefill row of Qwen3-1.7B and
-   the train_4k rows of Hymba and xLSTM (xLSTM's scaled over its 4,096
-   steps too).
+   1) in a process of its own: phase 4's model in each of
+   ``PLACED_CONFIGS`` (the dense ``mavg``; int8 + error feedback, L=2;
+   hierarchical elastic with int8 + EF inner, G=2; robust aggregation,
+   trim 1, with learner 3's payload scaled; the finite guard with a NaN
+   learner), its state placed the same way and stepped 2 meta steps by
+   the placed step: its planes, residual and topology buffers bitwise
+   equal to the unplaced run's from the same start, every metric equal,
+   with as many launches of each kernel (``pack_update``,
+   ``pack_compress``, ``block_momentum``, ``robust_reduce``,
+   ``fused_momentum_broadcast``, ``sgd_apply``); and a Trainer with the
+   cost analysis and the attribution rows, unplaced and on the mesh: the
+   same records, launches, modeled kernel calls and flops; (c) the dry
+   run's CLI for the rows of ``DRYRUN_ROWS`` (Qwen3-1.7B and
+   DeepSeekMoE-16B train_4k and decode_32k among them) on the single
+   (32, 8) mesh in processes of their own (modeled on the meta device, on
+   the CPU): every row written, each train row's meta average an
+   all-reduce over 'data' of at least the device's plane; then ``run.py
+   --only roofline`` tabulates the rows. The dry run starts after phase
+   3, in two processes on the host (DeepSeekMoE-16B's prefill_32k in one
+   of its own), and runs beside the phases between: its rows are
+   layer-scaled (``dryrun_lib.scaled_cost``) and add Hymba's and xLSTM's
+   serving rows (decode_32k; xLSTM's prefill_32k), the 32k prefill rows
+   of Qwen3-1.7B and DeepSeekMoE-16B and the train_4k rows of Hymba and
+   xLSTM (xLSTM's scaled over its 4,096 steps too).
 20. block remat, the placed ``mavg_mlocal`` step and costed robust and
    guarded steps: (a) full-width Qwen3-1.7B at all 28 layers, one local
    step's forward and backward (f32 planes, bf16 compute, B=8, S=512,
@@ -287,6 +299,17 @@ Phases (any failure raises and the script exits non-zero):
    down projection the early stop ends before its kernel).
 
 Each phase's header carries the seconds since the start.
+
+Phases 12 and 13c (side process ``store``) and 14a, 14c, 15a and 15b
+(side process ``host``), which the host's copies, checksums and small
+launches bound, run in processes of their own on the same card
+(``chip_smoke.py --side NAME EPOCH``), started after phase 13b beside
+phases 11, 14b, 15c and on. The main process joins ``store`` before
+phase 16b, whose 71 GB peak leaves no room for its state, and ``host``
+before the kernels record, and prints each one's output there, its
+headers stamped from the same start. Phases 3-10c, 13a and 13b run alone;
+the phases after 13b share the card and the host with a side process, so
+their host-clock times and idle shares are those of a shared card.
 
 The second-to-last line is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}`` and is printed only when every phase
@@ -327,15 +350,19 @@ ATTENTION_SOURCE = "src/repro_torch/kernels/csrc/attention_hopper.cu"
 ATTENTION_F32_SOURCE = "src/repro_torch/kernels/csrc/attention_hopper_f32.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention.py:80"
 # layers (of 28) of the full-width topology runs, of phases 4, 5 and 9
-# (the dense, compressed and robust main paths), 13a (telemetry), 13b and
-# 14b (the async server), and of phase 12 (the checkpoint): phases 5, 9
+# (the dense, compressed and robust main paths), 13a (telemetry), and of
+# phase 12 (the checkpoint; 13b takes its configuration): phases 5, 9
 # and 12 were cut from 28, 28 and 6 layers when phase 15 joined, 4 and 13a
 # from 28 when phase 16 did, and all of them from 6 to 2 when phase 17 did
 # (the run took 1261.1 s with phase 17 at 6, measured on one H100),
 # so that the whole run stays well inside its time limit; every width is
-# unchanged
+# unchanged. Phase 19b's placed and unplaced runs (and 20b's) take it too.
 DEPTH = 2
 CKPT_DEPTH = 1
+# layers of phase 14b's async server at full width, a side path: 2 (DEPTH)
+# until the whole run, with the main path at DEPTH, took 1107.6 s of the
+# 1100 s it aims at on a card whose host-bound phases ran 20 % slower
+ASYNC_DEPTH = 1
 # layers of phase 3's cut plane (4,790,496 rows): the gossip and
 # hierarchical runs took its chunk height, 32, at 6 layers; at DEPTH
 # layers they take 8, as the full plane does, and phase 3 still holds the
@@ -2788,8 +2815,9 @@ def checkpoint_full_width(torch, ops) -> dict:
 
 OBS_STEPS, OBS_MORE = 4, 2
 # 13c's depth: every width of Qwen3-1.7B, 1 of its 28 layers. The
-# supervised run saves three snapshots (steps 2 and 4, and the halt's),
-# verifies two and loads one, all on the host at ~0.3 GB/s; at phase 12's
+# supervised run saves two snapshots (step 3 and the halt's; a third, of
+# step 4 after the rollback to 2, until a checkpoint every 2 steps became
+# every 3), verifies them and loads one, all on the host at ~0.3 GB/s; at phase 12's
 # 6 layers (9.81 GB) the phase took 262 s on the card, at 1 layer the
 # state is 5.78 GB; 5 target steps (6, and a fourth snapshot, until the
 # whole run neared its time limit)
@@ -2925,8 +2953,8 @@ def telemetry_full_width(torch, ops) -> dict:
 
 
 def attribution_on_the_card(torch) -> None:
-    """Phase 13b. ``profile_phases`` on phase 12's configuration at DEPTH
-    layers (Qwen3-1.7B widths, flat dense M-AVG, L=2, K=4, B=8, S=64): the
+    """Phase 13b. ``profile_phases`` on phase 12's configuration (Qwen3-1.7B
+    widths, CKPT_DEPTH layers, flat dense M-AVG, L=2, K=4, B=8, S=64): the
     whole step, the local phase and the meta mix, each timed on one clone
     of the state (a full-depth L=4 state would not fit twice)."""
     from repro_torch.configs.base import MAvgConfig, get_config
@@ -2936,7 +2964,8 @@ def attribution_on_the_card(torch) -> None:
     from repro_torch.obs import measured_peak_gbps, profile_phases
     from repro_torch.utils.rng import seeded_generator
 
-    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=DEPTH)
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              num_layers=CKPT_DEPTH)
     k = 4
     mcfg = MAvgConfig(algorithm="mavg", num_learners=CKPT_L, k_steps=k)
     state = init_state(api.init_params(seeded_generator("cuda", 0, 0), cfg,
@@ -2968,7 +2997,7 @@ def attribution_on_the_card(torch) -> None:
 def supervised_recovery(torch, ops) -> dict:
     """Phase 13c. Qwen3-1.7B widths, depth cut to SUP_DEPTH layers, flat
     dense M-AVG, L=2, K=4, B=8, S=64, the finite guard, a checkpoint every
-    2 steps, log_every=1, the health watchdogs; a NaN batch on learner 0 at
+    3 steps, log_every=1, the health watchdogs; a NaN batch on learner 0 at
     step 3 of SUP_STEPS, under the Supervisor. The token batches carry a
     per-sequence loss weight (ones, f32): the float leaf the NaN poisoner
     writes into. Returns the launch counts of the whole supervised run."""
@@ -3020,7 +3049,7 @@ def supervised_recovery(torch, ops) -> dict:
                                 k_steps=k, finite_guard=True),
                 batch_per_learner=batch, seq_len=seq, meta_steps=SUP_STEPS,
                 log_every=1, checkpoint_dir=str(work / "ckpt"),
-                checkpoint_every=2, chaos=chaos, data_salt=plan.data_salt,
+                checkpoint_every=3, chaos=chaos, data_salt=plan.data_salt,
                 obs=ObsConfig(sink="jsonl", run_dir=str(work / "run"),
                               health=True)),
             loss_fn,
@@ -3263,8 +3292,8 @@ def async_card_vs_cpu(torch, ops) -> dict:
 
 
 def async_full_width(torch, ops, label, mcfg, ticks) -> dict:
-    """Phase 14b: Qwen3-1.7B at full width, depth cut to DEPTH layers, the
-    async server through the Trainer (K=4, B=8, S=64, uniform tokens):
+    """Phase 14b: Qwen3-1.7B at full width, depth cut to ASYNC_DEPTH layers,
+    the async server through the Trainer (K=4, B=8, S=64, uniform tokens):
     staleness <= tau and fired counts equal to the host replay on every
     tick, sgd_apply launched K times a completed block, no fused launch
     off the degenerate case, every plane finite; the median tick, blocks
@@ -3277,7 +3306,7 @@ def async_full_width(torch, ops, label, mcfg, ticks) -> dict:
     from repro_torch.topology import make_topology
 
     full = get_config("qwen3-1.7b")
-    cfg = dataclasses.replace(full, num_layers=DEPTH)
+    cfg = dataclasses.replace(full, num_layers=ASYNC_DEPTH)
     k, batch, seq = mcfg.k_steps, 8, 64
     tcfg = TrainConfig(model=cfg, mavg=mcfg, batch_per_learner=batch,
                        seq_len=seq, meta_steps=ticks)
@@ -3356,7 +3385,7 @@ def async_full_width(torch, ops, label, mcfg, ticks) -> dict:
 
 
 def async_uniform_full_width(torch, ops) -> None:
-    """Phase 14b, last: the uniform profile at full width (DEPTH layers,
+    """Phase 14b, last: the uniform profile at full width (ASYNC_DEPTH layers,
     L=4, K=4, B=8, S=64) for 2 ticks, bitwise equal to FlatAllReduce on
     the same params and batches; one fused launch a tick in each."""
     from repro_torch.configs.base import (
@@ -3369,7 +3398,8 @@ def async_uniform_full_width(torch, ops) -> None:
     from repro_torch.data import uniform_batch_fn
     from repro_torch.models import api
 
-    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=DEPTH)
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              num_layers=ASYNC_DEPTH)
     base = dict(algorithm="mavg", num_learners=L, k_steps=4, learner_lr=LR,
                 momentum=MU)
     batch_fn = uniform_batch_fn(cfg, L, 4, 8, 64)
@@ -3396,7 +3426,8 @@ def async_uniform_full_width(torch, ops) -> None:
     for f in ("global_params", "momentum", "learners"):
         assert torch.equal(getattr(flat, f), getattr(uni, f)), f
     assert torch.equal(uni.topo["anchor"][L - 1], uni.global_params)
-    print(f"  uniform profile == flat at full width ({DEPTH} layers, L={L}) "
+    print(f"  uniform profile == flat at full width ({ASYNC_DEPTH} layers, "
+          f"L={L}) "
           f"over 2 ticks: w~, v and learners bitwise; launches "
           f"{({k: v for k, v in uc.items() if v})} in each")
     del flat, uni
@@ -3444,8 +3475,15 @@ E2_RUNS = [(P, 40) for P in (2, 4, 8, 16) for _ in range(5)]  # (P, steps)
 E3_RUNS = [(128 // K, K) for _ in (0.0, 0.7) for K in (1, 2, 4, 8, 16)]
 # the topology gate's flat_dense loss baseline, a value of JAX's stream
 FIXED_SEED = "fixed-seed smoke run"
-TRAIN_100M = ["--width", "full", "--steps", "10", "--learners", "4", "--k",
-              "4", "--batch", "8", "--seq", "128"]
+# train_100m's meta steps (20 until the whole run neared its time limit;
+# at 5 the loss need not fall)
+TRAIN_100M_STEPS = 10
+# blocks (of 12) run in 15c's profiled train_100m meta step (all 12 until
+# the whole run neared its time limit); its idle share is that of a
+# PROFILE_100M_DEPTH-block program, not train_100m's
+PROFILE_100M_DEPTH = 2
+TRAIN_100M = ["--width", "full", "--steps", str(TRAIN_100M_STEPS),
+              "--learners", "4", "--k", "4", "--batch", "8", "--seq", "128"]
 
 
 def expect_flat(counts: dict, meta: int, local: int, label: str) -> None:
@@ -3751,8 +3789,9 @@ DTHETA_RTOL = 5e-5
 
 
 # layers (of 12) of 15c's f32 card-vs-CPU run of train_100m's full width:
-# the CPU's 2 meta steps took 29.7 s at 12 (PR 22's first run)
-F32_100M_DEPTH = 2
+# the CPU's 2 meta steps took 29.7 s at 12; 2 until the whole run neared
+# its time limit
+F32_100M_DEPTH = 1
 
 
 def train_100m_card_vs_cpu(torch, ops, batch_fn) -> None:
@@ -3827,19 +3866,20 @@ def train_100m_card_vs_cpu(torch, ops, batch_fn) -> None:
 
 def examples_on_the_card(torch, ops) -> dict:
     """Phase 15c. ``train_100m --width full`` (125.8M parameters), L=4,
-    K=4, B=8, S=128, 10 meta steps on the card: the loss falls, every
+    K=4, B=8, S=128, TRAIN_100M_STEPS meta steps on the card: the loss
+    falls, every
     plane is finite, the peak device memory printed; one more meta step
-    profiled (the device's idle share, the bigram draws' host time and
+    at PROFILE_100M_DEPTH of its 12 blocks timed and profiled (the device's idle share, the bigram draws' host time and
     device span); 2 meta steps of its widths at F32_100M_DEPTH layers card
     vs CPU (``train_100m_card_vs_cpu``); then ``serve_batch`` on the reduced
     archs it serves (dense, MoE, the VLM's decode-only demo). Returns the
-    10-step run's launches."""
+    main run's launches."""
     from repro_torch.examples import serve_batch, train_100m
 
     free(torch)
     torch.cuda.reset_peak_memory_stats()
     (trainer, hist, ev, n), counts, seconds = timed(
-        torch, ops, "train_100m --width full, 10 meta steps",
+        torch, ops, f"train_100m --width full, {TRAIN_100M_STEPS} meta steps",
         lambda: train_100m.main(TRAIN_100M))
     peak = torch.cuda.max_memory_allocated() / 1e9
     # the Trainer's rate over its last log window
@@ -3856,7 +3896,8 @@ def examples_on_the_card(torch, ops) -> dict:
     for f in ("global_params", "momentum", "learners"):
         assert bool(torch.isfinite(getattr(trainer.state, f)).all()), f
     assert math.isfinite(ev)
-    expect_flat(counts, 10, 10 * 4 * 4, "train_100m")
+    expect_flat(counts, TRAIN_100M_STEPS, TRAIN_100M_STEPS * 4 * 4,
+                "train_100m")
     draw = trainer.batch_fn
 
     def traced_draw(gen, step):
@@ -3864,8 +3905,20 @@ def examples_on_the_card(torch, ops) -> dict:
             return draw(gen, step)
 
     trainer.batch_fn = traced_draw
-    profile_call(torch, "train_100m meta step",
-                 lambda: trainer.run(1, log=None), 1e3 / rate)
+    # the profiled step runs PROFILE_100M_DEPTH of the 12 blocks: the
+    # profiler takes about a millisecond an event to digest, and the whole
+    # step's ~90,000 launches took a minute
+    from repro_torch.launch.dryrun_lib import layer_limit
+
+    with layer_limit({"blocks": PROFILE_100M_DEPTH}):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run(1, log=None)
+        torch.cuda.synchronize()
+        cut_ms = (time.perf_counter() - t0) * 1e3
+        profile_call(torch, f"train_100m meta step ({PROFILE_100M_DEPTH} "
+                     f"of 12 blocks)", lambda: trainer.run(1, log=None),
+                     cut_ms)
     trainer.batch_fn = draw
     # one draw of a meta step's batches alone, unprofiled
     torch.cuda.synchronize()
@@ -3900,10 +3953,10 @@ def examples_on_the_card(torch, ops) -> dict:
 MOE_ARCH = "deepseek-moe-16b"
 MOE_REDUCED = ("deepseek-moe-16b", "kimi-k2-1t-a32b", "hubert-xlarge",
                "internvl2-76b")
-# layers of the full-width MoE training run (1 dense + 2 MoE): the plane
-# of 1.68e9 parameters is Qwen3-1.7B's size; at 28 layers one plane alone
-# is 65.5 GB
-MOE_TRAIN_DEPTH = 3
+# layers of the full-width MoE training run (1 dense + 1 MoE; 1 dense + 2
+# until the whole run neared its time limit); at 28 layers one plane
+# alone is 65.5 GB
+MOE_TRAIN_DEPTH = 2
 # the MoE sites, by input shape in a profile: the expert products, the
 # dispatch and combine gathers, and the gate and dispatch tables' scatters
 MOE_OPS = ("aten::bmm", "aten::index", "aten::scatter", "aten::scatter_")
@@ -4071,8 +4124,9 @@ META_PLANE_TOL = {"xlstm-350m": dict(rtol=1e-5, atol=1e-5)}
 # depth a meta step took 23.0 s for Hymba (peak 60.05 GB) and 36 s for
 # xLSTM at 8 layers, host-bound (measured on one H100); xLSTM keeps
 # one super-block (3 mLSTM + 1 sLSTM), its smallest whole unit. Hymba
-# went from 8 layers to 4 when the whole run neared its time limit
-FAMILY_TRAIN_DEPTH = {"hymba-1.5b": 4, "xlstm-350m": 4}
+# went from 8 layers to 4, then 2, when the whole run neared its time
+# limit
+FAMILY_TRAIN_DEPTH = {"hymba-1.5b": 2, "xlstm-350m": 4}
 # meta steps of those runs (2 until the whole run neared its time limit)
 FAMILY_TRAIN_STEPS = 1
 # prompt tokens of 17b's profiled prefill: xLSTM's recurrences launch the
@@ -4371,17 +4425,20 @@ def cost_against_the_card(torch, ops) -> dict:
 # phase 19b: the meta steps of the placed and the unplaced state
 PLACED_STEPS = 2
 # phase 19c: the dry run's rows (modeled on the meta device, on the CPU,
-# layer-scaled). Left out: DeepSeekMoE-16B's prefill_32k (at one sequence
-# a 'data' rank DTensor cannot view the MoE combine's (T, d) back to (B,
-# S, d); ROADMAP Queue 3) and Hymba-1.5B's (its 32,896 tokens with the
-# meta prefix give 128-token attention blocks, JAX's largest divisor:
-# 66,049 blocks a layer, minutes each)
+# layer-scaled). Left out: Hymba-1.5B's prefill_32k (its 32,896 tokens
+# with the meta prefix give 128-token attention blocks, JAX's largest
+# divisor: 66,049 blocks a layer, minutes each)
 DRYRUN_ROWS = (
     ("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "decode_32k"),
     ("qwen3-1.7b", "prefill_32k"), ("deepseek-moe-16b", "train_4k"),
     ("deepseek-moe-16b", "decode_32k"), ("hymba-1.5b", "train_4k"),
     ("hymba-1.5b", "decode_32k"), ("xlstm-350m", "train_4k"),
-    ("xlstm-350m", "decode_32k"), ("xlstm-350m", "prefill_32k"))
+    ("xlstm-350m", "decode_32k"), ("xlstm-350m", "prefill_32k"),
+    ("deepseek-moe-16b", "prefill_32k"))
+# rows costed in a dry-run process of their own, beside the one that
+# costs the others (DeepSeekMoE-16B's prefill_32k takes minutes on one
+# host thread: in the other process it would outlast the phases)
+DRYRUN_OWN = (("deepseek-moe-16b", "prefill_32k"),)
 # the rows one after the other, in the dry run's CLI
 DRYRUN_PROGRAM = (
     "import os, sys\n"
@@ -4392,15 +4449,19 @@ DRYRUN_PROGRAM = (
     "sys.exit(max(rcs))\n")
 
 # phase 19b's program, run in a process of its own so that its process
-# group (NCCL, world size 1) never outlives it: the same packed state
-# stepped unplaced and placed by specs.state_shardings on a (1, 1)
-# DeviceMesh; prints the planes' equality and both runs' launches
-PLACED_STEP_SCRIPT = r'''
-import dataclasses, json, sys
+# group (NCCL, world size 1) never outlives it: for each named
+# configuration the same packed state stepped unplaced and placed by
+# specs.state_shardings on a (1, 1) DeviceMesh, the same payload fault in
+# both (the placed step takes it on each rank's whole learners by global
+# index); prints each one's planes' equality, metrics' equality and both
+# runs' launches. "trainer": a Trainer with the cost analysis and the
+# attribution rows on, unplaced and on the mesh
+PLACED_STEP_SCRIPT = r"""
+import dataclasses, json, sys, time
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
-from repro_torch.configs.base import MAvgConfig, get_config
+from repro_torch.configs import base as Bc
 from repro_torch.core.meta import init_state, make_meta_step
 from repro_torch.data import uniform_batch_fn
 from repro_torch.kernels import ops
@@ -4413,49 +4474,156 @@ from repro_torch.utils.rng import seeded_generator
 depth, L, K, B, Sq, steps, port = map(int, sys.argv[1:8])
 lr = float(sys.argv[8])
 device, backend, width = sys.argv[9:12]  # cuda nccl full on the card
+
+
+def setup(name):
+    # (the config, the payload fault or None)
+    kw = dict(num_learners=L, k_steps=K)
+    if name in ("mavg", "mavg_mlocal"):
+        return Bc.MAvgConfig(algorithm=name, local_momentum=0.5
+                             if name == "mavg_mlocal" else 0.0, **kw), None
+    if name == "int8":
+        return Bc.MAvgConfig(comm=Bc.CommConfig(scheme="int8"),
+                             **dict(kw, num_learners=2)), None
+    if name == "hier_elastic":
+        return Bc.MAvgConfig(topology=Bc.TopologyConfig(
+            kind="hierarchical", groups=2, outer_every=2,
+            inner_comm=Bc.CommConfig(scheme="int8"),
+            elastic=Bc.ElasticConfig(period=2, drop_frac=0.25, seed=1)),
+            **kw), None
+    if name == "robust":
+        from repro_torch.chaos import (ChaosConfig, FaultSchedule, FaultSpec,
+                                       PayloadCorruptor)
+
+        return Bc.MAvgConfig(robust=Bc.RobustConfig(
+            estimator="trimmed", trim=1, clip_mult=3.0, clip_window=1),
+            **kw), PayloadCorruptor(FaultSchedule(ChaosConfig(
+                seed=0, horizon=steps, faults=(FaultSpec(
+                    "finite_scale", step=0, learner=L - 1, duration=steps,
+                    magnitude=12.0, sticky=True),)), L))
+    if name == "guard":
+        def nan(learners, step, offset=0):  # learner 1 NaN at step 1
+            j = 1 - offset
+            if int(step) == 1 and 0 <= j < learners.shape[0]:
+                learners[j].fill_(float("nan"))
+            return learners
+        return Bc.MAvgConfig(finite_guard=True, **kw), nan
+    raise ValueError(name)
+
+
+def sync():
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def tensors(state):
+    out = {f: getattr(state, f) for f in (
+        "global_params", "momentum", "learners", "local_momentum",
+        "comm_residual") if getattr(state, f) is not None}
+    out.update({"topo/" + k: v for k, v in (state.topo or {}).items()
+                if isinstance(v, torch.Tensor)})
+    return out
+
+
+def local(x):
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+def trainer_run(cfg, mesh):
+    from repro_torch.core.trainer import Trainer
+
+    mcfg = Bc.MAvgConfig(num_learners=2, k_steps=K)
+    tcfg = Bc.TrainConfig(model=cfg, mavg=mcfg, batch_per_learner=B,
+                          seq_len=Sq, meta_steps=steps, log_every=1,
+                          obs=Bc.ObsConfig(cost_analysis=True,
+                                           attribution=True))
+    ops.reset_launch_counts()
+    tr = Trainer(tcfg, lambda p, b: api.loss_fn(p, cfg, b),
+                 init_params_fn=lambda g: api.init_params(g, cfg, device),
+                 batch_fn=uniform_batch_fn(cfg, 2, K, B, Sq),
+                 device=device, mesh=mesh)
+    hist = tr.run(log=None)
+    sync()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    jc = tr.jit_cost
+    out = {"hist": [{k: v for k, v in h.items() if k not in (
+        "meta_steps_per_sec", "samples_per_sec", "elapsed_s")}
+        for h in hist], "launches": counts,
+        "cost": None if jc is None else {
+            "flops": jc.flops, "kernel_calls": jc.kernel_calls,
+            "collective_bytes": jc.collective_bytes},
+        "attribution": {r["op"]: r["median_us"] for r in tr.attribution}}
+    del tr
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
                         world_size=1, rank=0)
 try:
     mesh = init_device_mesh(device, (1, 1), mesh_dim_names=("data", "model"))
-    cfg = get_config("qwen3-1.7b")
+    cfg = Bc.get_config("qwen3-1.7b")
     cfg = dataclasses.replace(cfg if width == "full" else cfg.reduced(),
                               num_layers=depth)
     loss = lambda p, b: api.loss_fn(p, cfg, b)
-    batch_fn = uniform_batch_fn(cfg, L, K, B, Sq)
-    batches = [batch_fn(seeded_generator(device, 19, 1 + i), i)
-               for i in range(steps)]
     placement = Placement(mesh, ("data",))
-    for algorithm in sys.argv[12].split(","):
-        mcfg = MAvgConfig(algorithm=algorithm, num_learners=L, k_steps=K,
-                          local_momentum=0.5 if algorithm == "mavg_mlocal"
-                          else 0.0)
+    for name in sys.argv[12].split(","):
+        if name == "trainer":
+            one, placed = trainer_run(cfg, None), trainer_run(cfg, mesh)
+            print(json.dumps({"algorithm": name, "unplaced": one,
+                              "placed": placed}), flush=True)
+            continue
+        mcfg, chaos = setup(name)
+        n = mcfg.num_learners
+        batch_fn = uniform_batch_fn(cfg, n, K, B, Sq)
+        batches = [batch_fn(seeded_generator(device, 19, 1 + i), i)
+                   for i in range(steps)]
         params = api.init_params(seeded_generator(device, 19, 0), cfg,
                                  device)
         ref, mine = init_state(params, mcfg), init_state(params, mcfg)
         del params
-        step = make_meta_step(loss, mcfg)
+        step = make_meta_step(loss, mcfg, chaos=chaos)
         ops.reset_launch_counts()
+        mr, ms = [], []
         for b in batches:
-            ref, mr = step(ref, b, lr=lr)
-        if device == "cuda":
-            torch.cuda.synchronize()
+            sync()
+            t0 = time.perf_counter()
+            ref, m = step(ref, b, lr=lr)
+            mr.append({k: float(v) for k, v in m.items()})
+            ms.append((time.perf_counter() - t0) * 1e3)
         unplaced = {k: v for k, v in ops.launch_counts().items() if v}
         st = S.place_tree(mine, S.state_shardings(cfg, mcfg, mesh), mesh)
         ops.reset_launch_counts()
+        mp, pms = [], []
         for b in batches:
+            sync()
+            t0 = time.perf_counter()
             bt = {k: S.place(v, Spec("data"), mesh) for k, v in b.items()}
-            st, mp = placed_meta_step(st, bt, loss_fn=loss, cfg=mcfg,
-                                      placement=placement, lr=lr)
-        if device == "cuda":
-            torch.cuda.synchronize()
+            st, m = placed_meta_step(st, bt, loss_fn=loss, cfg=mcfg,
+                                     placement=placement, lr=lr,
+                                     chaos=chaos)
+            mp.append({k: float(v) for k, v in m.items()})
+            pms.append((time.perf_counter() - t0) * 1e3)
         placed = {k: v for k, v in ops.launch_counts().items() if v}
-        fields = ("global_params", "momentum", "learners") + (
-            ("local_momentum",) if algorithm == "mavg_mlocal" else ())
-        equal = {f: bool(torch.equal(getattr(st, f).to_local(),
-                                     getattr(ref, f))) for f in fields}
-        print(json.dumps({"algorithm": algorithm, "equal": equal,
+        want, got = tensors(ref), tensors(st)
+        equal = {k: bool(torch.equal(local(got[k]), v))
+                 for k, v in want.items()}
+        same = {k: all(a[k] == b[k] or a[k] != a[k] and b[k] != b[k]
+                       for a, b in zip(mp, mr)) for k in mr[0]}
+        print(json.dumps({"algorithm": name, "equal": equal,
+                          "metrics_equal": all(same.values()) and
+                          all(set(a) == set(b) for a, b in zip(mp, mr)),
                           "unplaced": unplaced, "placed": placed,
-                          "loss": [float(mr["loss"]), float(mp["loss"])],
+                          "loss": [mr[-1]["loss"], mp[-1]["loss"]],
+                          "metrics": {k: mp[-1][k] for k in (
+                              "nonfinite_learners", "present_count",
+                              "robust_clipped_learners", "comm_compression")
+                              if k in mp[-1]},
+                          "by_step": {k: [m[k] for m in mp] for k in (
+                              "nonfinite_learners",
+                              "robust_clipped_learners") if k in mp[0]},
+                          "ms": {"unplaced": ms, "placed": pms},
                           "placements": str(st.learners.placements),
                           "rows": int(st.global_params.shape[0])}),
               flush=True)
@@ -4464,7 +4632,25 @@ try:
             torch.cuda.empty_cache()
 finally:
     dist.destroy_process_group()
-'''
+"""
+# phase 19b's configurations, each at Qwen3-1.7B's widths and
+# DEPTH layers, K=4, B=8, S=64 (L=4 unless named): the dense mavg
+# (19b) and mavg_mlocal (20b), then int8 + EF (L=2), hierarchical elastic
+# (G=2, H=2, int8 + EF inner), robust (trimmed mean, trim 1, the clip at
+# 3x a one-step ring; learner 3's payload scaled x12), the finite guard
+# (learner 1 NaN at step 1) and a Trainer with the cost analysis and the
+# attribution rows (L=2)
+PLACED_CONFIGS = ("mavg", "mavg_mlocal", "int8", "hier_elastic", "robust",
+                  "guard", "trainer")
+# the kernels each new placed configuration must launch (as often as its
+# unplaced step)
+PLACED_KERNELS = {
+    "int8": ("pack_update", "fused_momentum_broadcast"),
+    "hier_elastic": ("pack_compress", "block_momentum",
+                     "fused_momentum_broadcast"),
+    "robust": ("robust_reduce", "fused_momentum_broadcast"),
+    "guard": ("fused_momentum_broadcast",),
+}
 
 
 def placed_cost_on_a_1x1_mesh(inputs: dict) -> None:
@@ -4524,17 +4710,21 @@ def free_port() -> int:
 
 def placed_steps_on_the_card() -> dict:
     """Phases 19b and 20b. A real one-GPU DeviceMesh (NCCL, world size 1)
-    in a process of its own: phase 4's state (Qwen3-1.7B widths, DEPTH
-    layers, L=4, K=4, B=8, S=64) placed by ``specs.state_shardings`` and
-    stepped PLACED_STEPS meta steps by the placed step, for ``mavg`` and
-    then ``mavg_mlocal`` (local momentum 0.5); its planes (the
-    local-momentum plane too) equal the unplaced run's from the same start
-    bitwise, and it launches ``sgd_apply`` and
-    ``fused_momentum_broadcast`` as often. Returns each algorithm's
-    result line."""
+    in a process of its own: phase 4's model (Qwen3-1.7B widths,
+    DEPTH layers, K=4, B=8, S=64) in each of PLACED_CONFIGS, its
+    state placed by ``specs.state_shardings`` and stepped PLACED_STEPS meta
+    steps by
+    the placed step; its planes, residual and topology buffers (the
+    local-momentum plane too) equal the unplaced run's from the same
+    start bitwise, every metric equals the unplaced one, and it launches
+    each kernel as often. The Trainer's placed run logs the unplaced
+    run's records, and its ``jit_cost`` has the unplaced one's kernel
+    calls and flops. Returns each configuration's result line."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    args = [str(x) for x in (DEPTH, L, 4, 8, 64, PLACED_STEPS, free_port(),
-                             LR, "cuda", "nccl", "full", "mavg,mavg_mlocal")]
+    args = [str(x) for x in (DEPTH, L, 4, 8, 64, PLACED_STEPS,
+                             free_port(),
+                             LR, "cuda", "nccl", "full",
+                             ",".join(PLACED_CONFIGS))]
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", PLACED_STEP_SCRIPT, *args],
                           cwd=ROOT, env=env, capture_output=True, text=True,
@@ -4545,55 +4735,94 @@ def placed_steps_on_the_card() -> dict:
         if line.startswith("{"):
             out = json.loads(line)
             outs[out["algorithm"]] = out
-    print(f"  both algorithms in {time.perf_counter() - t0:.1f} s (a process "
-          f"of its own)")
-    for algorithm, out in outs.items():
-        assert all(out["equal"].values()), out
-        # mavg_mlocal's local steps update with momentum in plain ops: no
-        # sgd_apply launch
-        want = dict(fused_momentum_broadcast=PLACED_STEPS)
-        if algorithm != "mavg_mlocal":
-            want["sgd_apply"] = PLACED_STEPS * 4 * L
-        assert out["placed"] == out["unplaced"] == want, out
+    print(f"  {len(outs)} configurations in {time.perf_counter() - t0:.1f} "
+          f"s (a process of its own)")
+    assert set(outs) == set(PLACED_CONFIGS), outs
+    for name, out in outs.items():
+        if name == "trainer":
+            one, placed = out["unplaced"], out["placed"]
+            assert placed["hist"] == one["hist"], out
+            assert placed["launches"] == one["launches"], out
+            assert one["cost"] is not None and placed["cost"] is not None
+            assert placed["cost"]["kernel_calls"] == one["cost"][
+                "kernel_calls"], out
+            assert placed["cost"]["flops"] == one["cost"]["flops"], out
+            assert set(placed["attribution"]) == set(one["attribution"]) \
+                == {"phase:step", "phase:local", "phase:meta_mix"}, out
+            continue
+        assert all(out["equal"].values()) and out["metrics_equal"], out
+        assert out["placed"] == out["unplaced"], out
         assert out["loss"][0] == out["loss"][1], out
-    assert set(outs) == {"mavg", "mavg_mlocal"}, outs
-    assert "local_momentum" in outs["mavg_mlocal"]["equal"], outs
+        if name == "mavg":
+            assert out["placed"] == dict(fused_momentum_broadcast=PLACED_STEPS,
+                                         sgd_apply=PLACED_STEPS * 4 * L), out
+        if name == "mavg_mlocal":
+            # local steps update with momentum in plain ops: no sgd_apply
+            assert out["placed"] == dict(
+                fused_momentum_broadcast=PLACED_STEPS), out
+            assert "local_momentum" in out["equal"], out
+        for kernel in PLACED_KERNELS.get(name, ()):
+            assert out["placed"].get(kernel, 0) > 0, (name, kernel, out)
+    assert outs["guard"]["by_step"]["nonfinite_learners"] == [0.0, 1.0], outs
+    assert outs["robust"]["by_step"]["robust_clipped_learners"][-1] >= 1.0, \
+        outs
+    assert "comm_residual" in outs["int8"]["equal"], outs
+    assert "topo/inner_residual" in outs["hier_elastic"]["equal"], outs
     return outs
 
 
 def print_placed(out: dict) -> None:
-    print(f"  {out['algorithm']}: planes equal {out['equal']}; launches "
-          f"placed {out['placed']}, unplaced {out['unplaced']}; losses "
-          f"{out['loss']}; learner placements {out['placements']}")
+    if out["algorithm"] == "trainer":
+        one, placed = out["unplaced"], out["placed"]
+        print(f"  trainer (cost analysis, attribution): records equal; "
+              f"launches {placed['launches']}; jit_cost kernel calls "
+              f"{placed['cost']['kernel_calls']}, {placed['cost']['flops']:.6e}"
+              f" flops (unplaced {one['cost']['flops']:.6e}), collective "
+              f"bytes {placed['cost']['collective_bytes']:.0f}; attribution "
+              f"us placed {placed['attribution']}, unplaced "
+              f"{one['attribution']}")
+        return
+    ms = {k: [round(x, 1) for x in v] for k, v in out["ms"].items()}
+    print(f"  {out['algorithm']}: planes equal {out['equal']}; metrics equal "
+          f"{out['metrics_equal']} {out['metrics']} {out['by_step']}; "
+          f"launches placed {out['placed']}, unplaced {out['unplaced']}; "
+          f"losses {out['loss']}; ms a meta step (host clock, metrics read "
+          f"each step) {ms}; learner placements {out['placements']}")
 
 
 def start_dry_run():
-    """Phase 19c's dry run, started after phase 3 in a process of its own
-    (its fake process group of 256 ranks never reaches this one) so that
-    it runs on the host beside phases 4-19b: the dry run's CLI for each
-    of DRYRUN_ROWS on the single (32, 8) H100 mesh, one thread, its
-    output in a file under
-    ``build/`` (a pipe would fill and stall it). The process is killed at
-    exit if it still runs. Returns (the process, its log, its start
-    time)."""
+    """Phase 19c's dry run, started after phase 3 in processes of their own
+    (their fake process groups of 256 ranks never reach this one) so that
+    they run on the host beside phases 4-19b: the dry run's CLI for each
+    of DRYRUN_ROWS on the single (32, 8) H100 mesh, one thread a process,
+    each of DRYRUN_OWN in a process of its own and the others in one, the
+    output in files under ``build/`` (a pipe would fill and stall them).
+    A process still running at exit is killed. Returns [(a process, its
+    log, its rows)] and the start time."""
     import atexit
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1")
-    cmd = [sys.executable, "-c", DRYRUN_PROGRAM.format(rows=DRYRUN_ROWS)]
     (ROOT / "build").mkdir(exist_ok=True)
-    log = ROOT / "build" / "dryrun_smoke.log"
-    with open(log, "w") as f:
-        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f,
-                                stderr=subprocess.STDOUT, text=True)
+    groups = [tuple(r for r in DRYRUN_ROWS if r not in DRYRUN_OWN)] + [
+        (r,) for r in DRYRUN_OWN]
+    started = []
+    for i, rows in enumerate(groups):
+        cmd = [sys.executable, "-c", DRYRUN_PROGRAM.format(rows=rows)]
+        log = ROOT / "build" / f"dryrun_smoke_{i}.log"
+        with open(log, "w") as f:
+            proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f,
+                                    stderr=subprocess.STDOUT, text=True)
+        started.append((proc, log, rows))
 
     def stop():
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        for proc, _, _ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
     atexit.register(stop)
-    return proc, log, time.perf_counter()
+    return started, time.perf_counter()
 
 
 def dry_run_rows(started) -> None:
@@ -4608,22 +4837,23 @@ def dry_run_rows(started) -> None:
     from repro_torch.pack import make_pack_spec
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc, log, t0 = started
+    procs, t0 = started
     waited = time.perf_counter()
-    try:
-        proc.wait(timeout=300)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    out = log.read_text()
-    assert proc.returncode == 0, out[-4000:]
-    counted = [line for line in out.splitlines()
-               if line.strip().startswith("counted in")]
-    print(f"  dry run of {len(DRYRUN_ROWS)} rows "
-          f"done {time.perf_counter() - t0:.1f} s after its start (CPU, "
-          f"meta device, layer-scaled; beside phases 4-19b; waited "
-          f"{time.perf_counter() - waited:.1f} s here); {counted}")
+    for proc, log, rows in procs:
+        try:
+            proc.wait(timeout=max(1.0, 300 - (time.perf_counter() - waited)))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out = log.read_text()
+        assert proc.returncode == 0, out[-4000:]
+        counted = [line.strip() for line in out.splitlines()
+                   if line.strip().startswith("counted in")]
+        print(f"  dry run of {len(rows)} rows in a process done "
+              f"{time.perf_counter() - t0:.1f} s after its start (CPU, "
+              f"meta device, layer-scaled; beside phases 4-19b; waited "
+              f"{time.perf_counter() - waited:.1f} s here); {counted}")
     for arch, shape in DRYRUN_ROWS:
         path = Path(D.result_path(arch, shape, "single"))
         row = json.loads(path.read_text())
@@ -4869,8 +5099,116 @@ def costed_steps_on_the_card(torch, ops) -> dict:
     return launched["robust"]
 
 
+# ---------------------------------------------------------------------------
+# side processes: phases that run beside the main ones
+# ---------------------------------------------------------------------------
+
+
+def side_store(torch, ops, stamp) -> None:
+    """Phases 12 and 13c: the checkpoint and the supervised recovery, bound
+    by the host's copies, checksums and disk. Main joins this process
+    before phase 16b, whose 71 GB peak leaves no room for their state."""
+    stamp(f"phase 12: the checkpoint at full width ({CKPT_DEPTH} layers), "
+          f"flat dense M-AVG, L={CKPT_L}: save, verify, restore in place, "
+          f"resume")
+    ckpt_counts = checkpoint_full_width(torch, ops)
+    assert ckpt_counts["fused_momentum_broadcast"] > 0, ckpt_counts
+    stamp(f"phase 13c: supervised recovery at full width ({SUP_DEPTH} "
+          f"layers), L={CKPT_L}, finite guard, nan_batch on learner 0 at "
+          f"step 3 of {SUP_STEPS}")
+    sup_counts = supervised_recovery(torch, ops)
+    assert sup_counts["fused_momentum_broadcast"] > 0, sup_counts
+    assert sup_counts["sgd_apply"] > 0, sup_counts
+
+
+def side_host(torch, ops, stamp) -> None:
+    """Phases 14a, 14c, 15a and 15b: the async server card vs CPU on the
+    reduced model and the quick benches, bound by the host's launches of
+    small kernels, a few GB of the card at most."""
+    stamp(f"phase 14a: the async server card vs CPU, qwen3-1.7b.reduced() "
+          f"float32, L={L}, K=2, {2 * max(ASYNC_PROFILE)} ticks")
+    with full_f32(torch):
+        async_card_vs_cpu(torch, ops)
+    free(torch)  # what this process keeps of the card from here is small
+    stamp("phase 14c: E4, the async bench and the chaos bench, quick, on "
+          "the card")
+    async_benchmarks_on_the_card(torch, ops)
+    t15 = time.perf_counter()
+    stamp("phase 15a: E2, E3, the ablations and momentum_tuning, quick, on "
+          "the card")
+    sweep_counts = sweeps_on_the_card(torch, ops)
+    stamp("phase 15b: the robust, topology, elastic, async and chaos "
+          "benches, quick, through run.py --only (stores under build/), "
+          "gated; the comm bench")
+    bench_counts = benches_on_the_card(torch, ops)
+    print(f"  phases 15a-b in {time.perf_counter() - t15:.1f} s; launches: "
+          f"sweeps {({k: v for k, v in sweep_counts.items() if v})}, "
+          f"benches {({k: v for k, v in bench_counts.items() if v})}")
+
+
+SIDES = {"store": side_store, "host": side_host}
+
+
+def side(name: str, epoch: float) -> int:
+    """``chip_smoke.py --side NAME EPOCH``: the phases of ``SIDES[NAME]``
+    in this process, their headers stamped with the seconds since EPOCH
+    (the main process's start, ``time.time()``)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    assert torch.cuda.is_available()
+
+    def stamp(msg: str) -> None:
+        print(f"[{time.time() - epoch:7.1f} s] {msg}")
+
+    SIDES[name](torch, ops, stamp)
+    return 0
+
+
+def start_side(name: str, epoch: float):
+    """Start ``SIDES[name]`` in a process of its own on the same card, its
+    output in a file under ``build/``; a process still running at exit is
+    killed. Returns (the process, its log, its name)."""
+    import atexit
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    log = ROOT / "build" / f"side_{name}_{os.getpid()}.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-u", str(ROOT / "chip_smoke.py"), "--side",
+             name, repr(epoch)], cwd=ROOT, stdout=f,
+            stderr=subprocess.STDOUT, text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, log, name
+
+
+def join_side(started, stamp) -> None:
+    """Wait for a side process, print its output and fail if it failed."""
+    proc, log, name = started
+    waited = time.perf_counter()
+    try:
+        proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    stamp(f"the '{name}' side process ended (waited "
+          f"{time.perf_counter() - waited:.1f} s here, exit code "
+          f"{proc.returncode}); its output:")
+    print(log.read_text(), end="")
+    log.unlink()
+    assert proc.returncode == 0, f"the '{name}' side process failed"
+
+
 def main() -> int:
-    t_start = time.perf_counter()
+    t_start, epoch = time.perf_counter(), time.time()
 
     def stamp(msg: str) -> None:
         # each phase's header carries the seconds since the start
@@ -5066,76 +5404,58 @@ def main() -> int:
           f"tokens, f32 flash prefill")
     f32_serve_counts = serving_full_width_f32(torch, ops)
 
-    stamp("phase 11: E1 on the card: the CNN card vs CPU (M-AVG, L=4, K=4, "
-          "packed and per-leaf), then convergence.main(quick=True)")
-    e1_counts = e1_on_the_card(torch, ops)
-    stamp(f"phase 12: the checkpoint at full width ({CKPT_DEPTH} layers), "
-          f"flat dense M-AVG, L={CKPT_L}: save, verify, restore in place, "
-          f"resume")
-    ckpt_counts = checkpoint_full_width(torch, ops)
-    for name in ("fused_momentum_broadcast", "sgd_apply", "block_momentum"):
-        assert e1_counts[name] > 0, (name, e1_counts)
-    assert ckpt_counts["fused_momentum_broadcast"] > 0, ckpt_counts
-
     stamp(f"phase 13a: telemetry on the dense main path: full-width "
           f"Qwen3-1.7B, {DEPTH} layers, L={L}, JSONL sink, spans, torch "
           f"profiler, health, log_every=2, {OBS_STEPS} meta steps")
     obs_counts = telemetry_full_width(torch, ops)
+    assert obs_counts["fused_momentum_broadcast"] > 0, obs_counts
+    assert obs_counts["sgd_apply"] > 0, obs_counts
     stamp(f"phase 13b: attribution (profile_phases) on phase 12's "
-          f"configuration at {DEPTH} layers, L={CKPT_L}")
+          f"configuration at {CKPT_DEPTH} layers, L={CKPT_L}")
     attribution_on_the_card(torch)
-    stamp(f"phase 13c: supervised recovery at full width ({SUP_DEPTH} "
-          f"layers), L={CKPT_L}, finite guard, nan_batch on learner 0 at "
-          f"step 3 of {SUP_STEPS}")
-    sup_counts = supervised_recovery(torch, ops)
-    for counts in (obs_counts, sup_counts):
-        assert counts["fused_momentum_broadcast"] > 0, counts
-        assert counts["sgd_apply"] > 0, counts
+
+    # the phases bound by the host run from here in processes of their
+    # own beside the main ones: 12 and 13c until phase 16b, 14a, 14c, 15a
+    # and 15b until the end
+    store, host = (start_side(name, epoch) for name in ("store", "host"))
+    stamp("phases 12 and 13c (side process 'store') and 14a, 14c, 15a and "
+          "15b (side process 'host') started beside the phases to come")
+
+    stamp("phase 11: E1 on the card: the CNN card vs CPU (M-AVG, L=4, K=4, "
+          "packed and per-leaf), then convergence.main(quick=True)")
+    e1_counts = e1_on_the_card(torch, ops)
+    for name in ("fused_momentum_broadcast", "sgd_apply", "block_momentum"):
+        assert e1_counts[name] > 0, (name, e1_counts)
 
     from repro_torch.configs.base import AsyncConfig
 
-    stamp(f"phase 14a: the async server card vs CPU, qwen3-1.7b.reduced() "
-          f"float32, L={L}, K=2, {2 * max(ASYNC_PROFILE)} ticks")
-    with full_f32(torch):
-        async_card_vs_cpu(torch, ops)
-    stamp(f"phase 14b: the async server at full width ({DEPTH} layers), "
-          f"mavg on profile {ASYNC_PROFILE}, tau {ASYNC_TAU}, L={L}, K=4, "
-          f"{ASYNC_TICKS} ticks")
+    stamp(f"phase 14b: the async server at full width ({ASYNC_DEPTH} "
+          f"layers), mavg on profile {ASYNC_PROFILE}, tau {ASYNC_TAU}, "
+          f"L={L}, K=4, {ASYNC_TICKS} ticks")
     async_counts = async_full_width(
         torch, ops, "async mavg",
         MAvgConfig(algorithm="mavg", num_learners=L, k_steps=4,
                    topology=TopologyConfig(kind="async", server=AsyncConfig(
                        staleness=ASYNC_TAU, step_time=ASYNC_PROFILE))),
         ASYNC_TICKS)
-    stamp(f"phase 14b: eamsgd at full width ({DEPTH} layers), L={L}, K=4, "
-          f"4 ticks")
+    stamp(f"phase 14b: eamsgd at full width ({ASYNC_DEPTH} layers), L={L}, "
+          f"K=4, 4 ticks")
     async_full_width(torch, ops, "eamsgd",
                      MAvgConfig(algorithm="eamsgd", num_learners=L,
                                 k_steps=4), 4)
     stamp(f"phase 14b: the uniform profile against flat at full width "
-          f"({DEPTH} layers)")
+          f"({ASYNC_DEPTH} layers)")
     async_uniform_full_width(torch, ops)
-    stamp("phase 14c: E4, the async bench and the chaos bench, quick, on "
-          "the card")
-    async_benchmarks_on_the_card(torch, ops)
     print(f"  phase 14b launches on the async main path: sgd_apply "
           f"{async_counts['sgd_apply']}, fused_momentum_broadcast "
           f"{async_counts['fused_momentum_broadcast']}")
 
     t15 = time.perf_counter()
-    stamp("phase 15a: E2, E3, the ablations and momentum_tuning, quick, on "
-          "the card")
-    sweep_counts = sweeps_on_the_card(torch, ops)
-    stamp("phase 15b: the robust, topology, elastic, async and chaos "
-          "benches, quick, through run.py --only (stores under build/), "
-          "gated; the comm bench")
-    bench_counts = benches_on_the_card(torch, ops)
-    stamp("phase 15c: train_100m --width full (L=4, K=4, B=8, S=128, 10 "
-          "meta steps) and serve_batch on the reduced archs")
+    stamp(f"phase 15c: train_100m --width full (L=4, K=4, B=8, S=128, "
+          f"{TRAIN_100M_STEPS} meta steps) and serve_batch on the reduced "
+          f"archs")
     e2e_counts = examples_on_the_card(torch, ops)
-    print(f"  phase 15 in {time.perf_counter() - t15:.1f} s; launches: "
-          f"sweeps {({k: v for k, v in sweep_counts.items() if v})}, "
-          f"benches {({k: v for k, v in bench_counts.items() if v})}, "
+    print(f"  phase 15c in {time.perf_counter() - t15:.1f} s; launches: "
           f"train_100m {({k: v for k, v in e2e_counts.items() if v})}")
 
     t16 = time.perf_counter()
@@ -5144,6 +5464,7 @@ def main() -> int:
           f"steps of {MOE_ARCH} reduced, L={L}")
     with full_f32(torch):
         families_card_vs_cpu(torch, ops, MOE_REDUCED, (MOE_ARCH,))
+    join_side(store, stamp)
     stamp(f"phase 16b: serving full-width DeepSeekMoE-16B, 28 layers (1 "
           f"dense + 27 MoE), B={SERVE_B}, {SERVE_PROMPT}-token prompt, "
           f"{SERVE_NEW} greedy tokens, flash prefill")
@@ -5211,16 +5532,20 @@ def main() -> int:
     placed_cost_on_a_1x1_mesh(cost_inputs)
     del cost_inputs
     stamp(f"phase 19b: the placed meta step on a one-GPU NCCL "
-          f"DeviceMesh, {PLACED_STEPS} meta steps against the unplaced "
-          f"step (mavg, and mavg_mlocal for 20b, in one process)")
+          f"DeviceMesh ({DEPTH} layers), {PLACED_STEPS} meta steps "
+          f"against the unplaced step ({', '.join(PLACED_CONFIGS)}; "
+          f"mavg_mlocal printed in 20b; in one process)")
     placed_runs = placed_steps_on_the_card()
-    print_placed(placed_runs["mavg"])
-    placed_counts = placed_runs["mavg"]["placed"]
+    for name in PLACED_CONFIGS:
+        if name != "mavg_mlocal":
+            print_placed(placed_runs[name])
+    placed_counts = {name: placed_runs[name]["placed"]
+                     for name in PLACED_KERNELS}
     stamp(f"phase 19c: the dry run of the (32, 8) H100 mesh, "
           f"{len(DRYRUN_ROWS)} rows, and run.py --only roofline")
     dry_run_rows(dry_run)
     print(f"  phase 19 in {time.perf_counter() - t19:.1f} s; launches on "
-          f"the placed steps {placed_counts}")
+          f"the new placed steps {placed_counts}")
 
     t20 = time.perf_counter()
     stamp(f"phase 20a: block remat on the card: full-width Qwen3-1.7B, 28 "
@@ -5238,6 +5563,8 @@ def main() -> int:
     print(f"  phase 20 in {time.perf_counter() - t20:.1f} s; launches: "
           f"placed mavg_mlocal {mlocal_counts}, costed robust step "
           f"{costed_counts}")
+
+    join_side(host, stamp)
 
     # each kernel's launches in the run of the path it serves: the dense
     # and compressed full-width runs, the reduced per-leaf runs, the gossip
@@ -5273,4 +5600,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(side(sys.argv[2], float(sys.argv[3]))
+             if sys.argv[1:2] == ["--side"] else main())

@@ -103,13 +103,18 @@ class PayloadCorruptor:
         self._T = T
         self.active = schedule.any_payload_faults
 
-    def __call__(self, learners, step):
+    def __call__(self, learners, step, offset: int = 0):
+        """``offset``: the stack's first learner (the placed step's rank
+        holds learners ``offset`` onwards, each plane whole)."""
         idx = min(int(step), self._T)
         scale, xorm, pos = self._scale[idx], self._xor[idx], self._pos[idx]
         dirty = (scale != 1.0) | (xorm != 0)
         leaves = [x for x in tree_leaves(learners) if x.is_floating_point()]
-        for j in np.flatnonzero(dirty).tolist():
-            s = f32(scale[j])
+        L = leaves[0].shape[0] if leaves else 0
+        dirty[:offset] = False
+        dirty[offset + L:] = False
+        for j in (np.flatnonzero(dirty) - offset).tolist():
+            s = f32(scale[j + offset])
             for x in leaves:
                 xj = x[j].reshape(-1)
                 for sl in windows(xj.numel()):
@@ -118,8 +123,9 @@ class PayloadCorruptor:
                         w.mul_(s)
                     else:
                         w.copy_(w.to(torch.float32).mul_(s))
-            if leaves and xorm[j] != 0:
-                _flip_word(leaves[0], j, int(xorm[j]), int(pos[j]))
+            if leaves and xorm[j + offset] != 0:
+                _flip_word(leaves[0], j, int(xorm[j + offset]),
+                           int(pos[j + offset]))
         return learners
 
 

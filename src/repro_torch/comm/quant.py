@@ -13,7 +13,7 @@ On the packed flat meta-plane the learner stack arrives as ONE
 pass, with per-learner scale chunks. It writes the compressed
 displacement over the dither and the new residual over the old one, so
 the full-width meta step needs one (L, rows, 128) plane beyond its state
-(the dither) and not three. It averages C(delta) with the plain mean
+(the dither) and not three, and the f64 sum of one (rows, 128) plane. It averages C(delta) with the plain mean
 and never reads the robust ``aggregate`` hook, as the JAX package's
 ``_reduce_packed`` does not (ROADMAP Queue 3): with int8 on the packed
 plane a robust estimator is skipped. Wire bytes are modeled over the
@@ -29,9 +29,17 @@ is leaf 0 over the whole (L, rows, 128) shape; per-leaf paths number the
 leaves in the order ``tree_leaves`` gives, which is JAX's ``tree_flatten``
 order, over each leaf's padded (rows, 128) wire layout. The default
 source draws from a ``torch.Generator`` on the plane's device seeded from
-(seed, leaf index, step). Runs with it differ from the JAX package's by
-their rounding noise, not by their math; the parity tests pass JAX's own
-uniforms through ``interop.dither_from_numpy`` instead.
+(seed, leaf index, step) and, for each learner j of an (L, rows, 128)
+stack, j: one rank of a mesh draws its own learners' planes and no
+other's (``sharding/placed.py``). Runs with it differ from the JAX
+package's by their rounding noise, not by their math; the parity tests
+pass JAX's own uniforms through ``interop.dither_from_numpy`` instead.
+
+The mean of C(delta) over the learners is their sum in f64, divided by L
+and rounded to f32 once. A sum of L f32 values is exact in f64 unless
+their magnitudes span more than 2^(29 - log2 L), so it does not depend
+on the order of the additions: a rank of a mesh that sums its learners
+and all-reduces the partial sums gets one process's mean bitwise.
 
 The compress-only route of the gossip and masked hierarchical
 topologies (``topology.gossip.compress_stack``) hands the reducer a packed
@@ -57,13 +65,26 @@ SCALE_BYTES = 4.0
 
 def seeded_dither(seed: int):
     """The default dither source: uniforms from a generator on the
-    requested device, seeded from (seed, leaf index, step)."""
+    requested device, seeded from (seed, leaf index, step), and of each
+    learner of a 3-D (L, rows, 128) stack from (seed, leaf index, step,
+    learner). ``dither.learners(leaf, step, first, shape, device)`` draws
+    the planes of learners ``first`` to ``first + shape[0] - 1`` alone."""
+
+    def learners(leaf_index, step, first, shape, device):
+        keys = (seed, int(leaf_index), int(step))
+        if len(shape) != 3:
+            return torch.rand(shape, generator=seeded_generator(device, *keys),
+                              dtype=torch.float32, device=device)
+        out = torch.empty(shape, dtype=torch.float32, device=device)
+        for j in range(shape[0]):
+            torch.rand(tuple(shape[1:]), out=out[j], generator=seeded_generator(
+                device, *keys, int(first) + j))
+        return out
 
     def dither(leaf_index, step, shape, device):
-        gen = seeded_generator(device, seed, int(leaf_index), int(step))
-        return torch.rand(shape, generator=gen, dtype=torch.float32,
-                          device=device)
+        return learners(leaf_index, step, 0, shape, device)
 
+    dither.learners = learners
     return dither
 
 
@@ -85,15 +106,27 @@ class QuantReducer(CompressedReducer):
             return self._reduce_packed(learners, gp, residual, step)
         return super().reduce(learners, gp, residual, step=step)
 
+    # the two steps a rank of a mesh takes on its pieces of the stack
+    # (``sharding/placed.py::PieceQuant``)
+    def _uniforms(self, step, shape, device):
+        """The packed plane's dither (leaf 0, this step): a new tensor."""
+        return self.dither(0, step, shape, device)
+
+    def _learner_sum(self, c):
+        """(the f64 sum of ``c`` over its learners, their count)."""
+        return torch.sum(c, dim=0, dtype=torch.float64), c.shape[0]
+
     def _reduce_packed(self, learners, gp, residual, step):
-        u = self.dither(0, step, tuple(learners.shape), learners.device)
+        u = self._uniforms(step, tuple(learners.shape), learners.device)
         c, err, scales = kops.pack_update(
             learners, gp, residual, u, qmax=QMAX[self.dtype],
             block=self.chunk_rows, c_out=u, err_out=residual,
         )
-        # gp + mean_j c_j, summed into the mean's own buffer (addition
-        # commutes bitwise; one (rows, 128) plane fewer at full width)
-        avg = torch.mean(c, dim=0).add_(gp.to(torch.float32))
+        # gp + mean_j c_j, gp added into the mean's own buffer (addition
+        # commutes bitwise)
+        total, n = self._learner_sum(c)
+        avg = total.div_(n).to(torch.float32).add_(gp.to(torch.float32))
+        del total
         wire = (learners.numel() * VALUE_BYTES[self.dtype]
                 + scales.numel() * SCALE_BYTES)
         db = dense_bytes(learners)
@@ -111,7 +144,7 @@ class QuantReducer(CompressedReducer):
         buffer and err (None unless ``with_err``) in ``delta``'s: the
         caller's delta is consumed."""
         delta = delta.to(torch.float32)
-        u = self.dither(0, step, tuple(delta.shape), delta.device)
+        u = self._uniforms(step, tuple(delta.shape), delta.device)
         c, err, scales = kops.pack_compress(
             delta, u, qmax=QMAX[self.dtype], block=self.chunk_rows,
             with_err=with_err, c_out=u, err_out=delta if with_err else None,

@@ -323,7 +323,7 @@ def _finite_guard(learners, local_mom, gp, metrics, L):
 
 def meta_step(state: MetaState, batches, *, loss_fn: LossFn,
               cfg: MAvgConfig, lr=None, reducer=None, topology=None,
-              chaos=None, rows=None, grad_mean=None
+              chaos=None, rows=None, grad_mean=None, spread=None
               ) -> tuple[MetaState, dict]:
     """One meta-iteration n -> n+1 of Algorithm 1 (or a baseline).
 
@@ -339,7 +339,9 @@ def meta_step(state: MetaState, batches, *, loss_fn: LossFn,
     momentum)`` and ``scatter(learners, local momentum, trained learners,
     trained momentum)`` takes this rank's rows of both back before the
     mix. ``grad_mean``: see ``_local_phase`` (the placed step's batch
-    split over 'model').
+    split over 'model'). ``spread``: ``(per-learner mean losses, active
+    mask or None) -> loss_spread`` in place of ``_loss_spread`` (the
+    placed step's spread over every rank's learners).
     """
     lr = f32(cfg.learner_lr if lr is None else lr)
     if topology is None:
@@ -365,7 +367,8 @@ def meta_step(state: MetaState, batches, *, loss_fn: LossFn,
     metrics = {
         "loss": loss,
         "grad_norm": gnorm,
-        "loss_spread": _loss_spread(loss_l, active),
+        "loss_spread": (_loss_spread if spread is None else spread)(
+            loss_l, active),
     }
     with torch.no_grad():
         if chaos is not None:

@@ -107,6 +107,7 @@ class Trainer:
             self.batch_fn = wrap_batch_fn(batch_fn, schedule)
             if schedule.any_payload_faults:
                 chaos_corruptor = PayloadCorruptor(schedule)
+        self._chaos_corruptor = chaos_corruptor
         # the init and data streams: seeded generators, one per purpose
         # (init) and per meta step (data), reproducible run to run
         params = init_params_fn(
@@ -142,42 +143,46 @@ class Trainer:
 
     def _place(self, mesh, state_shardings) -> None:
         """Place the state on ``mesh`` and step it through the placed
-        meta step (the packed flat dense step; telemetry rings and
-        checkpoints work: every rank saves, rank 0 writes the file, every
-        rank loads its pieces). Chaos, the cost analysis and the
-        attribution rows on a mesh are ROADMAP Queue 1 item 14, step 5."""
+        meta step (``sharding/placed.py``: the packed flat and hierarchical
+        steps, any comm scheme, robust aggregation and the finite guard;
+        telemetry rings and checkpoints work: every rank saves, rank 0
+        writes the file, every rank loads its pieces). Chaos acts as in
+        one process: the batch poisoner on the whole batches before they
+        are placed, the payload corruptor on each rank's whole learners by
+        their global index, crash windows as elastic membership; the cost
+        analysis costs the placed step, and the attribution rows time its
+        phases. Per-leaf planes, gossip and the async server are refused
+        (``check_supported``)."""
         from repro_torch.launch import mesh as meshlib
         from repro_torch.launch import specs
         from repro_torch.sharding import Spec
         from repro_torch.sharding.placed import (
             Placement,
             check_supported,
+            host_topo,
             placed_meta_step,
         )
 
         check_supported(self.mcfg)
-        off = [name for name, on in (
-            ("chaos", self.cfg.chaos is not None),
-            ("obs.cost_analysis", self.obs_cfg.cost_analysis),
-            ("obs.attribution", self.obs_cfg.attribution)) if on]
-        if off:
-            raise NotImplementedError(
-                f"a Trainer on a mesh runs without {off}: ROADMAP Queue 1 "
-                f"item 14, step 5")
         if state_shardings is None:
             state_shardings = specs.state_shardings(self.cfg.model, self.mcfg,
                                                     mesh)
         self.state = specs.place_tree(self.state, state_shardings, mesh)
+        # the host buffers (membership, the robust ring) stay host tensors,
+        # read and replaced by the loop as in one process
+        self.state.topo = host_topo(self.state.topo)
         laxes = meshlib.learner_axes(mesh)
         placement = Placement(mesh, laxes)
+        self._placement = placement
         batch_spec = Spec(laxes if len(laxes) > 1 else laxes[0])
-        loss_fn, mcfg = self.loss_fn, self.mcfg
+        self._batch_spec = batch_spec
+        loss_fn, mcfg, chaos = self.loss_fn, self.mcfg, self._chaos_corruptor
 
         def step(state, batches, lr=None):
             placed = {k: specs.place(v, batch_spec, mesh)
                       for k, v in batches.items()}
             return placed_meta_step(state, placed, loss_fn=loss_fn, cfg=mcfg,
-                                    placement=placement, lr=lr)
+                                    placement=placement, lr=lr, chaos=chaos)
 
         self._step_fn = step
 
@@ -207,11 +212,20 @@ class Trainer:
         """The phase attribution rows, once before step 0 (on a clone of the
         state; the live state is untouched). Best-effort telemetry, as in
         JAX: a failure leaves ``attribution`` empty."""
+        phases = None
+        if self.mesh is not None:
+            from repro_torch.launch import specs
+            from repro_torch.sharding.placed import placed_phases
+
+            batches = {k: specs.place(v, self._batch_spec, self.mesh)
+                       for k, v in batches.items()}
+            phases = placed_phases(self.loss_fn, self.mcfg, self._placement)
         try:
             self.attribution = profile_phases(
                 self.loss_fn, self.mcfg, self.state, batches, lr,
                 iters=5, warmup=2,
                 peak_gbps=measured_peak_gbps(device=self.device),
+                phases=phases,
             )
         except Exception:  # attribution is best-effort telemetry
             self.attribution = []
@@ -227,11 +241,21 @@ class Trainer:
         from repro_torch.roofline.cost import jit_cost
         from repro_torch.topology import host_buffers
 
+        def step(s, b, lr_):
+            return self._step_fn(s, b, lr=lr_)
+
+        args = (self.state, batches, lr)
+        kw = dict(in_place=(0,), host=host_buffers(self.state.topo))
         try:
-            self.jit_cost = jit_cost(
-                lambda s, b, lr_: self._step_fn(s, b, lr=lr_), self.state,
-                batches, lr, in_place=(0,),
-                host=host_buffers(self.state.topo))
+            if self.mesh is None:
+                self.jit_cost = jit_cost(step, *args, **kw)
+            else:
+                # one rank's program, its collectives labelled by mesh
+                # axes, as the dry run costs it
+                from repro_torch.launch.dryrun_lib import cost_program
+
+                self.jit_cost = cost_program(
+                    step, args, dict(kw, groups=self._placement.labels))
         except Exception:  # cost analysis is best-effort telemetry
             self.jit_cost = None
 

@@ -236,7 +236,27 @@ def moe_layer(x, p, cfg: ModelConfig, dropless: bool = False):
     out = torch.where((slots < E * C)[..., None], rows, 0).sum(dim=1)
     if cfg.num_shared_experts:
         out = out + swiglu(xt, p["shared"])
-    return out.reshape(B, S, d), aux
+    return _batch_view(out, xt, B, S), aux
+
+
+def _batch_view(out, xt, B: int, S: int):
+    """The (T, d) combine ``out`` viewed as (B, S, d). On a mesh the
+    combine's gathers can leave ``out`` split along T over more axes than
+    the tokens are (('data', 'model') at one sequence a 'data' rank of a
+    prefill), and DTensor cannot view such a split back to (B, S, d): it
+    is gathered over the axes that split T and not the tokens ``xt`` first
+    (one all-gather; any other placement is kept)."""
+    if is_dtensor(out):
+        from torch.distributed.tensor import Replicate
+
+        extra = [i for i, (p, q) in enumerate(zip(out.placements,
+                                                  xt.placements))
+                 if p.is_shard(0) and not q.is_shard(0)]
+        if extra:
+            out = out.redistribute(out.device_mesh, [
+                Replicate() if i in extra else p
+                for i, p in enumerate(out.placements)])
+    return out.reshape(B, S, out.shape[-1])
 
 
 def local_experts(xt, gates, slot_expert, pos_clamped, keep, C, w_in, w_out,

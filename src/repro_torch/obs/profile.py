@@ -272,7 +272,8 @@ def _tensors(state) -> list:
 
 def profile_phases(loss_fn, cfg, state, batches, lr=None, *, iters: int = 10,
                    warmup: int = 2, peak_gbps: float | None = None,
-                   profiler_trace_dir: str | None = None) -> list[dict]:
+                   profiler_trace_dir: str | None = None,
+                   phases=None) -> list[dict]:
     """Attribution rows ``phase:step``, ``phase:local`` and
     ``phase:meta_mix`` for one meta iteration of ``cfg`` on ``state``.
 
@@ -282,7 +283,10 @@ def profile_phases(loss_fn, cfg, state, batches, lr=None, *, iters: int = 10,
     ``state`` (``clone_state``): the passed state is left as it was.
 
     ``profiler_trace_dir``: also export a ``torch.profiler`` trace of one
-    more whole step into this directory.
+    more whole step into this directory. ``phases``: the (whole step,
+    local phase, meta mix) callables of ``(state, batches, lr)``,
+    ``(state, batches, lr)`` and ``(state,)`` in place of the one-process
+    ones (one rank of a mesh: ``sharding/placed.py::placed_phases``).
     """
     from repro_torch.core.meta import _local_phase, make_meta_step
     from repro_torch.topology import host_buffers, make_topology
@@ -306,6 +310,8 @@ def profile_phases(loss_fn, cfg, state, batches, lr=None, *, iters: int = 10,
             return topology.mix(s.learners, s.global_params, s.momentum,
                                 s.comm_residual, s.topo, step=s.step)
 
+    if phases is not None:
+        whole_step, local_phase, meta_mix = phases
     targets = [
         ("phase:step", whole_step, (work, batches, lr)),
         ("phase:local", local_phase, (work, batches, lr)),

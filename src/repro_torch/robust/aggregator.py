@@ -96,17 +96,18 @@ def _displacements(stack, anchor):
                        ).reshape(L, w)
 
 
-def gram(stack, anchor=None) -> torch.Tensor:
+def gram(stack, anchor=None, host: bool = True) -> torch.Tensor:
     """The (L, L) f32 Gram matrix of the displacement stack (see
     ``_displacements``), summed over windows and leaves on the stack's
     device and returned on the host (left on the meta device when the
-    step is costed, ``roofline.cost.jit_cost``)."""
+    step is costed, ``roofline.cost.jit_cost``; on the stack's device
+    with ``host=False``)."""
     G = None
     with _full_f32_matmul():
         for d in _displacements(stack, anchor):
             g = d @ d.T
             G = g if G is None else G + g
-    if G.device.type == "meta":  # costed (roofline.cost): no host read
+    if not host or G.device.type == "meta":  # costed: no host read
         return G
     return G.cpu()
 
@@ -180,9 +181,12 @@ class RobustAggregator:
     def has_clip(self) -> bool:
         return self.cfg.clip_mult > 0.0
 
-    def guard(self, stack, topo, anchor=None):
+    def guard(self, stack, topo, anchor=None, gram_fn=None):
         """Score and clip factors of the displacements of ``stack`` from
-        ``anchor`` (see ``_displacements``).
+        ``anchor`` (see ``_displacements``). ``gram_fn``: ``(stack,
+        anchor) -> (L, L)`` Gram matrix on the host in place of ``gram``
+        (the placed step's sum of every rank's partial Gram matrix; L then
+        counts every rank's learners).
 
         Returns ``(scale, topo', metrics)``: ``scale`` is the (L,) f32
         per-learner clip factor on the host (1.0 = untouched), ``topo'``
@@ -190,10 +194,12 @@ class RobustAggregator:
         holds the ``robust_*`` scalars the Trainer repackages into
         ``robust`` records.
         """
-        L = tree_leaves(stack)[0].shape[0]
         metrics = {}
+        G = None
+        if self.has_clip or self.cfg.score:
+            G = (gram if gram_fn is None else gram_fn)(stack, anchor)
+        L = tree_leaves(stack)[0].shape[0] if G is None else G.shape[0]
         scale = torch.ones((L,), dtype=torch.float32)
-        G = gram(stack, anchor) if (self.has_clip or self.cfg.score) else None
         if self.has_clip:
             norms = torch.sqrt(torch.diagonal(G))
             # the ring on the Gram matrix's device: the host, or meta
@@ -250,14 +256,7 @@ class RobustAggregator:
         """
         scale, topo, metrics = self.guard(learners, topo, anchor=anchor)
         if self.has_clip:
-            for j, s in self._clipped(scale):
-                for x, a in zip(tree_leaves(learners), tree_leaves(anchor)):
-                    xj = x[j].reshape(-1)
-                    aj = a[j * a.shape[0] // x.shape[0]].reshape(-1)
-                    for sl in windows(xj.numel()):
-                        af = aj[sl].to(torch.float32)
-                        d = xj[sl].to(torch.float32) - af
-                        xj[sl].copy_(d.mul_(s).add_(af))
+            clip_rows(learners, anchor, self._clipped(scale))
         return learners, topo, metrics
 
     def clip_learners(self, learners, gp, topo):
@@ -277,6 +276,24 @@ class RobustAggregator:
                 for d in tree_leaves(delta):
                     d[j].mul_(s)
         return delta, topo, metrics
+
+
+def clip_rows(learners, anchor, clipped, offset: int = 0) -> None:
+    """w_j <- a_j + s_j (w_j - a_j), in place, window by window, for each
+    (learner j, factor s_j) of ``clipped`` (``RobustAggregator._clipped``)
+    with ``offset <= j < offset + L`` (the stack's first learner is
+    learner ``offset``; the placed step's rank holds L of them); learner
+    j is anchored at entry ``j * A // L`` of the (A, ...) ``anchor``."""
+    for j, s in clipped:
+        for x, a in zip(tree_leaves(learners), tree_leaves(anchor)):
+            if not 0 <= j - offset < x.shape[0]:
+                continue
+            xj = x[j - offset].reshape(-1)
+            aj = a[(j - offset) * a.shape[0] // x.shape[0]].reshape(-1)
+            for sl in windows(xj.numel()):
+                af = aj[sl].to(torch.float32)
+                d = xj[sl].to(torch.float32) - af
+                xj[sl].copy_(d.mul_(s).add_(af))
 
 
 def make_robust(cfg: MAvgConfig):

@@ -1,26 +1,68 @@
 """The M-AVG meta step of one rank of a mesh: the state placed by
 ``launch/specs.state_shardings`` as DTensors, the step run on this rank's
-pieces through the port's own ``core/meta.py::meta_step``.
+pieces through the port's own ``core/meta.py::meta_step``, and every
+metric the one-process value on every rank.
 
-What one rank runs, for the packed flat dense meta step (the default
-configuration, the one JAX's dry run lowers; ``mavg``, ``kavg``, ``sync``
-and ``mavg_mlocal``, whose local-momentum plane is placed, gathered and
+What one rank runs (the packed plane: ``mavg``, ``kavg``, ``sync`` and
+``mavg_mlocal``, whose local-momentum plane is placed, gathered and
 taken back as the learners' are):
 
-* its L_loc = L / |learner axes| learners (the learner dim of the
-  (L, rows, 128) stack is split over the learner axes);
+* its L_loc = L / |learner axes| learners, learners ``off`` to
+  ``off + L_loc - 1`` (the learner dim of the (L, rows, 128) stacks is
+  split over the learner axes), and, where the rows are split over
+  'model', its rows of every plane (``RankView``);
 * the local phase on the whole of each of its learners' planes: where the
   plane's rows are split over 'model', one all-gather over 'model' brings
   them in first, the K local steps run on this rank's copy, and its rows
   are taken back (no communication). JAX's GSPMD does the same with the
   packed plane: its dry run of the (4, 2) test mesh has no
   tensor-parallel collective and charges each device one whole learner's
-  flops (``tests/test_torch_dryrun.py`` holds the port to those flops);
-* the mix on the local rows: the mean over its L_loc learners, completed
-  across the learner axes by one all-reduce, then the fused
-  momentum-broadcast kernel on the local planes;
-* the loss and grad-norm metrics averaged across the learner axes (one
-  small all-reduce each).
+  flops (``tests/test_torch_dryrun.py`` holds the port to those flops).
+  The payload corruptor (``chaos``, global learner indices) and the
+  finite guard's flags work on those whole planes before the rows are
+  taken back; the flags are gathered over the learner axes, so every rank
+  reads one verdict, and each rank resets its own learners that carry a
+  NaN/Inf;
+* the mix (``PlacedFlat``, ``PlacedHierarchical``):
+  - flat, dense: the mean over its learners, completed across the learner
+    axes by one all-reduce, then the fused momentum-broadcast kernel on
+    the local planes;
+  - flat, int8/int4 + error feedback: the one-process quantizer on the
+    rank's pieces of the learners and the residual (``PieceQuant``):
+    ``pack_update`` with the uniforms of its learners (the dither is keyed
+    by learner), and the f64 sum of C(delta) over its learners completed
+    by one all-reduce (exact sums: the mean is one process's bitwise).
+    Where a chunk of ``chunk_rows`` would straddle two ranks' rows, and
+    for the schemes whose chunks or top-k span a learner's whole plane
+    (fp8, topk, int8_topk), the stack and the residual are gathered whole
+    and the one-process reducer runs on them (``PlacedReducer``);
+  - flat, robust: the (L_loc, rows_loc, 128) stack is re-split from
+    learners to rows over the learner axes (Shard(0) -> Shard(1)), the
+    partial (L, L) Gram matrices of that layout are summed by one
+    all-reduce (every rank then clips the same learners and advances the
+    same ring), ``robust_reduce`` runs on (L, rows_loc / n, 128) and one
+    all-gather brings the rows back;
+  - hierarchical with a dense inner level (static or elastic, dense or
+    int8 outer): the (G, rows, 128) group stacks stay replicated, as JAX
+    places them; a rank forms its groups' averages where it holds whole
+    groups, or f32 partial sums where a group spans ranks, completed by
+    one all-reduce of the (G, rows_loc, 128) partial over the learner
+    axes and gathered over 'model'; the inner block momentum then runs on
+    the whole group planes, the outer fused momentum-broadcast (an int8
+    outer level as ``PieceQuant``) on the rank's rows of w~, v and the
+    group planes, and the learners are reset from their rows;
+  - hierarchical with a compressed inner level (int8 + EF), under robust
+    aggregation, or on a layout that neither holds nor splits groups
+    evenly: the stack is gathered whole and the one-process mix runs on
+    it (``GatheredMix``). JAX's placement replicates the (G, S, rows, 128)
+    inner EF residual, so every rank must end the inner level holding
+    every learner's residual: gathering it moves as many bytes as
+    gathering the learners, and the rank-pieces route would move the
+    partial sums besides;
+* the metrics: loss and grad-norm weighted by each rank's active local
+  steps, loss_spread over every learner, norms and distances as the
+  square root of the sums of squares over the axes their operands are
+  split over, and the modeled wire bytes of the global shapes.
 
 Under ``tp_mode="fsdp"`` (JAX's dry run: a learner's local batch split
 over 'model' where it divides) each rank of a learner's 'model' group
@@ -29,8 +71,27 @@ and the loss are averaged over 'model' (one all-reduce each) before every
 local SGD step, so each rank applies the learner's whole-batch step.
 
 On a mesh of size 1 every step of this is the unplaced step's, op for op:
-no all-gather, no all-reduce, the same kernel launches
-(``chip_smoke.py`` phase 19a and 19b hold that).
+no all-gather, no all-reduce, the same kernel launches, the same dither
+(``chip_smoke.py`` phases 19a and 19b hold that). Per-leaf planes,
+gossip and the async server (with ``eamsgd`` and ``downpour``) are
+refused (``check_supported``).
+
+Why the pieces where they are used, and the gathered stack elsewhere:
+``tests/test_torch_dryrun.py::
+test_the_placed_mixes_move_and_hold_less_than_the_gathered_ones`` costs
+both routes of each configuration at Qwen3-1.7B's full width on a fake
+(4, 2) mesh, L = 8: the flat int8 mix and the dense-inner hierarchical
+mixes on the pieces move and hold a fraction of what the gathered mix
+does; under an int8 + EF inner level the gathered mix moves no more than
+JAX's replicated inner residual alone.
+
+Memory: a rank's flat int8 mix holds its L_loc learners' uniforms (each
+learner's whole plane: its rows are one draw) and the f64 sum of one
+(rows_loc, 128) plane. The gathered routes hold the whole (L, rows, 128)
+stack, its residual and their uniforms on every rank, as does JAX's
+replicated inner residual of the hierarchical topology (L f32 planes on
+every rank: at Qwen3-1.7B's full width, 6.9 GB a learner, beyond an 80 GB
+card from L = 12; ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -38,10 +99,28 @@ import dataclasses
 
 import torch
 
+from repro_torch.comm.quant import SCALE_BYTES, VALUE_BYTES, QuantReducer
+from repro_torch.comm.reducer import DenseReducer, ErrorFeedback, dense_bytes
 from repro_torch.configs.base import MAvgConfig
-from repro_torch.comm.reducer import DenseReducer
-from repro_torch.core.meta import MetaState, meta_step
-from repro_torch.utils.tree import is_dtensor, tree_map
+from repro_torch.core.meta import (
+    MetaState,
+    _learner_finite_mask,
+    _loss_spread,
+    meta_step,
+)
+from repro_torch.kernels.quantize import QMAX, choose_block
+from repro_torch.robust.aggregator import clip_rows, gram
+from repro_torch.topology.base import (
+    FlatAllReduce,
+    Topology,
+    block_momentum_update,
+    consensus_dist,
+    fused_momentum_broadcast_update,
+    stack_dist,
+)
+from repro_torch.topology.elastic import membership_at
+from repro_torch.topology.hierarchical import Hierarchical, _put, masked_mean
+from repro_torch.utils.tree import is_dtensor, tree_cast, tree_map, tree_norm
 
 
 def _prod(xs) -> int:
@@ -98,23 +177,56 @@ def _group_of(mesh, axes):
     return sub.get_group(0), n
 
 
+def _all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
+    """``x`` reduced with ``op`` over ``group`` (one all-reduce)."""
+    import torch.distributed._functional_collectives as funcol
+
+    out = funcol.all_reduce(x, op, group)
+    return funcol.wait_tensor(out) if hasattr(funcol, "wait_tensor") \
+        else out.wait()
+
+
 def _mean_over(x: torch.Tensor, group, n: int) -> torch.Tensor:
     """The mean of ``x`` over ``group`` (one all-reduce; x itself when
     the group is None)."""
     if group is None:
         return x
-    import torch.distributed._functional_collectives as funcol
+    return _all_reduce(x, "sum", group).mul_(1.0 / n)
 
-    out = funcol.all_reduce(x, "sum", group)
-    out = funcol.wait_tensor(out) if hasattr(funcol, "wait_tensor") \
-        else out.wait()
-    return out.mul_(1.0 / n)
+
+def _sub_mesh(mesh, axes):
+    """The 1-D mesh of this rank's ranks along ``axes`` (flattened when
+    there are several), or None when they hold one rank."""
+    names = tuple(mesh.mesh_dim_names)
+    if _prod(mesh.size(names.index(a)) for a in axes) == 1:
+        return None
+    sub = mesh[tuple(axes)]
+    return sub._flatten() if len(axes) > 1 else sub
+
+
+def _stride(shape) -> tuple:
+    out, acc = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= n
+    return tuple(reversed(out))
+
+
+def _redistribute(local, mesh, src, dst, shape):
+    """This rank's piece of the ``shape`` tensor laid out as ``src`` on
+    ``mesh``, laid out as ``dst`` (a plain tensor: this rank's piece)."""
+    from torch.distributed.tensor import DTensor
+
+    dt = DTensor.from_local(local, mesh, src, run_check=False,
+                            shape=tuple(shape), stride=_stride(shape))
+    return dt.redistribute(mesh, dst).to_local()
 
 
 class Placement:
     """The mesh of a placed state and its learner axes: the process group
-    that completes the learner mean, and the labels of the mesh's groups
-    for the cost model (``GroupLabels``). ``batch_axis`` ('model' under
+    that completes the learner mean, the groups the telemetry's sums run
+    over ('model', every axis), and the labels of the mesh's groups for
+    the cost model (``GroupLabels``). ``batch_axis`` ('model' under
     ``tp_mode="fsdp"``, or None): the axis a learner's batch is split
     over, whose group averages the gradient in the local phase."""
 
@@ -124,8 +236,13 @@ class Placement:
         self.labels = GroupLabels(mesh)
         self.learner_group, self.n_groups = _group_of(mesh,
                                                       self.learner_axes)
+        self.learner_mesh = _sub_mesh(mesh, self.learner_axes)
         self.batch_group, self.n_batch = (
             _group_of(mesh, (batch_axis,)) if batch_axis else (None, 1))
+        names = tuple(mesh.mesh_dim_names)
+        self.model_group = (_group_of(mesh, ("model",))[0]
+                            if "model" in names else None)
+        self.all_group = _group_of(mesh, names)[0]
 
     def all_mean_(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of ``x`` over the learner groups (x itself when there
@@ -161,13 +278,51 @@ def _local(x):
     return x.to_local() if is_dtensor(x) else x
 
 
+def host_topo(topo):
+    """``topo`` with its host buffers (``topology.HOST_BUFFERS``: the
+    membership schedule, the robust ring) as plain host tensors, as one
+    process keeps them (placing a state puts every buffer on the mesh's
+    device)."""
+    from repro_torch.topology import HOST_BUFFERS
+
+    if not isinstance(topo, dict):
+        return topo
+    return {k: (_local(v).cpu() if k in HOST_BUFFERS and v is not None
+                else v) for k, v in topo.items()}
+
+
 def local_state(state: MetaState) -> MetaState:
-    """The MetaState of this rank's pieces (views, no copy)."""
-    return dataclasses.replace(state, **{
+    """The MetaState of this rank's pieces (views, no copy; the host
+    buffers on the host)."""
+    topo = host_topo(state.topo)
+    if isinstance(topo, dict):
+        topo = {k: (None if v is None else _local(v)) for k, v in
+                topo.items()}
+    return dataclasses.replace(state, topo=topo, **{
         f: (None if getattr(state, f) is None
             else tree_map(_local, getattr(state, f)))
         for f in ("global_params", "momentum", "learners", "local_momentum",
                   "comm_residual")})
+
+
+def _placed_topo(old, new):
+    """The placed state's ``topo`` after a step that returned ``new`` for
+    its local buffers: a DTensor buffer keeps its place and takes the new
+    value into its local tensor (where the step did not update it in
+    place); a host buffer (``topology.HOST_BUFFERS``) is replaced by the
+    step's host tensor, as in one process."""
+    if not isinstance(old, dict) or not isinstance(new, dict):
+        return new
+    from repro_torch.topology import HOST_BUFFERS
+
+    out = dict(new)
+    for k, o in old.items():
+        if is_dtensor(o) and k not in HOST_BUFFERS:
+            local = o.to_local()
+            if new[k].data_ptr() != local.data_ptr():
+                local.copy_(new[k])
+            out[k] = o
+    return out
 
 
 def _whole_rows(placements):
@@ -213,61 +368,736 @@ class RowGather:
         return local
 
 
+# ---------------------------------------------------------------------------
+# this rank's view of the placed stacks and planes
+# ---------------------------------------------------------------------------
+
+
+class RankView:
+    """This rank's pieces of a placed state: learners ``off`` to ``off +
+    L_loc - 1`` of L, rows ``rs`` of ``rows`` (all of them unless the
+    rows are split over 'model'), and the redistributions and sums that
+    take a piece to the whole and a local metric to the global one. Every
+    method is the identity where the mesh holds one rank."""
+
+    def __init__(self, state: MetaState, placement: Placement):
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset,
+        )
+
+        dt = state.learners
+        self.placement = placement
+        self.mesh = dt.device_mesh
+        self.stack_pl = tuple(dt.placements)
+        shape, off = compute_local_shape_and_global_offset(
+            dt.shape, self.mesh, self.stack_pl)
+        self.L, self.rows = int(dt.shape[0]), int(dt.shape[1])
+        self.L_loc, self.rows_loc = int(shape[0]), int(shape[1])
+        self.off, self.row_off = int(off[0]), int(off[1])
+        self.rs = slice(self.row_off, self.row_off + self.rows_loc)
+        if self.L % placement.n_groups:
+            raise ValueError(f"{self.L} learners do not split evenly over "
+                             f"{placement.n_groups} learner ranks")
+        self.rows_split = self.rows_loc < self.rows
+        rowdim = [isinstance(p, Shard) and p.dim == 1 for p in self.stack_pl]
+        # (rows, 128) planes, and (n, rows, 128) stacks replicated over
+        # the learner axes
+        self.plane_pl = tuple(Shard(0) if r else Replicate() for r in rowdim)
+        self.group_pl = tuple(Shard(1) if r else Replicate() for r in rowdim)
+        self.whole_pl = tuple(Replicate() for _ in rowdim)
+        # the sums of a metric over the pieces of a stack and of a plane
+        self.stack_group = (placement.all_group if self.rows_split
+                            else placement.learner_group)
+        self.plane_group = placement.model_group if self.rows_split else None
+        self.trivial = placement.learner_group is None and not self.rows_split
+
+    # -- pieces and wholes ---------------------------------------------
+    def whole_stack(self, x):
+        """This rank's (L_loc, rows_loc, 128) piece of a stack placed as
+        the learners -> the whole (L, rows, 128) stack."""
+        if tuple(x.shape) == (self.L, self.rows, 128):
+            return x
+        return _redistribute(x, self.mesh, self.stack_pl, self.whole_pl,
+                             (self.L, self.rows, 128))
+
+    def whole_plane(self, x):
+        """This rank's (rows_loc, 128) rows of a plane -> (rows, 128)."""
+        if not self.rows_split:
+            return x
+        return _redistribute(x, self.mesh, self.plane_pl, self.whole_pl,
+                             (self.rows, 128))
+
+    def whole_groups(self, x):
+        """This rank's rows of an (n, rows, 128) stack replicated over the
+        learner axes -> (n, rows, 128)."""
+        if not self.rows_split:
+            return x
+        return _redistribute(x.contiguous(), self.mesh, self.group_pl,
+                             self.whole_pl, (x.shape[0], self.rows, 128))
+
+    def stack_piece(self, whole):
+        return whole[self.off:self.off + self.L_loc, self.rs]
+
+    def plane_piece(self, whole):
+        return whole[self.rs]
+
+    def learner_slice(self, xs):
+        """This rank's entries of a per-learner list (None passes)."""
+        return None if xs is None else xs[self.off:self.off + self.L_loc]
+
+    # -- the robust re-split ---------------------------------------------
+    def resplit(self, x):
+        """(L_loc, R, 128) -> (L, R_part, 128): every learner's rows
+        ``part_rows(R)`` (one redistribution over the learner axes; R need
+        not divide evenly)."""
+        from torch.distributed.tensor import Shard
+
+        lm = self.placement.learner_mesh
+        if lm is None:
+            return x
+        return _redistribute(x, lm, (Shard(0),), (Shard(1),),
+                             (self.L,) + tuple(x.shape[1:]))
+
+    def part_rows(self, R: int) -> slice:
+        """The rows of an R-row piece this rank holds after ``resplit``."""
+        from torch.distributed.tensor import Shard
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset,
+        )
+
+        lm = self.placement.learner_mesh
+        if lm is None:
+            return slice(0, R)
+        shape, off = compute_local_shape_and_global_offset(
+            (self.L, R, 128), lm, (Shard(1),))
+        return slice(off[1], off[1] + shape[1])
+
+    def unsplit(self, y, R: int):
+        """(R_part, 128) rows of ``part_rows(R)`` -> (R, 128) (one
+        all-gather over the learner axes)."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        lm = self.placement.learner_mesh
+        if lm is None:
+            return y
+        return _redistribute(y, lm, (Shard(0),), (Replicate(),),
+                             (R,) + tuple(y.shape[1:]))
+
+    def gram(self, stack, anchor):
+        """The (L, L) Gram matrix of the re-split displacements on the
+        host: this rank's partial, summed over every rank (one
+        all-reduce)."""
+        G = gram(stack, anchor, host=False)
+        if self.stack_group is not None:
+            G = _all_reduce(G, "sum", self.stack_group)
+        return G if G.device.type == "meta" else G.cpu()
+
+    # -- global metrics ----------------------------------------------------
+    @staticmethod
+    def _norm(x, group):
+        if group is None:
+            return x
+        return torch.sqrt(_all_reduce(x * x, "sum", group))
+
+    def stack_norm(self, x):
+        """A norm of a stack's pieces -> the norm of the whole stack."""
+        return self._norm(x, self.stack_group)
+
+    def plane_norm(self, x):
+        """A norm of a plane's rows -> the norm of the whole plane."""
+        return self._norm(x, self.plane_group)
+
+    def global_bytes(self, metrics: dict) -> dict:
+        """A reducer's wire metrics of this rank's pieces scaled to the
+        whole stack (the wire is linear in the values and the chunks)."""
+        f = float((self.L // self.L_loc) * (self.rows // self.rows_loc))
+        out = dict(metrics)
+        for k in ("comm_bytes", "comm_bytes_dense"):
+            out[k] = metrics[k] * f
+        if metrics.get("comm_compression", 1.0) != 1.0:
+            out["comm_compression"] = (out["comm_bytes_dense"]
+                                       / out["comm_bytes"])
+        return out
+
+    def loss_spread(self, loss_l, active):
+        """max - min of the per-learner mean losses over every rank's
+        active learners (0 when none is)."""
+        group = self.placement.learner_group
+        if group is None:
+            return _loss_spread(loss_l, active)
+        on = (torch.ones(loss_l.shape, dtype=torch.bool, device=loss_l.device)
+              if active is None else active.to(loss_l.device))
+        hi = torch.where(on, loss_l, float("-inf")).max()
+        lo = torch.where(on, loss_l, float("inf")).min()
+        ext = _all_reduce(torch.stack([hi, -lo]), "max", group)
+        spread = ext[0] + ext[1]
+        return torch.where(torch.isfinite(spread), spread,
+                           torch.zeros((), dtype=spread.dtype,
+                                       device=spread.device))
+
+    def active_means(self, loss, gnorm, n_active: int):
+        """The loss and grad-norm means over every rank's active local
+        steps, from this rank's means over its ``n_active``."""
+        group = self.placement.learner_group
+        if group is None:
+            return loss, gnorm
+        n = torch.full((), float(n_active), dtype=loss.dtype,
+                       device=loss.device)
+        s = _all_reduce(torch.stack([loss * n, gnorm * n, n]), "sum", group)
+        total = torch.clamp(s[2], min=1.0)
+        return s[0] / total, s[1] / total
+
+    def finite_flags(self, learners, local_mom):
+        """The finite guard's flags of all L learners (``core/meta.py::
+        _learner_finite_mask`` of each rank's whole learners, gathered
+        over the learner axes), or None when the planes hold no float."""
+        ok = _learner_finite_mask(learners)
+        if local_mom is not None:
+            mok = _learner_finite_mask(local_mom)
+            if mok is not None:
+                ok = mok if ok is None else [a and b for a, b in zip(ok, mok)]
+        lm = self.placement.learner_mesh
+        if ok is None or lm is None:
+            return ok
+        dev = learners.device
+        if dev.type == "meta":  # costed: a clean step
+            return [True] * self.L
+        from torch.distributed.tensor import Replicate, Shard
+
+        flags = _redistribute(torch.tensor(ok, dtype=torch.int32, device=dev),
+                              lm, (Shard(0),), (Replicate(),), (self.L,))
+        return [bool(f) for f in flags.tolist()]
+
+
+def _base(reducer):
+    return reducer.inner if isinstance(reducer, ErrorFeedback) else reducer
+
+
+def _quant(reducer):
+    """The packed-plane quantizer (int8/int4) of ``reducer``, or None."""
+    b = _base(reducer)
+    return b if isinstance(b, QuantReducer) and b.dtype in QMAX else None
+
+
+def _aligned(reducer, view: RankView) -> bool:
+    """Does ``reducer`` run on this rank's rows: dense, or a packed
+    quantizer whose chunks never straddle two ranks' rows?"""
+    if isinstance(_base(reducer), DenseReducer):
+        return True
+    q = _quant(reducer)
+    return q is not None and view.rows_loc % choose_block(
+        view.rows, q.chunk_rows) == 0
+
+
+def _wire(reducer, lead: int, rows: int, elem: int) -> float:
+    """The modeled wire bytes of ``reducer`` on a (lead, rows, 128) stack
+    of ``elem``-byte values (``comm/reducer.py``, ``comm/quant.py``)."""
+    q = _quant(reducer)
+    if q is None:
+        return float(lead * rows * 128 * elem)
+    return (lead * rows * 128 * VALUE_BYTES[q.dtype]
+            + lead * (rows // choose_block(rows, q.chunk_rows)) * SCALE_BYTES)
+
+
+class PieceQuant(QuantReducer):
+    """The packed quantizer ``q`` on this rank's pieces of a ``lead``-learner
+    stack (its learners from ``lead_off`` on, its rows): the one-process
+    code, with the uniforms of those learners alone (``comm/quant.py``
+    keys each learner's plane; a source that cannot is drawn whole and
+    sliced) and, given ``group``, the f64 learner sum completed by one
+    all-reduce over it. The f64 sums are exact, so the mean is one
+    process's bitwise, whatever the order of the ranks' additions."""
+
+    def __init__(self, q: QuantReducer, view: RankView, lead: int,
+                 lead_off: int, group=None):
+        self.__dict__.update(vars(q))
+        self.view, self.lead, self.lead_off = view, lead, lead_off
+        self.group = group
+
+    def _uniforms(self, step, shape, device):
+        view, n, r = self.view, shape[0], shape[1]
+        rest = tuple(shape[2:])
+        pick = getattr(self.dither, "learners", None)
+        if pick is not None:
+            u, lo = pick(0, step, self.lead_off, (n, view.rows) + rest,
+                         device), 0
+        else:
+            u, lo = self.dither(0, step, (self.lead, view.rows) + rest,
+                                device), self.lead_off
+        if tuple(u.shape[:2]) == (n, r):
+            return u
+        return u[lo:lo + n, view.row_off:view.row_off + r].clone()
+
+    def _learner_sum(self, c):
+        total, n = super()._learner_sum(c)
+        if self.group is None:
+            return total, n
+        return _all_reduce(total, "sum", self.group), self.lead
+
+
+def _on_pieces(reducer, view: RankView, lead: int, lead_off: int,
+               group=None):
+    """``reducer`` for this rank's pieces of a ``lead``-learner stack: a
+    packed quantizer as ``PieceQuant`` (under its error feedback), any
+    other reducer, or any on a mesh of one rank, as it is."""
+    q = _quant(reducer)
+    if q is None or view.trivial:
+        return reducer
+    piece = PieceQuant(q, view, lead, lead_off, group)
+    return ErrorFeedback(piece) if isinstance(reducer, ErrorFeedback) \
+        else piece
+
+
+# ---------------------------------------------------------------------------
+# the placed topologies
+# ---------------------------------------------------------------------------
+
+
+class PlacedReducer:
+    """The flat mix's reducer on this rank's pieces: the dense mean
+    completed over the learner axes (``GroupMeanReducer``); the packed
+    int8/int4 quantizer on the rank's pieces (``PieceQuant``), its learner
+    sum completed over the learner axes; any other scheme, or a chunk that
+    straddles two ranks' rows, on the whole stack gathered (the
+    one-process reducer; its residual's piece kept)."""
+
+    def __init__(self, inner, view: RankView, meta_dtype: str):
+        self.view = view
+        self.dense = isinstance(_base(inner), DenseReducer)
+        self.aligned = _aligned(inner, view)
+        if self.dense:
+            inner = GroupMeanReducer(meta_dtype, view.placement)
+        elif self.aligned:
+            inner = _on_pieces(inner, view, view.L, view.off,
+                               view.placement.learner_group)
+        self.inner = inner
+
+    def reduce(self, learners, gp, residual, *, step):
+        view = self.view
+        if self.aligned:
+            avg, residual, m = self.inner.reduce(learners, gp, residual,
+                                                 step=step)
+            m = view.global_bytes(m)
+            if "comm_error_norm" in m:
+                m["comm_error_norm"] = view.stack_norm(m["comm_error_norm"])
+            return avg, residual, m
+        whole_res = None if residual is None else view.whole_stack(residual)
+        avg, new_res, m = self.inner.reduce(
+            view.whole_stack(learners), view.whole_plane(gp), whole_res,
+            step=step)
+        if residual is not None:
+            residual.copy_(view.stack_piece(new_res))
+        return tree_map(view.plane_piece, avg), residual, m
+
+
+class PlacedFlat(FlatAllReduce):
+    """``FlatAllReduce`` on this rank's pieces (see the module doc)."""
+
+    def __init__(self, cfg: MAvgConfig, view: RankView):
+        super().__init__(cfg)
+        self.view = view
+        self.reducer = PlacedReducer(self.reducer, view, cfg.meta_dtype)
+
+    def _robust(self, learners, gp, topo):
+        """The norm clip and the scores on every rank's displacements, the
+        clip written into this rank's learners; returns (learners, the
+        re-split stack (clipped too) or None, topo', metrics)."""
+        view, robust = self.view, self.robust
+        R = learners.shape[1]
+        need = robust.has_clip or robust.cfg.score or robust.aggregates
+        x = view.resplit(learners) if need else None
+        anchor = None if x is None else gp[view.part_rows(R)].unsqueeze(0)
+        scale, topo, metrics = robust.guard(
+            learners if x is None else x, topo, anchor=anchor,
+            gram_fn=view.gram)
+        if robust.has_clip:
+            clipped = robust._clipped(scale)
+            clip_rows(learners, gp.unsqueeze(0), clipped, offset=view.off)
+            if x is not None and x is not learners:
+                clip_rows(x, anchor, clipped)
+        return learners, x, topo, metrics
+
+    def _stack_norm(self, x):
+        return self.view.stack_norm(x)
+
+    def _plane_norm(self, x):
+        return self.view.plane_norm(x)
+
+    def mix(self, learners, gp, v, comm_residual, topo, *, step):
+        view = self.view
+        metrics = {}
+        avg = x = None
+        if self.robust is not None:
+            learners, x, topo, rmetrics = self._robust(learners, gp, topo)
+            metrics.update(rmetrics)
+        if x is not None and self.robust.aggregates and self.reducer.dense:
+            # the robust estimator in place of the mean: every learner's
+            # value at each of this rank's re-split coordinates
+            avg = view.unsplit(self.robust.aggregate(x), learners.shape[1])
+            b = dense_bytes(learners)
+            comm_metrics = view.global_bytes({
+                "comm_bytes": b, "comm_bytes_dense": b,
+                "comm_compression": 1.0})
+        del x
+        if avg is None:
+            avg, comm_residual, comm_metrics = self.reducer.reduce(
+                learners, gp, comm_residual, step=step)
+        gp, v, learners = self._update(learners, gp, v, avg, metrics)
+        metrics.update(comm_metrics)
+        return gp, v, learners, comm_residual, topo, metrics
+
+
+class GatheredMix(Topology):
+    """Any topology's one-process mix on the whole stack: this rank's
+    pieces of the learners, w~, v and the flat residual are gathered, the
+    ``inner`` topology mixes them as one process does (every rank the
+    same), and each rank keeps its pieces. The ``topo`` buffers are
+    replicated already."""
+
+    def __init__(self, inner: Topology, view: RankView):
+        self.inner = inner
+        self.view = view
+        self.cfg = inner.cfg
+
+    def local_steps(self, topo, step):
+        return self.view.learner_slice(self.inner.local_steps(topo, step))
+
+    def mix(self, learners, gp, v, comm_residual, topo, *, step):
+        view = self.view
+        W, gw, vw = (view.whole_stack(learners), view.whole_plane(gp),
+                     view.whole_plane(v))
+        R = None if comm_residual is None else view.whole_stack(
+            comm_residual)
+        gw, vw, W, R, topo, metrics = self.inner.mix(W, gw, vw, R, topo,
+                                                     step=step)
+        for piece, whole in ((learners, view.stack_piece(W)),
+                             (gp, view.plane_piece(gw)),
+                             (v, view.plane_piece(vw)),
+                             (comm_residual,
+                              None if R is None else view.stack_piece(R))):
+            if piece is not None and piece.data_ptr() != whole.data_ptr():
+                piece.copy_(whole)
+        return gp, v, learners, comm_residual, topo, metrics
+
+
+class PlacedHierarchical(Hierarchical):
+    """``Hierarchical`` with a dense inner level on this rank's pieces (see
+    the module doc): the rank holds whole groups (``contained``: L_loc a
+    multiple of S) or a part of one (``spanning``: S a multiple of
+    L_loc)."""
+
+    def __init__(self, cfg: MAvgConfig, view: RankView):
+        super().__init__(cfg)
+        self.view = view
+        self.contained = view.L_loc % self.S == 0
+        self.spanning = not self.contained and self.S % view.L_loc == 0
+        # an int8 outer level draws the uniforms of this rank's rows of
+        # the G group planes
+        self.outer_reducer = _on_pieces(self.outer_reducer, view, self.G, 0)
+
+    @property
+    def supported(self) -> bool:
+        """Does this rank's layout take the placed route (else
+        ``GatheredMix``)? Not under robust aggregation, and not with a
+        compressed inner level: JAX's placement replicates its (G, S,
+        rows, 128) EF residual, and all-gathering it after every inner
+        level moves more than the whole gathered mix
+        (``tests/test_torch_dryrun.py::
+        test_the_placed_mixes_move_and_hold_less_than_the_gathered_ones``)."""
+        return (self.robust is None
+                and isinstance(self.inner_reducer, DenseReducer)
+                and (self.contained or self.spanning)
+                and _aligned(self.outer_reducer, self.view))
+
+    def local_steps(self, topo, step):
+        return self.view.learner_slice(super().local_steps(topo, step))
+
+    def _inner(self, learners, gp_rows, part, mask, present, step):
+        """This rank's share of the inner averages on its rows, into
+        ``part``: the means of its whole groups (the one-process code per
+        group), or the f32 sum of its present learners of a group that
+        spans ranks."""
+        S, view = self.S, self.view
+        if self.spanning:
+            m = (torch.ones(view.L_loc) if mask is None else
+                 mask.reshape(-1)[view.off:view.off + view.L_loc])
+            keep = torch.nonzero(torch.as_tensor(m)).flatten().tolist()
+            if keep:
+                part[view.off // S] = torch.sum(
+                    learners[keep].to(torch.float32), dim=0)
+            return
+        n, glo = view.L_loc // S, view.off // S
+        grouped = learners.view((n, S) + tuple(learners.shape[1:]))
+        for i in range(n):
+            if mask is None:
+                a, _, _ = self.inner_reducer.reduce(
+                    grouped[i], gp_rows[glo + i], None, step=step)
+            else:
+                # the mean of the weights, as ``Hierarchical._inner_masked``
+                a = masked_mean(grouped[i], mask[glo + i], present[glo + i])
+            _put(part, glo + i, a)
+            del a
+
+    def mix(self, learners, gp, v, comm_residual, topo, *, step):
+        cfg, view = self.cfg, self.view
+        G, S = self.G, self.S
+        meta_dt = getattr(torch, cfg.meta_dtype)
+        gparams = topo["group_params"]
+        gmom = topo["group_momentum"]
+        gp_rows = gparams[:, view.rs]
+        mask = present = None
+        if self.elastic is not None:
+            mask = membership_at(topo["membership"], step).reshape(G, S)
+            present = [float(mask[g].sum()) for g in range(G)]
+            assert min(present) > 0, present
+
+        # ---- inner level: each group's average on this rank's rows -----
+        group = view.placement.learner_group
+        part = (torch.empty if group is None else torch.zeros)(
+            gp_rows.shape, dtype=meta_dt, device=gp.device)
+        self._inner(learners, gp_rows, part, mask, present, step)
+        if group is not None:
+            part = _all_reduce(part, "sum", group)
+        if self.spanning:
+            ldt = learners.dtype
+            for g in range(G):
+                n = float(S) if mask is None else present[g]
+                a = part[g].div_(torch.full((), n, dtype=torch.float32,
+                                            device=part.device))
+                if mask is None:  # the mean in the learner dtype
+                    a.copy_(a.to(ldt))
+        avg = view.whole_groups(part)
+        inner_disp = stack_dist(avg, gparams)
+        gparams, gmom = block_momentum_update(
+            gparams, gmom, avg, mu=self.mu_in, eta=cfg.meta_lr,
+            nesterov=cfg.nesterov)
+        del avg, part
+
+        # ---- outer level on this rank's rows, every H meta steps -------
+        fire = (int(step) + 1) % self.H == 0
+        outer_res = topo["outer_residual"]
+        if fire:
+            g_rows = gparams[:, view.rs]
+            work_g = g_rows if g_rows.is_contiguous() else g_rows.contiguous()
+            o_rows = None if outer_res is None else outer_res[:, view.rs]
+            work_o = (o_rows if o_rows is None or o_rows.is_contiguous()
+                      else o_rows.contiguous())
+            A, work_o2, _ = self.outer_reducer.reduce(work_g, gp, work_o,
+                                                      step=step)
+            A = tree_cast(A, meta_dt)
+            gp, v, work_g = fused_momentum_broadcast_update(
+                gp, v, A, work_g, mu=self.mu_out, eta=1.0, nesterov=False)
+            del A
+            if view.rows_split:
+                gparams.copy_(view.whole_groups(work_g))
+                if outer_res is not None:
+                    outer_res.copy_(view.whole_groups(work_o2))
+            elif outer_res is not None and work_o2 is not outer_res:
+                outer_res.copy_(work_o2)
+
+        # ---- reset learners to their group's rows ----------------------
+        if self.contained:
+            n, glo = view.L_loc // S, view.off // S
+            grouped = learners.view((n, S) + tuple(learners.shape[1:]))
+            grouped.copy_(gparams[glo:glo + n, view.rs].unsqueeze(1)
+                          .expand_as(grouped))
+        else:
+            learners.copy_(gparams[view.off // S, view.rs].unsqueeze(0)
+                           .expand_as(learners))
+
+        topo = dict(topo, group_params=gparams, group_momentum=gmom,
+                    outer_residual=outer_res)
+        metrics = {
+            "v_norm": view.plane_norm(tree_norm(v)),
+            "group_v_norm": tree_norm(gmom),
+            "displacement_norm": inner_disp,
+            "consensus_dist": consensus_dist(gparams, tree_map(
+                lambda x: torch.mean(x, dim=0), gparams)),
+            "outer_fired": float(fire),
+        }
+        metrics.update(self._bytes(learners.element_size(),
+                                   gparams.element_size(), present, fire))
+        if present is not None:
+            metrics["present_count"] = float(sum(present))
+        return gp, v, learners, comm_residual, topo, metrics
+
+    def _bytes(self, l_elem: int, m_elem: int, present, fire) -> dict:
+        """The wire metrics of the whole mix, from the global shapes, in
+        the one-process mix's order of operations."""
+        G, S, rows = self.G, self.S, self.view.rows
+        intra = dense = 0.0
+        if present is None:
+            for _ in range(G):
+                intra += _wire(self.inner_reducer, S, rows, l_elem)
+                dense += float(S * rows * 128 * l_elem)
+        else:
+            wire_sum = 0.0
+            for g in range(G):
+                wire_sum += _wire(self.inner_reducer, S, rows,
+                                  l_elem) * present[g]
+            intra = wire_sum / S
+            dense = (float(G * S * rows * 128 * l_elem) / G) * sum(
+                present) / S
+        outer = outer_dense = 0.0
+        if fire:
+            outer = _wire(self.outer_reducer, G, rows, m_elem)
+            outer_dense = float(G * rows * 128 * m_elem)
+        total, total_dense = intra + outer, dense + outer_dense
+        return {
+            "comm_bytes_intra": intra,
+            "comm_bytes_inter": outer,
+            "comm_bytes": total,
+            "comm_bytes_dense": total_dense,
+            "comm_compression": (total_dense / max(total, 1.0)
+                                 if total > 0 else 1.0),
+        }
+
+
+def placed_topology(cfg: MAvgConfig, view: RankView) -> Topology:
+    """The topology of ``cfg`` on this rank's pieces."""
+    if cfg.topology.kind == "flat":
+        return PlacedFlat(cfg, view)
+    h = PlacedHierarchical(cfg, view)
+    return h if h.supported else GatheredMix(Hierarchical(cfg), view)
+
+
 def check_supported(cfg: MAvgConfig) -> None:
-    """The placed step runs the packed flat dense step of ``mavg``,
-    ``kavg``, ``sync`` and ``mavg_mlocal``. Compressed comm and the
-    hierarchical topology on a mesh, then per-leaf planes, gossip, the
-    async server, robust aggregation and the finite guard, are ROADMAP
-    Queue 1 item 14's steps 4 and 5."""
+    """The placed step runs the packed plane of ``mavg``, ``kavg``,
+    ``sync`` and ``mavg_mlocal`` on the flat and hierarchical topologies,
+    with any comm scheme, robust aggregation and the finite guard.
+    Per-leaf planes, gossip and the async server (``eamsgd`` and
+    ``downpour`` with it) on a mesh are ROADMAP Queue 1 item 14's step
+    5."""
     off = [name for name, on in (
         ("per-leaf planes (packed=False)", not cfg.packed),
-        (f"topology {cfg.topology.kind!r}", cfg.topology.kind != "flat"),
-        (f"comm {cfg.comm.scheme!r}", cfg.comm.scheme != "dense"),
-        ("robust aggregation", cfg.robust is not None),
-        ("the finite guard", cfg.finite_guard),
+        (f"topology {cfg.topology.kind!r}",
+         cfg.topology.kind not in ("flat", "hierarchical")),
         (f"algorithm {cfg.algorithm!r}",
          cfg.algorithm not in ("mavg", "kavg", "sync", "mavg_mlocal")))
         if on]
     if off:
         raise NotImplementedError(
-            "the placed meta step runs the packed flat dense meta step; "
-            f"{', '.join(off)} on a mesh: ROADMAP Queue 1 item 14, steps "
-            "4-5")
+            "the placed meta step runs the packed flat and hierarchical "
+            f"meta steps; {', '.join(off)} on a mesh: ROADMAP Queue 1 item "
+            "14, step 5")
+
+
+def _local_cfg(cfg: MAvgConfig, L_loc: int) -> MAvgConfig:
+    """What ``meta_step``'s local phase reads of ``cfg`` for this rank's
+    L_loc learners; the mix, the guard and the corruptor are the placed
+    step's (the config's checks of the topology, the groups and the trim
+    against the learner count hold for the whole mesh, not a rank)."""
+    from repro_torch.configs.base import TopologyConfig
+
+    return dataclasses.replace(cfg, num_learners=L_loc, finite_guard=False,
+                               robust=None, topology=TopologyConfig())
 
 
 def placed_meta_step(state: MetaState, batches, *, loss_fn, cfg: MAvgConfig,
-                     placement: Placement, lr=None):
+                     placement: Placement, lr=None, chaos=None):
     """One meta step of this rank: ``state`` placed (DTensors), ``batches``
     (L, K, B_local, ...) DTensors split over the learner axes (and along
     B_local over the placement's batch axis), or this rank's pieces.
-    Updates the state's pieces in place; returns (state, metrics), the
-    metrics averaged over all learners."""
+    ``chaos``: the payload corruptor (``chaos.PayloadCorruptor``) or None.
+    Updates the state's pieces in place; returns (state, metrics), every
+    metric the one-process value (see the module doc)."""
     check_supported(cfg)
-    from repro_torch.topology import make_topology
-
+    view = RankView(state, placement)
     rows = RowGather(state.learners)
     mom_rows = (None if state.local_momentum is None
                 else RowGather(state.local_momentum))
+    loc = local_state(state)
+    topology = placed_topology(cfg, view)
+    steps = topology.local_steps(loc.topo, loc.step)
+    n_active = (view.L_loc * cfg.k_steps if steps is None
+                else int(sum(steps)))
+    guard = {}
 
     def gather(learners, mom):
         return (rows.gather(learners),
                 mom if mom_rows is None else mom_rows.gather(mom))
 
     def scatter(learners, mom, trained, trained_mom):
-        return (rows.scatter(learners, trained),
-                trained_mom if mom_rows is None
-                else mom_rows.scatter(mom, trained_mom))
+        # the corruptor and the guard's flags on the whole learners, as in
+        # one process (core/meta.py), before this rank's rows go back
+        ok = None
+        with torch.no_grad():
+            if chaos is not None:
+                with torch.profiler.record_function("chaos.payload"):
+                    trained = chaos(trained, loc.step, offset=view.off)
+            if cfg.finite_guard:
+                with torch.profiler.record_function("chaos.finite_guard"):
+                    ok = view.finite_flags(trained, trained_mom)
+            learners = rows.scatter(learners, trained)
+            if mom_rows is not None:
+                mom = mom_rows.scatter(mom, trained_mom)
+            else:
+                mom = trained_mom
+            if ok is not None:
+                for j in range(view.L_loc):
+                    if not ok[view.off + j]:
+                        learners[j].copy_(loc.global_params)
+                        if mom is not None:
+                            mom[j].zero_()
+                guard["ok"] = ok
+        return learners, mom
 
-    loc = local_state(state)
-    L_loc = loc.learners.shape[0]
-    cfg_loc = dataclasses.replace(cfg, num_learners=L_loc)
-    topology = make_topology(
-        cfg_loc, GroupMeanReducer(cfg.meta_dtype, placement))
     new, metrics = meta_step(
         loc, {k: _local(v) for k, v in batches.items()}, loss_fn=loss_fn,
-        cfg=cfg_loc, lr=lr, topology=topology, rows=(gather, scatter),
+        cfg=_local_cfg(cfg, view.L_loc), lr=lr, topology=topology,
+        rows=(gather, scatter),
         grad_mean=(placement.grad_mean if placement.batch_group is not None
-                   else None))
-    for k in ("loss", "grad_norm"):
-        metrics[k] = placement.all_mean_(metrics[k])
-    return dataclasses.replace(state, step=new.step), metrics
+                   else None), spread=view.loss_spread)
+    metrics["loss"], metrics["grad_norm"] = view.active_means(
+        metrics["loss"], metrics["grad_norm"], n_active)
+    if "ok" in guard:
+        metrics["nonfinite_learners"] = torch.tensor(
+            float(view.L - sum(guard["ok"])), dtype=torch.float32)
+    return dataclasses.replace(state, step=new.step,
+                               topo=_placed_topo(state.topo, new.topo)), \
+        metrics
+
+
+def placed_phases(loss_fn, cfg: MAvgConfig, placement: Placement):
+    """The placed step's three attribution phases for ``obs.profile_phases``
+    (``phases=``): the whole step, the local phase (this rank's learners
+    gathered, trained and taken back) and the mix, each of a placed state
+    and placed batches."""
+    from repro_torch.core.meta import _local_phase
+    from repro_torch.kernels.planes import f32
+
+    def whole_step(s, b, lr):
+        return placed_meta_step(s, b, loss_fn=loss_fn, cfg=cfg,
+                                placement=placement, lr=lr)
+
+    def local_phase(s, b, lr):
+        view = RankView(s, placement)
+        loc = local_state(s)
+        rows = RowGather(s.learners)
+        mom_rows = (None if s.local_momentum is None
+                    else RowGather(s.local_momentum))
+        mom = (loc.local_momentum if mom_rows is None
+               else mom_rows.gather(loc.local_momentum))
+        out = _local_phase(
+            loss_fn, rows.gather(loc.learners), mom,
+            {k: _local(v) for k, v in b.items()},
+            _local_cfg(cfg, view.L_loc), f32(lr),
+            spec=s.spec, steps=placed_topology(cfg, view).local_steps(
+                loc.topo, loc.step),
+            grad_mean=(placement.grad_mean if placement.batch_group
+                       is not None else None))
+        rows.scatter(loc.learners, out[0])
+        if mom_rows is not None:
+            mom_rows.scatter(loc.local_momentum, out[1])
+        return out
+
+    def meta_mix(s):
+        view = RankView(s, placement)
+        loc = local_state(s)
+        with torch.no_grad():
+            return placed_topology(cfg, view).mix(
+                loc.learners, loc.global_params, loc.momentum,
+                loc.comm_residual, loc.topo, step=loc.step)
+
+    return whole_step, local_phase, meta_mix

@@ -29,6 +29,7 @@ from repro_torch.kernels import ops as kops
 # topologies import it from here, as in the JAX package
 from repro_torch.kernels.planes import is_packed_plane
 from repro_torch.utils.tree import (
+    sq_sum,
     tree_cast,
     tree_leaves,
     tree_map,
@@ -69,10 +70,10 @@ def fused_momentum_broadcast_update(gp, v, avg, learners, *, mu, eta,
 def stack_dist(a, b) -> torch.Tensor:
     """||a - b|| over two (lead, ...) trees, one entry of the leading axis
     at a time, so the (f32) temporary is one plane and never a stack."""
-    sq = [torch.linalg.vector_norm(x[j] - y[j]) ** 2
+    sq = [sq_sum(x[j] - y[j])
           for x, y in zip(tree_leaves(a), tree_leaves(b))
           for j in range(x.shape[0])]
-    return torch.sqrt(torch.stack(sq).sum())
+    return torch.sqrt(torch.stack(sq).sum()).to(torch.float32)
 
 
 def consensus_dist(learners, avg) -> torch.Tensor:
@@ -84,9 +85,8 @@ def consensus_dist(learners, avg) -> torch.Tensor:
 
 def displacement_norm(avg, gp) -> torch.Tensor:
     return torch.sqrt(torch.stack([
-        torch.linalg.vector_norm(a - g) ** 2
-        for a, g in zip(tree_leaves(avg), tree_leaves(gp))
-    ]).sum())
+        sq_sum(a - g) for a, g in zip(tree_leaves(avg), tree_leaves(gp))
+    ]).sum()).to(torch.float32)
 
 
 def robust_aggregate(robust):
@@ -153,11 +153,30 @@ class FlatAllReduce(Topology):
         avg, comm_residual, comm_metrics = self.reducer.reduce(
             learners, gp, comm_residual, step=step
         )
+        gp, v, learners = self._update(learners, gp, v, avg, metrics)
+        metrics.update(comm_metrics)
+        return gp, v, learners, comm_residual, topo, metrics
+
+    # the telemetry norms of the local planes; one rank of a mesh sums
+    # them over the ranks (``sharding/placed.py``)
+    def _stack_norm(self, x):
+        return x
+
+    def _plane_norm(self, x):
+        return x
+
+    def _update(self, learners, gp, v, avg, metrics):
+        """The block-momentum update by the average ``avg`` and the learner
+        reset, in place, with the telemetry norms written into
+        ``metrics``; returns (gp, v, learners)."""
+        cfg = self.cfg
         avg = tree_cast(avg, getattr(torch, cfg.meta_dtype))
         # both telemetry norms read the pre-update planes, so they are
         # taken before the in-place update below overwrites them
-        metrics["consensus_dist"] = consensus_dist(learners, avg)
-        metrics["displacement_norm"] = displacement_norm(avg, gp)
+        metrics["consensus_dist"] = self._stack_norm(
+            consensus_dist(learners, avg))
+        metrics["displacement_norm"] = self._plane_norm(
+            displacement_norm(avg, gp))
         if is_packed_plane(gp):
             gp, v, learners = fused_momentum_broadcast_update(
                 gp, v, avg, learners, mu=self.mu, eta=cfg.meta_lr,
@@ -172,6 +191,5 @@ class FlatAllReduce(Topology):
             # learner reset in place: every learner's copy <- w~'
             tree_map(lambda w, g: w.copy_(g.to(ldt).expand_as(w)),
                      learners, gp)
-        metrics["v_norm"] = tree_norm(v)
-        metrics.update(comm_metrics)
-        return gp, v, learners, comm_residual, topo, metrics
+        metrics["v_norm"] = self._plane_norm(tree_norm(v))
+        return gp, v, learners

@@ -161,9 +161,11 @@ def test_packed_int8_reduce_writes_over_dither_and_residual():
     avg, new_res, _ = red.reduce(torch.from_numpy(learners),
                                  torch.from_numpy(gp), res, step=0)
     assert new_res is res and len(drawn) == 1
-    # drawn[0] now holds c: avg = gp + mean_j c_j, and d + e = c + e'
+    # drawn[0] now holds c: avg = gp + mean_j c_j (the sum in f64, one
+    # f32 rounding), and d + e = c + e'
     np.testing.assert_array_equal(
-        avg.numpy(), (torch.from_numpy(gp) + drawn[0].mean(0)).numpy())
+        avg.numpy(), (torch.from_numpy(gp) + drawn[0].sum(
+            0, dtype=torch.float64).div(drawn[0].shape[0]).float()).numpy())
     total = learners - gp[None] + residual
     np.testing.assert_allclose((drawn[0] + new_res).numpy(), total,
                                rtol=1e-6, atol=1e-7)

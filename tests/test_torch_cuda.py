@@ -1041,3 +1041,42 @@ def test_cuda_placed_step_on_a_one_gpu_mesh_is_the_unplaced_step(
     assert out["placed"] == out["unplaced"]
     assert out["placed"]["sgd_apply"] == 2 * 2 * 4
     assert out["placed"]["fused_momentum_broadcast"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["int8", "hier_elastic", "robust", "guard"])
+def test_cuda_placed_configurations_on_a_one_gpu_mesh(cuda_device, name):
+    """``chip_smoke.py`` phase 19b's program at the reduced width for the
+    configurations newly placed: int8 + EF (``pack_update``),
+    hierarchical elastic with int8 inner (``pack_compress``,
+    ``block_momentum``), robust with a scaled payload (``robust_reduce``)
+    and the finite guard with a NaN learner, on a (1, 1) NCCL DeviceMesh:
+    planes, residual and topology buffers bitwise the unplaced step's,
+    every metric equal, and as many launches of each kernel."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    args = [str(x) for x in (1, 4, 2, 2, 16, 2, port, 0.1, "cuda", "nccl",
+                             "reduced", name)]
+    proc = subprocess.run(
+        [sys.executable, "-c", chip_smoke.PLACED_STEP_SCRIPT, *args],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert all(out["equal"].values()) and out["metrics_equal"], out
+    assert out["placed"] == out["unplaced"], out
+    for kernel in chip_smoke.PLACED_KERNELS[name]:
+        assert out["placed"].get(kernel, 0) > 0, (kernel, out)

@@ -207,9 +207,87 @@ def test_a_row_split_plane_is_gathered_once_and_averaged_once(fake_group):
         (st, bt), dict(in_place=(0,), groups=placement.labels))
     plane = rows * 128 * 4
     assert c.collectives_by_type["all-gather"] == plane
-    assert c.collectives_by_axes["model"] == plane
-    # the local rows' mean, then the loss and grad-norm scalars
-    assert c.collectives_by_axes["data"] == plane // 2 + 2 * 4
+    # the rows gathered, then the sums of squares of the two plane norms
+    # (displacement_norm, v_norm)
+    assert c.collectives_by_axes["model"] == plane + 2 * 4
+    # the local rows' mean, then the loss, grad-norm and step-count sums
+    # and the loss spread's two extremes
+    assert c.collectives_by_axes["data"] == plane // 2 + 3 * 4 + 2 * 4
+    # consensus_dist's sum of squares over every rank's pieces
+    assert c.collectives_by_axes["data,model"] == 4
+
+
+PLACED_MIXES = {
+    "int8_ef": dict(comm=B.CommConfig(scheme="int8")),
+    "hier_dense": dict(topology=B.TopologyConfig(
+        kind="hierarchical", groups=2, outer_every=2)),
+    "hier_elastic_dense": dict(topology=B.TopologyConfig(
+        kind="hierarchical", groups=2, outer_every=2,
+        elastic=B.ElasticConfig(period=4, drop_frac=0.25, seed=1))),
+    "hier_int8_ef_inner": dict(topology=B.TopologyConfig(
+        kind="hierarchical", groups=2, outer_every=2,
+        inner_comm=B.CommConfig(scheme="int8"))),
+}
+
+
+@pytest.mark.parametrize("name", list(PLACED_MIXES))
+def test_the_placed_mixes_move_and_hold_less_than_the_gathered_ones(
+        fake_group, name):
+    """Why a placed mix runs on the rank's pieces and not on the gathered
+    stack (``GatheredMix``, which runs the one-process mix on every rank):
+    the mix of one rank costed at Qwen3-1.7B's full width on a fake (4, 2)
+    mesh, L = 8 (2 learners a rank; the plane's 13,441,992 rows do not
+    split over 'model' in 8-row multiples), at a step where the outer
+    level fires. The flat int8 + EF mix and the dense-inner hierarchical
+    ones move a third or less of the gathered mix's collective bytes and
+    hold half or less of its peak; with an int8 + EF inner level the
+    gathered mix is the one taken, and moves no more than JAX's
+    replicated (G, S, rows, 128) inner residual, which a rank-pieces mix
+    would have to gather besides its partial sums."""
+    from repro_torch.sharding.placed import (
+        GatheredMix,
+        RankView,
+        local_state,
+        placed_topology,
+    )
+    from repro_torch.topology import make_topology
+
+    cfg = B.get_config("qwen3-1.7b")
+    mcfg = B.MAvgConfig(num_learners=8, k_steps=2, **PLACED_MIXES[name])
+    mesh = D.fake_mesh((4, 2), ("data", "model"))
+    state = S.place_tree(S.abstract_state(cfg, mcfg),
+                         S.state_shardings(cfg, mcfg, mesh), mesh)
+    placement = Placement(mesh, ("data",))
+    view = RankView(state, placement)
+    loc = local_state(state)
+    host = tuple(v for k, v in (loc.topo or {}).items() if k == "membership")
+
+    def cost(topology):
+        def mix(learners, gp, v, res, topo):
+            return topology.mix(learners, gp, v, res, topo, step=1)
+
+        return D.cost_program(mix, (loc.learners, loc.global_params,
+                                    loc.momentum, loc.comm_residual,
+                                    loc.topo),
+                              dict(in_place=(0, 1, 2, 3, 4), host=host,
+                                   groups=placement.labels))
+
+    chosen = placed_topology(mcfg, view)
+    gathered = cost(GatheredMix(make_topology(mcfg), view))
+    print(f"{name}: gathered {gathered.collective_bytes:.0f} collective "
+          f"bytes, peak {gathered.temp_bytes}")
+    if name == "hier_int8_ef_inner":
+        assert isinstance(chosen, GatheredMix)
+        res = loc.topo["inner_residual"]
+        assert gathered.collective_bytes <= res.numel() * res.element_size()
+        return
+    assert not isinstance(chosen, GatheredMix)
+    placed = cost(chosen)
+    print(f"{name}: placed {placed.collective_bytes:.0f} collective bytes, "
+          f"peak {placed.temp_bytes}")
+    assert placed.kernel_calls.keys() == gathered.kernel_calls.keys()
+    assert 3 * placed.collective_bytes <= gathered.collective_bytes
+    assert 2 * placed.temp_bytes <= gathered.temp_bytes
 
 
 # ---------------------------------------------------------------------------
@@ -514,29 +592,95 @@ def test_a_dtensor_reaches_the_kernels_through_its_local_pieces(fake_group):
 
 
 # ---------------------------------------------------------------------------
-# what the placed step and the Trainer on a mesh still refuse (ROADMAP
-# Queue 1 item 14, steps 4-5)
+# what the placed step and the Trainer on a mesh take, and what they still
+# refuse (ROADMAP Queue 1 item 14, step 5)
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("change", [
-    pytest.param(dict(packed=False), id="per_leaf"),
-    pytest.param(dict(comm=B.CommConfig(scheme="int8")), id="int8_ef"),
-    pytest.param(dict(topology=B.TopologyConfig(kind="hierarchical",
-                                                groups=2)),
-                 id="hierarchical"),
-    pytest.param(dict(topology=B.TopologyConfig(kind="gossip")),
+def _runs_placed_on_1x1(mcfg, chaos=None):
+    """Two meta steps placed on a (1, 1) mesh equal the unplaced steps
+    bitwise (planes, residual, topology buffers, every metric), and the
+    placed step's ``jit_cost`` is the unplaced step's in flops, bytes and
+    kernel calls, with no collective."""
+    from repro_torch.topology import host_buffers, make_topology
+
+    cfg = _smoke_cfg()
+    ref, batches = _state_and_batches(cfg, mcfg, "cpu")
+    mine, _ = _state_and_batches(cfg, mcfg, "cpu")
+    mesh = D.fake_mesh((1, 1), ("data", "model"))
+    placement = Placement(mesh, ("data",))
+    st, bt = _placed(mine, batches, cfg, mcfg, mesh)
+    topology = make_topology(mcfg)
+    unplaced = lambda s, b: meta_step(s, b, loss_fn=_loss(cfg), cfg=mcfg,
+                                      lr=0.01, topology=topology, chaos=chaos)
+    placed = lambda s, b: placed_meta_step(s, b, loss_fn=_loss(cfg),
+                                           cfg=mcfg, placement=placement,
+                                           lr=0.01, chaos=chaos)
+    want = jit_cost(unplaced, ref, batches, in_place=(0,),
+                    host=host_buffers(ref.topo))
+    got = D.cost_program(placed, (st, bt), dict(
+        in_place=(0,), groups=placement.labels,
+        host=host_buffers(st.topo)))
+    assert got.flops == want.flops > 0
+    assert got.hbm_bytes == want.hbm_bytes
+    assert got.kernel_calls == want.kernel_calls
+    assert got.collective_bytes == 0 and got.collective_calls == 0
+    for _ in range(2):
+        ref, mr = unplaced(ref, batches)
+        st, mp = placed(st, bt)
+        assert set(mp) == set(mr)
+        for k in mr:
+            assert float(mp[k]) == float(mr[k]), k
+    for f in ("global_params", "momentum", "learners", "comm_residual"):
+        if getattr(ref, f) is not None:
+            assert torch.equal(getattr(st, f).to_local(), getattr(ref, f)), f
+    for k, v in (ref.topo or {}).items():
+        if isinstance(v, torch.Tensor):
+            w = st.topo[k]
+            assert torch.equal(w.to_local() if hasattr(w, "to_local") else w,
+                               v), k
+
+
+@pytest.mark.parametrize("change,runs", [
+    pytest.param(dict(packed=False), False, id="per_leaf"),
+    pytest.param(dict(comm=B.CommConfig(scheme="int8")), True, id="int8_ef"),
+    pytest.param(dict(topology=B.TopologyConfig(
+        kind="hierarchical", groups=2, outer_every=1,
+        inner_comm=B.CommConfig(scheme="int8"),
+        elastic=B.ElasticConfig(drop_frac=0.25, period=2))), True,
+        id="hierarchical"),
+    pytest.param(dict(topology=B.TopologyConfig(kind="gossip")), False,
                  id="gossip"),
-    pytest.param(dict(topology=B.TopologyConfig(kind="async")), id="async"),
-    pytest.param(dict(robust=B.RobustConfig()), id="robust"),
-    pytest.param(dict(finite_guard=True), id="finite_guard"),
-    pytest.param(dict(algorithm="eamsgd"), id="eamsgd"),
+    pytest.param(dict(topology=B.TopologyConfig(kind="async")), False,
+                 id="async"),
+    pytest.param(dict(robust=B.RobustConfig(estimator="trimmed", trim=1,
+                                            clip_mult=3.0, clip_window=1)),
+                 True, id="robust"),
+    pytest.param(dict(finite_guard=True), True, id="finite_guard"),
+    pytest.param(dict(algorithm="eamsgd"), False, id="eamsgd"),
+    pytest.param(dict(algorithm="downpour"), False, id="downpour"),
 ])
-def test_placed_step_refuses_what_item_14_steps_4_and_5_port(change):
+def test_placed_step_refuses_what_item_14_steps_4_and_5_port(fake_group,
+                                                             change, runs):
+    """Steps 4 and 5's flat half run placed (each, on a (1, 1) mesh, the
+    unplaced step bitwise and costed alike: ``_runs_placed_on_1x1``);
+    per-leaf planes, gossip, the async server, eamsgd and downpour are
+    still refused, naming item 14's step 5."""
     from repro_torch.sharding.placed import check_supported
 
-    with pytest.raises(NotImplementedError, match="item 14, steps 4-5"):
-        check_supported(B.MAvgConfig(num_learners=4, k_steps=2, **change))
+    mcfg = B.MAvgConfig(num_learners=4, k_steps=2, momentum=0.7, **change)
+    if not runs:
+        with pytest.raises(NotImplementedError, match="item 14, step 5"):
+            check_supported(mcfg)
+        return
+    check_supported(mcfg)
+    nan = None
+    if mcfg.finite_guard:
+        def nan(learners, step, offset=0):  # learner 1 NaN at step 1
+            if int(step) == 1:
+                learners[1 - offset].fill_(float("nan"))
+            return learners
+    _runs_placed_on_1x1(mcfg, chaos=nan)
 
 
 @pytest.mark.parametrize("algorithm", ["mavg", "kavg", "sync",
@@ -549,28 +693,77 @@ def test_placed_step_takes_the_averaging_algorithms(algorithm):
 
 
 @pytest.mark.parametrize("what", ["chaos", "cost_analysis", "attribution",
-                                  "robust"])
+                                  "robust", "gossip", "per_leaf", "async",
+                                  "eamsgd", "downpour"])
 def test_trainer_on_a_mesh_refuses_what_item_14_step_5_ports(fake_group,
                                                              what):
+    """On a (1, 1) mesh a Trainer with chaos (a payload fault), the cost
+    analysis, the attribution rows or robust aggregation runs its steps
+    (the cost and the rows present); gossip, per-leaf planes, the async
+    server, eamsgd and downpour are still refused, naming item 14's step
+    5."""
     from repro_torch.chaos import ChaosConfig, FaultSpec
     from repro_torch.core.trainer import Trainer
     from repro_torch.data import lm_batch_fn
 
     cfg = B.get_config("qwen3-1.7b").reduced()
-    mcfg = B.MAvgConfig(num_learners=4, k_steps=1,
-                        robust=B.RobustConfig() if what == "robust"
-                        else None)
+    mcfg = B.MAvgConfig(
+        num_learners=4, k_steps=1,
+        robust=B.RobustConfig() if what == "robust" else None,
+        packed=what != "per_leaf",
+        algorithm=what if what in ("eamsgd", "downpour") else "mavg",
+        topology=B.TopologyConfig(kind=what if what in ("gossip", "async")
+                                  else "flat"))
     obs = B.ObsConfig(cost_analysis=what == "cost_analysis",
                       attribution=what == "attribution")
-    chaos = (ChaosConfig(faults=(FaultSpec(kind="nan_batch", step=1),))
+    chaos = (ChaosConfig(faults=(FaultSpec(kind="payload_scale", step=1,
+                                           learner=2),))
              if what == "chaos" else None)
     tcfg = B.TrainConfig(model=cfg, mavg=mcfg, batch_per_learner=2,
-                         seq_len=8, meta_steps=1, obs=obs, chaos=chaos)
+                         seq_len=8, meta_steps=2, obs=obs, chaos=chaos)
     mesh = D.fake_mesh((1, 1), ("data", "model"))
-    with pytest.raises(NotImplementedError,
-                       match="item 14, step" + ("s 4-5" if what == "robust"
-                                                else " 5")):
-        Trainer(tcfg, _loss(cfg),
-                init_params_fn=lambda g: api.init_params(g, cfg, "cpu"),
-                batch_fn=lm_batch_fn(cfg, 4, 1, 2, 8, device="cpu"),
-                device="cpu", mesh=mesh)
+
+    def trainer():
+        return Trainer(
+            tcfg, _loss(cfg),
+            init_params_fn=lambda g: api.init_params(g, cfg, "cpu"),
+            batch_fn=lm_batch_fn(cfg, 4, 1, 2, 8, device="cpu"),
+            device="cpu", mesh=mesh)
+
+    if what in ("gossip", "per_leaf", "async", "eamsgd", "downpour"):
+        with pytest.raises(NotImplementedError, match="item 14, step 5"):
+            trainer()
+        return
+    tr = trainer()
+    hist = tr.run(log=None)
+    assert len(hist) == 2 and all(h["loss"] == h["loss"] for h in hist)
+    if what == "cost_analysis":
+        assert tr.jit_cost is not None and tr.jit_cost.flops > 0
+        assert tr.manifest["jit_cost"] is not None
+    if what == "attribution":
+        assert [r["op"] for r in tr.attribution] == [
+            "phase:step", "phase:local", "phase:meta_mix"]
+    if what == "robust":
+        assert tr.robust_records
+
+
+# ---------------------------------------------------------------------------
+# DeepSeekMoE's prefill at one sequence a 'data' rank (ROADMAP Queue 3)
+# ---------------------------------------------------------------------------
+
+
+def test_moe_prefill_at_one_sequence_a_data_rank(fake_group, monkeypatch):
+    """The reduced DeepSeekMoE's prefill row on a (32, 8) mesh at B=32:
+    one sequence a 'data' rank, the MoE combine's (T, d) output split along
+    T over ('data', 'model'). It is gathered over 'model' before the view
+    to (B, S, d) (without it DTensor raised there); the row is
+    costed."""
+    cfg = B.get_config("deepseek-moe-16b").reduced()
+    name = "prefill_one_a_rank"
+    monkeypatch.setitem(B.INPUT_SHAPES, name,
+                        B.InputShape(name, 64, 32, "prefill"))
+    monkeypatch.setattr(D, "get_config", lambda a: cfg)
+    monkeypatch.setattr(meshlib, "SINGLE_POD_SHAPE", (32, 8))
+    row = D.run_one("deepseek-moe-16b", name, "single")
+    assert row["cost"]["flops"] > 0
+    assert row["collectives"]["by_axes"].get("model", 0) > 0

@@ -7,6 +7,16 @@ run in one process and on a real gloo group of 4 CPU ranks, a (2, 2)
 rows split over 'model' (the local phase all-gathers them), the learner
 mean completed over 'data'. The losses agree within JAX's 5e-2; they
 differ only in the mean's summation order (measured: printed).
+
+``MIX_SCRIPT`` runs the configurations placed since on a (2, 2) mesh (a
+rank holds whole hierarchical groups) and a (4, 1) mesh (a group spans
+two ranks) beside one process, the three started together, in f32
+compute (in bf16 a one-ulp difference in the mean's summation order
+moves the next step's bf16 roundings, and the planes part at 1e-3
+within two steps): the telemetry of every rank against one process,
+int8 + EF, the hierarchical topology, robust aggregation, the finite
+guard, top-k and a Trainer with chaos, the cost analysis and the
+attribution rows.
 """
 import json
 import os
@@ -426,3 +436,436 @@ def test_fsdp_placed_step_on_a_gloo_mesh_matches_one_process(placed_runs):
     rel = float((gp["mesh"] - gp["single"]).norm() / gp["single"].norm())
     print(f"meta params: relative norm of the difference {rel:.3e}")
     assert rel < 5e-3
+
+
+# ---------------------------------------------------------------------------
+# int8 + EF, the hierarchical topology, robust aggregation, the finite
+# guard and a chaos Trainer on the mesh (sharding/placed.py)
+# ---------------------------------------------------------------------------
+
+MIX_SCRIPT = r'''import dataclasses, json, os, socket, sys
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+L, K, B, S = 4, 2, 2, 16
+
+
+def configs():
+    """name -> (MAvgConfig, meta steps, payload fault or None)."""
+    from repro_torch.configs import base as Bc
+
+    c8 = Bc.CommConfig(scheme="int8", chunk_rows=8)
+    kw = dict(num_learners=L, k_steps=K, learner_lr=0.5, momentum=0.6)
+
+    def hier(**t):
+        return Bc.TopologyConfig(kind="hierarchical", groups=2,
+                                 outer_every=2, **t)
+
+    elastic = Bc.ElasticConfig(period=4, drop_frac=0.25, seed=1)
+    rob = Bc.RobustConfig(estimator="trimmed", trim=1, clip_mult=3.0,
+                          clip_window=2)
+    return {
+        "dense": (Bc.MAvgConfig(**kw), 2, None),
+        "int8": (Bc.MAvgConfig(comm=Bc.CommConfig(scheme="int8"), **kw), 4,
+                 None),
+        "int8_c8": (Bc.MAvgConfig(comm=c8, **kw), 4, None),
+        "hier_static": (Bc.MAvgConfig(topology=hier(inner_comm=c8), **kw), 4,
+                        None),
+        "hier_elastic": (Bc.MAvgConfig(topology=hier(
+            inner_comm=c8, outer_comm=c8, elastic=elastic), **kw), 4, None),
+        "hier_elastic_dense": (Bc.MAvgConfig(topology=hier(elastic=elastic),
+                                             **kw), 4, None),
+        "hier_robust": (Bc.MAvgConfig(topology=hier(), robust=dataclasses.replace(
+            rob, estimator="mean"), **kw), 3, "scale"),
+        "robust": (Bc.MAvgConfig(robust=rob, **kw), 4, "scale"),
+        "guard": (Bc.MAvgConfig(finite_guard=True, **kw), 3, "nan"),
+        "topk": (Bc.MAvgConfig(comm=Bc.CommConfig(scheme="topk"), **kw), 2,
+                 None),
+    }
+
+
+def corruptor(kind):
+    """Learner 3's payload scaled x12 from step 1 on, or learner 2's plane
+    NaN at step 1 (global learner indices)."""
+    if kind is None:
+        return None
+    if kind == "scale":
+        from repro_torch.chaos import (ChaosConfig, FaultSchedule, FaultSpec,
+                                       PayloadCorruptor)
+
+        return PayloadCorruptor(FaultSchedule(ChaosConfig(
+            seed=0, horizon=8, faults=(FaultSpec(
+                "finite_scale", step=1, learner=3, duration=7,
+                magnitude=12.0, sticky=True),)), L))
+
+    def nan(learners, step, offset=0):
+        j = 2 - offset
+        if int(step) == 1 and 0 <= j < learners.shape[0]:
+            learners[j].fill_(float("nan"))
+        return learners
+
+    return nan
+
+
+def model():
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                              dtype="float32")
+    return cfg, (lambda p, b: api.loss_fn(p, cfg, b))
+
+
+def planes(state, whole):
+    out = {f: whole(getattr(state, f)) for f in (
+        "global_params", "momentum", "learners", "comm_residual")
+        if getattr(state, f) is not None}
+    for k, v in sorted((state.topo or {}).items()):
+        if isinstance(v, torch.Tensor) and k not in ("membership",
+                                                     "robust_count"):
+            out["topo/" + k] = whole(v)
+    return out
+
+
+def run(name, mesh=None):
+    """(per-step metrics, final planes, largest scale quantum)."""
+    from repro_torch.core.meta import init_state, meta_step
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.launch import specs as Sp
+    from repro_torch.models import api
+    from repro_torch.sharding import Spec
+    from repro_torch.sharding.placed import Placement, placed_meta_step
+    from repro_torch.topology import make_topology
+    from repro_torch.utils.rng import seeded_generator
+
+    cfg, loss = model()
+    mcfg, steps, fault = configs()[name]
+    chaos = corruptor(fault)
+    state = init_state(api.init_params(seeded_generator("cpu", 7, 0), cfg,
+                                       "cpu"), mcfg)
+    bf = lm_batch_fn(cfg, L, K, B, S, device="cpu")
+    topology = make_topology(mcfg)
+    if mesh is not None:
+        state = Sp.place_tree(state, Sp.state_shardings(cfg, mcfg, mesh),
+                              mesh)
+        placement = Placement(mesh, ("data",))
+    hist, quantum = [], 0.0
+    for i in range(steps):
+        b = bf(seeded_generator("cpu", 7, 1 + i), i)
+        if mesh is None:
+            spread = []
+            mix = topology.mix
+
+            def spy(learners, gp, *a, **k):
+                anchor = gp if learners.shape[1] == gp.shape[0] else gp
+                spread.append(float((learners - anchor).abs().max()))
+                return mix(learners, gp, *a, **k)
+
+            topology.mix = spy
+            state, m = meta_step(state, b, loss_fn=loss, cfg=mcfg,
+                                 topology=topology, chaos=chaos)
+            topology.mix = mix
+            res = [state.comm_residual] + [
+                v for k, v in (state.topo or {}).items()
+                if k.endswith("residual") and v is not None]
+            quantum = max(quantum, (max(spread) + max(
+                [float(r.abs().max()) for r in res if r is not None] + [0.0]))
+                / 127)
+        else:
+            b = {k: Sp.place(v, Spec("data"), mesh) for k, v in b.items()}
+            state, m = placed_meta_step(state, b, loss_fn=loss, cfg=mcfg,
+                                        placement=placement, chaos=chaos)
+        hist.append({k: float(v) for k, v in m.items()})
+    whole = ((lambda t: t) if mesh is None else
+             (lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t))
+    return hist, planes(state, whole), quantum
+
+
+def trainer_run(mesh):
+    """A Trainer with chaos (crash windows and a payload fault on an
+    elastic hierarchical topology, robust clip and scores), the cost
+    analysis and the attribution rows, on the mesh."""
+    from repro_torch.chaos import ChaosConfig, FaultSpec
+    from repro_torch.configs import base as Bc
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.models import api
+
+    cfg, loss = model()
+    mcfg = Bc.MAvgConfig(
+        num_learners=L, k_steps=K, learner_lr=0.5, momentum=0.6,
+        topology=Bc.TopologyConfig(kind="hierarchical", groups=2,
+                                   outer_every=2),
+        robust=Bc.RobustConfig(estimator="mean", clip_mult=3.0,
+                               clip_window=2))
+    chaos = ChaosConfig(seed=0, horizon=4, faults=(
+        FaultSpec("crash", step=1, learner=1, duration=2),
+        FaultSpec("payload_scale", step=2, learner=3, magnitude=20.0)))
+    tcfg = Bc.TrainConfig(model=cfg, mavg=mcfg, batch_per_learner=B,
+                          seq_len=S, meta_steps=4, log_every=1, chaos=chaos,
+                          obs=Bc.ObsConfig(cost_analysis=True,
+                                           attribution=True))
+    tr = Trainer(tcfg, loss,
+                 init_params_fn=lambda g: api.init_params(g, cfg, "cpu"),
+                 batch_fn=lm_batch_fn(cfg, L, K, B, S, device="cpu"),
+                 device="cpu", mesh=mesh)
+    hist = tr.run(log=None)
+    jc = tr.jit_cost
+    return {"hist": [{k: v for k, v in h.items()
+                      if k not in ("meta_steps_per_sec", "samples_per_sec",
+                                   "elapsed_s")} for h in hist],
+            "robust": [r.get("clipped_learners") for r in tr.robust_records],
+            "jit_cost": None if jc is None else {
+                "flops": jc.flops, "collective_bytes": jc.collective_bytes,
+                "kernel_calls": jc.kernel_calls},
+            "attribution": [r["op"] for r in tr.attribution]}
+
+
+def rank_main(rank, port, shape, tmp, names):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=4, rank=rank)
+    try:
+        mesh = init_device_mesh("cpu", shape,
+                                mesh_dim_names=("data", "model"))
+        out = {}
+        for name in names:
+            hist, pl, _ = run(name, mesh)
+            every = [None] * 4
+            dist.all_gather_object(every, hist)
+            out[name] = every
+            if rank == 0:
+                torch.save(pl, os.path.join(tmp, f"{name}_mesh.pt"))
+        tr = trainer_run(mesh)
+        every = [None] * 4
+        dist.all_gather_object(every, tr)
+        out["trainer"] = every
+        if rank == 0:
+            with open(os.path.join(tmp, "mesh.json"), "w") as f:
+                json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    mode, tmp = sys.argv[1], sys.argv[2]
+    names = list(configs())
+    if mode == "single":
+        torch.set_num_threads(1)
+        out = {}
+        for name in names:
+            hist, pl, q = run(name)
+            out[name] = {"hist": hist, "quantum": q}
+            torch.save(pl, os.path.join(tmp, f"{name}_single.pt"))
+        with open(os.path.join(tmp, "single.json"), "w") as f:
+            json.dump(out, f)
+    else:
+        shape = tuple(int(x) for x in mode.split("x"))
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        mp.start_processes(rank_main, args=(port, shape, tmp, names),
+                           nprocs=4, start_method="spawn")
+'''
+
+MIX_MESHES = ("2x2", "4x1")
+MIX_CONFIGS = ("dense", "int8", "int8_c8", "hier_static", "hier_elastic",
+               "hier_elastic_dense", "hier_robust", "robust", "guard", "topk")
+# the metrics held on every rank to one process at the first meta step
+# (every other one is too)
+TELEMETRY = ("v_norm", "displacement_norm", "consensus_dist", "comm_bytes",
+             "comm_compression")
+# the compressed limit (PERF.md section 2): beyond rtol 1e-5 / atol 1e-6
+# at most this share of a plane, each within FLIP_QUANTA scale quanta
+FLIP_SHARE = 5e-3
+FLIP_QUANTA = 2.0
+
+
+@pytest.fixture(scope="module")
+def mix_runs(tmp_path_factory):
+    """``MIX_SCRIPT`` on a (2, 2) and a (4, 1) gloo mesh of 4 ranks and in
+    one process, the three started together: {mode: (per-config results,
+    directory of the saved planes)}."""
+    root = tmp_path_factory.mktemp("mix")
+    script = root / "mix_run.py"
+    script.write_text(MIX_SCRIPT)
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    procs = {}
+    for mode in ("single",) + MIX_MESHES:
+        d = root / mode
+        d.mkdir()
+        procs[mode] = (d, subprocess.Popen(
+            [sys.executable, str(script), mode, str(d)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    out = {}
+    for mode, (d, proc) in procs.items():
+        _, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, err[-3000:]
+        name = "single.json" if mode == "single" else "mesh.json"
+        out[mode] = (json.loads((d / name).read_text()), d)
+    return out
+
+
+def _planes(runs, mode, name):
+    tag = "single" if mode == "single" else "mesh"
+    return torch.load(runs[mode][1] / f"{name}_{tag}.pt")
+
+
+def _mix(runs, mesh, name):
+    """(every rank's per-step metrics, one process's, its quantum)."""
+    single = runs["single"][0][name]
+    return runs[mesh][0][name], single["hist"], single["quantum"]
+
+
+@pytest.mark.parametrize("name", MIX_CONFIGS)
+@pytest.mark.parametrize("mesh", MIX_MESHES)
+def test_placed_telemetry_is_one_process_on_every_rank(mix_runs, mesh, name):
+    """Every metric the placed step returns is the same on all 4 ranks at
+    every step, and at the first step within rtol 1e-5 of one process:
+    norms and distances as the root of the sums of squares over the axes
+    their operands are split over (the learner axes and 'model'), the wire
+    bytes of the global shapes (not each rank's partial norms and
+    bytes)."""
+    ranks, single, _ = _mix(mix_runs, mesh, name)
+    assert all(r == ranks[0] for r in ranks), name
+    got, want = ranks[0][0], single[0]
+    assert set(got) == set(want)
+    assert set(TELEMETRY) <= set(got)
+    for k, w in want.items():
+        assert got[k] == pytest.approx(w, rel=1e-5, abs=1e-30), (k, got[k],
+                                                                  w)
+
+
+def _within_flip_rule(mesh_planes, one_planes, quantum):
+    """Each plane within rtol 1e-5 / atol 1e-6 but for FLIP_SHARE of its
+    values, each of those within FLIP_QUANTA quanta; returns the largest
+    share."""
+    worst = 0.0
+    assert set(mesh_planes) == set(one_planes)
+    for k, want in one_planes.items():
+        got = mesh_planes[k]
+        diff = (got.float() - want.float()).abs()
+        off = diff > 1e-6 + 1e-5 * want.float().abs()
+        share = float(off.float().mean())
+        worst = max(worst, share)
+        assert share <= FLIP_SHARE, (k, share)
+        assert float(diff.max()) <= FLIP_QUANTA * quantum, (k, quantum)
+    return worst
+
+
+@pytest.mark.parametrize("name", ["int8", "int8_c8"])
+@pytest.mark.parametrize("mesh", MIX_MESHES)
+def test_int8_ef_on_a_mesh_matches_one_process(mix_runs, mesh, name):
+    """int8 + error feedback placed: ``pack_update`` on each rank's pieces
+    with its learners' uniforms of one process's dither, the f64 sum of
+    C(delta) over its learners completed by one all-reduce (``chunk_rows``
+    8, and 64 on (4, 1)), or, where a 64-row chunk would straddle the
+    (2, 2) mesh's two row pieces (the reduced plane's 10,256 rows take
+    16-row chunks, 5,128 a piece), the one-process reducer on the
+    gathered stack: 4 meta steps within JAX's 5e-2 in the loss, and the
+    meta planes and the residual within the compressed limit; in fact
+    bitwise, as the f64 sums are exact in any order of the ranks."""
+    ranks, single, quantum = _mix(mix_runs, mesh, name)
+    assert max(abs(a["loss"] - b["loss"])
+               for a, b in zip(ranks[0], single)) < 5e-2
+    got, want = _planes(mix_runs, mesh, name), _planes(mix_runs, "single",
+                                                      name)
+    share = _within_flip_rule(got, want, quantum)
+    print(f"{name} on {mesh}: {share:.3%} of a plane beyond rtol 1e-5")
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("name", ["hier_static", "hier_elastic",
+                                  "hier_elastic_dense", "hier_robust"])
+@pytest.mark.parametrize("mesh", MIX_MESHES)
+def test_hierarchical_on_a_mesh_matches_one_process(mix_runs, mesh, name):
+    """The hierarchical topology placed (G=2 groups of S=2, outer every 2
+    meta steps; static with int8 + EF inner, elastic with int8 inner and
+    outer, elastic dense, robust): the dense-inner one on the rank's
+    pieces (on (2, 2) a rank holds a whole group, on (4, 1) a group spans
+    two ranks: partial sums, one all-reduce), the int8-inner and robust
+    ones as the one-process mix on the gathered stack. 4 meta steps
+    within 5e-2 in the loss, the same learners present, and every plane
+    (the group stacks and residuals too) within the compressed limit."""
+    ranks, single, quantum = _mix(mix_runs, mesh, name)
+    assert max(abs(a["loss"] - b["loss"])
+               for a, b in zip(ranks[0], single)) < 5e-2
+    assert ([h.get("present_count") for h in ranks[0]]
+            == [h.get("present_count") for h in single])
+    assert [h["outer_fired"] for h in ranks[0]] == [0.0, 1.0, 0.0, 1.0][
+        :len(single)]
+    share = _within_flip_rule(_planes(mix_runs, mesh, name),
+                              _planes(mix_runs, "single", name), quantum)
+    print(f"{name} on {mesh}: {share:.3%} of a plane beyond rtol 1e-5")
+
+
+@pytest.mark.parametrize("mesh", MIX_MESHES)
+def test_robust_on_a_mesh_clips_the_learners_of_one_process(mix_runs, mesh):
+    """Robust aggregation placed (trimmed mean, trim 1; the norm clip at 3x
+    the median of a 2-step ring; scores) while learner 3's payload is
+    scaled x12 from step 1: the re-split stack's partial Gram matrices
+    summed over every rank clip the same learners on the same steps as
+    one process, and every plane is within rtol 1e-5 / atol 1e-6."""
+    ranks, single, _ = _mix(mix_runs, mesh, "robust")
+    clipped = [h["robust_clipped_learners"] for h in single]
+    assert any(clipped)
+    assert [h["robust_clipped_learners"] for h in ranks[0]] == clipped
+    got, want = _planes(mix_runs, mesh, "robust"), _planes(
+        mix_runs, "single", "robust")
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("mesh", MIX_MESHES)
+def test_finite_guard_on_a_mesh_resets_the_learner_of_one_process(mix_runs,
+                                                                  mesh):
+    """The finite guard placed while learner 2's plane turns NaN at step 1:
+    its flags are taken on each rank's whole learners and gathered, so
+    every rank reads one NaN learner at step 1 (and the rank that holds
+    it resets it), and the planes stay finite and within rtol 1e-5 /
+    atol 1e-6 of one process."""
+    ranks, single, _ = _mix(mix_runs, mesh, "guard")
+    want = [h["nonfinite_learners"] for h in single]
+    assert want == [0.0, 1.0, 0.0]
+    for r in ranks:
+        assert [h["nonfinite_learners"] for h in r] == want
+    got, one = _planes(mix_runs, mesh, "guard"), _planes(mix_runs, "single",
+                                                        "guard")
+    for k in one:
+        assert bool(torch.isfinite(got[k]).all()), k
+        torch.testing.assert_close(got[k], one[k], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("mesh", MIX_MESHES)
+def test_topk_on_a_mesh_is_the_gathered_one_process_reducer(mix_runs, mesh):
+    """A scheme whose selection spans a learner's whole plane (topk) runs
+    the one-process reducer on the gathered stack: bitwise one process's
+    planes and residual."""
+    got, want = _planes(mix_runs, mesh, "topk"), _planes(mix_runs, "single",
+                                                        "topk")
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("mesh", MIX_MESHES)
+def test_trainer_with_chaos_cost_and_attribution_on_a_mesh(mix_runs, mesh):
+    """A Trainer on the mesh with chaos (learner 1 crashed for steps 1-2,
+    so elastic membership, and learner 3's payload scaled x20 at step 2),
+    the robust clip and scores, ``obs.cost_analysis`` and
+    ``obs.attribution`` runs its 4 meta steps, and every rank logs the
+    same records: the crash seen as 3 learners present, the clip firing
+    once, the cost of the placed step with its collectives, and the three
+    attribution rows."""
+    ranks = mix_runs[mesh][0]["trainer"]
+    assert all(r == ranks[0] for r in ranks)
+    t = ranks[0]
+    assert [h["present_count"] for h in t["hist"]] == [4.0, 3.0, 3.0, 4.0]
+    assert sum(t["robust"]) == 1.0
+    jc = t["jit_cost"]
+    assert jc is not None and jc["flops"] > 0 and jc["collective_bytes"] > 0
+    assert t["attribution"] == ["phase:step", "phase:local",
+                                "phase:meta_mix"]
