@@ -21,10 +21,16 @@ Where the port differs from JAX in execution, not in math:
   holds. The port never forms it: ``gram`` takes the displacements
   d_j = w_j - a_j over windows of ``planes.WINDOW`` values of each
   learner (an (L, WINDOW) f32 window is 512 MB at L = 4) and
-  accumulates the (L, L) Gram matrix of each window with one f32
-  ``torch.matmul`` (full f32, no TF32: d^2 = G_jj + G_kk - 2 G_jk
-  cancels). The per-learner norms are the square roots of its diagonal
-  (JAX sums the squares apart; the two agree to rounding).
+  accumulates the (L, L) Gram matrix of each window with one f64
+  ``torch.matmul`` (the products of two f32 values are exact in f64),
+  summed over the windows in f64 and rounded to f32 once (d^2 = G_jj +
+  G_kk - 2 G_jk cancels, so the matrix is kept to its last bit). The
+  f32 matrix then does not depend on how the sum is split: over the
+  BLAS's blocks and threads, or over the ranks of a mesh, whose partial
+  matrices are summed in f64 before the one rounding
+  (``sharding/placed.py``). The per-learner norms are the square roots
+  of its diagonal (JAX sums the squares apart; the two agree to
+  rounding).
 * The Gram matrix is read back to the host once per mix, and the ring,
   the medians, the budget, the clip factors and the scores are computed
   there in f32, in JAX's operation order. The ring buffers
@@ -36,8 +42,6 @@ Where the port differs from JAX in execution, not in math:
   untouched, bit for bit, as JAX's ``where(s < 1, ...)`` leaves it.
 """
 from __future__ import annotations
-
-import contextlib
 
 import torch
 
@@ -64,16 +68,6 @@ def robust_ring_buffers(rcfg: RobustConfig) -> dict:
     }
 
 
-@contextlib.contextmanager
-def _full_f32_matmul():
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
-
-
 def _displacements(stack, anchor):
     """f32 (L, w) windows of d_j = w_j - a_{j // S} over every leaf of the
     (L, ...) ``stack``; ``anchor`` is None (the stack holds displacements
@@ -96,17 +90,24 @@ def _displacements(stack, anchor):
                        ).reshape(L, w)
 
 
-def gram(stack, anchor=None, host: bool = True) -> torch.Tensor:
-    """The (L, L) f32 Gram matrix of the displacement stack (see
-    ``_displacements``), summed over windows and leaves on the stack's
-    device and returned on the host (left on the meta device when the
-    step is costed, ``roofline.cost.jit_cost``; on the stack's device
-    with ``host=False``)."""
+def gram64(stack, anchor=None) -> torch.Tensor:
+    """The (L, L) f64 Gram matrix of the displacement stack (see
+    ``_displacements``): each window's f32 displacements widened to f64,
+    one f64 product a window, summed over windows and leaves on the
+    stack's device."""
     G = None
-    with _full_f32_matmul():
-        for d in _displacements(stack, anchor):
-            g = d @ d.T
-            G = g if G is None else G + g
+    for d in _displacements(stack, anchor):
+        d = d.to(torch.float64)
+        g = d @ d.T
+        G = g if G is None else G.add_(g)
+    return G
+
+
+def gram(stack, anchor=None, host: bool = True) -> torch.Tensor:
+    """``gram64`` rounded to f32 once, returned on the host (left on the
+    meta device when the step is costed, ``roofline.cost.jit_cost``; on
+    the stack's device with ``host=False``)."""
+    G = gram64(stack, anchor).to(torch.float32)
     if not host or G.device.type == "meta":  # costed: no host read
         return G
     return G.cpu()

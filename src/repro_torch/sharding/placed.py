@@ -109,7 +109,7 @@ from repro_torch.core.meta import (
     meta_step,
 )
 from repro_torch.kernels.quantize import QMAX, choose_block
-from repro_torch.robust.aggregator import clip_rows, gram
+from repro_torch.robust.aggregator import clip_rows, gram64
 from repro_torch.topology.base import (
     FlatAllReduce,
     Topology,
@@ -485,12 +485,14 @@ class RankView:
                              (R,) + tuple(y.shape[1:]))
 
     def gram(self, stack, anchor):
-        """The (L, L) Gram matrix of the re-split displacements on the
-        host: this rank's partial, summed over every rank (one
-        all-reduce)."""
-        G = gram(stack, anchor, host=False)
+        """The (L, L) f32 Gram matrix of the re-split displacements on the
+        host: this rank's f64 partial, summed over every rank (one
+        all-reduce) and rounded to f32 once, as one process rounds its
+        f64 sum (``robust/aggregator.py::gram``)."""
+        G = gram64(stack, anchor)
         if self.stack_group is not None:
             G = _all_reduce(G, "sum", self.stack_group)
+        G = G.to(torch.float32)
         return G if G.device.type == "meta" else G.cpu()
 
     # -- global metrics ----------------------------------------------------

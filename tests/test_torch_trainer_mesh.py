@@ -482,7 +482,13 @@ def configs():
         "guard": (Bc.MAvgConfig(finite_guard=True, **kw), 3, "nan"),
         "topk": (Bc.MAvgConfig(comm=Bc.CommConfig(scheme="topk"), **kw), 2,
                  None),
+        # the robust run again, one process and each rank on 4 threads
+        "robust_t4": (Bc.MAvgConfig(robust=rob, **kw), 4, "scale"),
     }
+
+
+# the configurations run at another thread count than 1
+THREADS = {"robust_t4": 4}
 
 
 def corruptor(kind):
@@ -530,6 +536,14 @@ def planes(state, whole):
 
 def run(name, mesh=None):
     """(per-step metrics, final planes, largest scale quantum)."""
+    torch.set_num_threads(THREADS.get(name, 1))
+    try:
+        return _run(name, mesh)
+    finally:
+        torch.set_num_threads(1)
+
+
+def _run(name, mesh):
     from repro_torch.core.meta import init_state, meta_step
     from repro_torch.data import lm_batch_fn
     from repro_torch.launch import specs as Sp
@@ -816,6 +830,32 @@ def test_robust_on_a_mesh_clips_the_learners_of_one_process(mix_runs, mesh):
     assert [h["robust_clipped_learners"] for h in ranks[0]] == clipped
     got, want = _planes(mix_runs, mesh, "robust"), _planes(
         mix_runs, "single", "robust")
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["robust", "robust_t4"])
+@pytest.mark.parametrize("mesh", MIX_MESHES)
+def test_robust_on_a_mesh_is_one_process_at_any_thread_count(mix_runs, mesh,
+                                                             name):
+    """The robust run of the test above with one process and each rank on
+    1 thread (``robust``) and on 4 (``robust_t4``; the local phase's
+    products block by thread count, so each is held to one process at its
+    own): the Gram matrix, read through every ``robust_*`` metric (the
+    scores and the clip budget are differences of its entries), is one
+    process's bitwise at every step, and every plane is within rtol 1e-5 /
+    atol 1e-6. Both routes form each window's partial Gram matrix in f64
+    and round the whole sum to f32 once, so the BLAS blocking, the thread
+    count and the ranks' row pieces leave the f32 matrix as it is."""
+    ranks = mix_runs[mesh][0][name]
+    single = mix_runs["single"][0][name]["hist"]
+    keys = sorted(k for k in single[0] if k.startswith("robust_"))
+    assert "robust_score_0" in keys and "robust_clip_budget" in keys
+    for r in ranks:
+        for k in keys:
+            assert [h[k] for h in r] == [h[k] for h in single], k
+    got, want = _planes(mix_runs, mesh, name), _planes(mix_runs, "single",
+                                                      name)
     for k in want:
         torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6)
 
