@@ -261,12 +261,15 @@ Phases (any failure raises and the script exits non-zero):
    ``PLACED_CONFIGS`` (the dense ``mavg``; int8 + error feedback, L=2;
    hierarchical elastic with int8 + EF inner, G=2; robust aggregation,
    trim 1, with learner 3's payload scaled; the finite guard with a NaN
-   learner), its state placed the same way and stepped 2 meta steps by
+   learner; per-leaf planes; gossip on the ring with momentum tracking
+   and int8 + EF; the async server on the profile (1, 1, 2, 4), tau 3),
+   its state placed the same way and stepped 2 meta steps by
    the placed step: its planes, residual and topology buffers bitwise
    equal to the unplaced run's from the same start, every metric equal,
    with as many launches of each kernel (``pack_update``,
    ``pack_compress``, ``block_momentum``, ``robust_reduce``,
-   ``fused_momentum_broadcast``, ``sgd_apply``); and a Trainer with the
+   ``neighbor_mix``, ``fused_momentum_broadcast``, ``sgd_apply``); and a
+   Trainer with the
    cost analysis and the attribution rows, unplaced and on the mesh: the
    same records, launches, modeled kernel calls and flops; (c) the dry
    run's CLI for the rows of ``DRYRUN_ROWS`` (Qwen3-1.7B and
@@ -816,6 +819,15 @@ def check_neighbor_mix(torch, nm, rows) -> list[dict]:
                     x[:, sl], stack, 1), warmup=1, iters=3)
                 for sl in windows(rows))
             nm.neighbor_mix_cuda(x, W, out=out)
+
+            def refill():
+                for j in range(L):
+                    filled(torch, 40 + j, rows, out=x[j])
+
+            window = check_neighbor_mix_window(torch, nm, x, W, stack, out,
+                                               refill)
+            refill()
+            nm.neighbor_mix_cuda(x, W, out=out)
         # in place, as the gossip step runs it
         nm.neighbor_mix_cuda(x, W, out=x)
         for sl in windows(rows):
@@ -837,7 +849,60 @@ def check_neighbor_mix(torch, nm, rows) -> list[dict]:
                  bound_by=b_by, library_ms=library_ms),
             dict(name="neighbor_mix_stepped", replaces=NM_STEPPED_REPLACES,
                  max_abs_err=err, ms=stepped_ms, plain_ms=stepped_plain_ms,
-                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)]
+                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms),
+            window]
+
+
+def check_neighbor_mix_window(torch, nm, x, W, stack, out, refill) -> dict:
+    """The output window (a rank of a mesh mixing its own learners of the
+    stack gathered over the learner axes): outputs L/2 .. L - 1 of the
+    f32 (L, rows, 128) stack ``x``, plain and stepped (steps 0 and 1).
+    The window, written in place into x's rows L/2.., is bitwise the
+    square call's rows in ``out``, and so is the plain window of the
+    refilled x, summed over row windows. Then the CUDA-event time of the
+    window into ``out``'s first rows beside its bound (L planes read, L/2
+    written), its plain version's, and ``torch.einsum`` of the window's
+    rows of W. ``x`` is refilled before each check and left as the last
+    one wrote it."""
+    rows = x.shape[1]
+    j0, n = L // 2, L - L // 2
+    err = 0.0
+    for w, step in ((W, None), (stack, 0), (stack, 1)):
+        refill()
+        if step is None:
+            nm.neighbor_mix_cuda(x, w, out=out)
+            nm.neighbor_mix_cuda(x, w, out=x[j0:], window=(j0, n))
+        else:
+            nm.neighbor_mix_stepped_cuda(x, w, step, out=out)
+            nm.neighbor_mix_stepped_cuda(x, w, step, out=x[j0:],
+                                         window=(j0, n))
+        torch.cuda.synchronize()
+        for sl in windows(rows):
+            err = max(err, max_err(torch, x[j0:, sl], out[j0:, sl]))
+        refill()
+        for sl in windows(rows):
+            want = (nm.neighbor_mix_plain(x[:, sl], w, window=(j0, n))
+                    if step is None else nm.neighbor_mix_stepped_plain(
+                        x[:, sl], w, step, window=(j0, n)))
+            err = max(err, max_err(torch, out[j0:, sl], want))
+    print(f"  neighbor_mix window ({j0}, {n}) of {L}: bitwise equal to the "
+          f"square call's rows {j0}..{L - 1} and to its plain version, "
+          f"plain and stepped (steps 0, 1)")
+    dst = out[:n]
+    cost = nm.cost(x, W, out=dst, window=(j0, n))
+    ms = cuda_ms(torch, lambda: nm.neighbor_mix_cuda(x, W, out=dst,
+                                                     window=(j0, n)))
+    plain_ms = sum(cuda_ms(
+        torch, lambda sl=sl: nm.neighbor_mix_plain(x[:, sl], W,
+                                                   window=(j0, n)),
+        warmup=1, iters=3) for sl in windows(rows))
+    Wd = torch.from_numpy(W[j0:]).cuda()
+    library_ms = cuda_ms(torch, lambda: torch.einsum("jk,kn->jn", Wd,
+                                                     x.view(L, -1)))
+    b_ms, b_by = bound(cost)
+    return dict(name="neighbor_mix_window", replaces=NM_REPLACES,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms)
 
 
 def check_pack_compress_main(torch, pu, rows) -> float:
@@ -4508,6 +4573,16 @@ def setup(name):
                 learners[j].fill_(float("nan"))
             return learners
         return Bc.MAvgConfig(finite_guard=True, **kw), nan
+    if name == "per_leaf":
+        return Bc.MAvgConfig(packed=False, **kw), None
+    if name == "gossip":
+        return Bc.MAvgConfig(topology=Bc.TopologyConfig(
+            kind="gossip", graph="ring", momentum_tracking=True),
+            comm=Bc.CommConfig(scheme="int8"), **kw), None
+    if name == "async":
+        return Bc.MAvgConfig(topology=Bc.TopologyConfig(
+            kind="async", server=Bc.AsyncConfig(
+                staleness=3, step_time=(1, 1, 2, 4))), **kw), None
     raise ValueError(name)
 
 
@@ -4517,11 +4592,20 @@ def sync():
 
 
 def tensors(state):
-    out = {f: getattr(state, f) for f in (
+    # every plane, a per-leaf tree leaf by leaf
+    from repro_torch.utils.tree import tree_leaves, tree_paths
+
+    fields = [(f, getattr(state, f)) for f in (
         "global_params", "momentum", "learners", "local_momentum",
-        "comm_residual") if getattr(state, f) is not None}
-    out.update({"topo/" + k: v for k, v in (state.topo or {}).items()
-                if isinstance(v, torch.Tensor)})
+        "comm_residual")]
+    fields += [("topo/" + k, v) for k, v in (state.topo or {}).items()]
+    out = {}
+    for f, tree in fields:
+        if tree is None:
+            continue
+        for path, x in zip(tree_paths(tree), tree_leaves(tree)):
+            if isinstance(x, torch.Tensor):
+                out[f + ("/" + path if path else "")] = x
     return out
 
 
@@ -4624,10 +4708,14 @@ try:
                               "nonfinite_learners",
                               "robust_clipped_learners") if k in mp[0]},
                           "ms": {"unplaced": ms, "placed": pms},
-                          "placements": str(st.learners.placements),
-                          "rows": int(st.global_params.shape[0])}),
+                          "placements": str(next(
+                              v.placements for k, v in got.items()
+                              if k.startswith("learners"))),
+                          "planes": len(want)}),
               flush=True)
-        del ref, mine, st
+        # every reference to the two states goes before the next
+        # configuration's (gossip's two states hold 59 GB at 2 layers)
+        del ref, mine, st, want, got, batches, step, b, bt
         if device == "cuda":
             torch.cuda.empty_cache()
 finally:
@@ -4638,10 +4726,12 @@ finally:
 # (19b) and mavg_mlocal (20b), then int8 + EF (L=2), hierarchical elastic
 # (G=2, H=2, int8 + EF inner), robust (trimmed mean, trim 1, the clip at
 # 3x a one-step ring; learner 3's payload scaled x12), the finite guard
-# (learner 1 NaN at step 1) and a Trainer with the cost analysis and the
-# attribution rows (L=2)
+# (learner 1 NaN at step 1), a Trainer with the cost analysis and the
+# attribution rows (L=2), per-leaf planes (flat dense), gossip (the ring,
+# momentum tracking, int8 + EF) and the async server (the profile
+# (1, 1, 2, 4), tau 3, as phase 14b)
 PLACED_CONFIGS = ("mavg", "mavg_mlocal", "int8", "hier_elastic", "robust",
-                  "guard", "trainer")
+                  "guard", "trainer", "per_leaf", "gossip", "async")
 # the kernels each new placed configuration must launch (as often as its
 # unplaced step)
 PLACED_KERNELS = {
@@ -4650,6 +4740,9 @@ PLACED_KERNELS = {
                      "fused_momentum_broadcast"),
     "robust": ("robust_reduce", "fused_momentum_broadcast"),
     "guard": ("fused_momentum_broadcast",),
+    "per_leaf": ("block_momentum", "sgd_apply"),
+    "gossip": ("pack_compress", "neighbor_mix", "block_momentum"),
+    "async": ("sgd_apply",),
 }
 
 
@@ -4768,6 +4861,19 @@ def placed_steps_on_the_card() -> dict:
         outs
     assert "comm_residual" in outs["int8"]["equal"], outs
     assert "topo/inner_residual" in outs["hier_elastic"]["equal"], outs
+    # per-leaf: every leaf of every field; gossip: the params, momentum
+    # and residual stacks, two neighbor mixes a step (params, momentum);
+    # async: the anchors and the clocks, no fused update off the
+    # degenerate profile
+    assert outs["per_leaf"]["planes"] > 4, outs["per_leaf"]
+    assert {"topo/params", "topo/momentum", "topo/residual"} <= set(
+        outs["gossip"]["equal"]), outs["gossip"]
+    assert outs["gossip"]["placed"]["neighbor_mix"] == 2 * PLACED_STEPS, \
+        outs["gossip"]
+    assert {"topo/anchor", "topo/clock"} <= set(outs["async"]["equal"]), \
+        outs["async"]
+    assert "fused_momentum_broadcast" not in outs["async"]["placed"], \
+        outs["async"]
     return outs
 
 
@@ -5582,6 +5688,9 @@ def main() -> int:
         pack_compress=gossip_counts["pack_compress"],
         neighbor_mix=topo_counts["neighbor_mix"],
         neighbor_mix_stepped=gossip_counts["neighbor_mix_stepped"],
+        # the windowed entry of the placed gossip step (19b; on one rank
+        # its window is the square (0, L), counted under neighbor_mix)
+        neighbor_mix_window=placed_counts["gossip"]["neighbor_mix"],
         robust_reduce=robust_counts["robust_reduce"],
         flash_attention=serve_counts["flash_attention"],
         flash_attention_f32=f32_serve_counts["flash_attention_f32"])

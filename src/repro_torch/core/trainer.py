@@ -143,33 +143,33 @@ class Trainer:
 
     def _place(self, mesh, state_shardings) -> None:
         """Place the state on ``mesh`` and step it through the placed
-        meta step (``sharding/placed.py``: the packed flat and hierarchical
-        steps, any comm scheme, robust aggregation and the finite guard;
-        telemetry rings and checkpoints work: every rank saves, rank 0
-        writes the file, every rank loads its pieces). Chaos acts as in
-        one process: the batch poisoner on the whole batches before they
-        are placed, the payload corruptor on each rank's whole learners by
-        their global index, crash windows as elastic membership; the cost
-        analysis costs the placed step, and the attribution rows time its
-        phases. Per-leaf planes, gossip and the async server are refused
-        (``check_supported``)."""
+        meta step (``sharding/placed.py``: every algorithm, topology and
+        comm scheme, packed or per-leaf planes, robust aggregation and the
+        finite guard; telemetry rings and checkpoints work: every rank
+        saves, rank 0 writes the file, every rank loads its pieces).
+        Chaos acts as in one process: the batch poisoner on the whole
+        batches before they are placed, the payload corruptor on each
+        rank's whole learners by their global index, crash windows as
+        elastic membership, straggle spikes as the async profile; the
+        host buffers (membership, the async clocks, the robust ring) are
+        replayed alike on every rank; the cost analysis costs the placed
+        step, and the attribution rows time its phases."""
         from repro_torch.launch import mesh as meshlib
         from repro_torch.launch import specs
         from repro_torch.sharding import Spec
         from repro_torch.sharding.placed import (
             Placement,
-            check_supported,
             host_topo,
             placed_meta_step,
         )
 
-        check_supported(self.mcfg)
         if state_shardings is None:
             state_shardings = specs.state_shardings(self.cfg.model, self.mcfg,
                                                     mesh)
         self.state = specs.place_tree(self.state, state_shardings, mesh)
-        # the host buffers (membership, the robust ring) stay host tensors,
-        # read and replaced by the loop as in one process
+        # the host buffers (membership, the async clocks, the robust ring)
+        # stay host tensors, read and replaced by the loop as in one
+        # process
         self.state.topo = host_topo(self.state.topo)
         laxes = meshlib.learner_axes(mesh)
         placement = Placement(mesh, laxes)

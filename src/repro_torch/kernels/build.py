@@ -48,7 +48,8 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P),
     "repro_pack_compress": (
         _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P),
-    "repro_neighbor_mix": (_P, _P, _P, _I32, _I64, _I32, _P),
+    "repro_neighbor_mix": (_P, _P, _P, _I32, _I64, _I32, _I32, _I32,
+                           _P),
     "repro_robust_reduce": (_P, _P, _I32, _I64, _I32, _I32, _I32, _P),
     # q, k, v, o; B, H, KV, Sq, Sk, D; the (batch, seq, head) strides of
     # q, k, v and o; causal, window, prefix, kv_len, skip; scale: bfloat16

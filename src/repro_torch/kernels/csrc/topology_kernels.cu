@@ -7,31 +7,40 @@
 //                          the step's matrix on the host, then launches this)
 //
 // out_j = sum_k W_jk x_k over an (L, rows, 128) learner stack, 1 <= L <= 16,
-// with an f32 (L, L) matrix W. W travels by value in the kernel's parameter
-// space (1 KB at L = 16): the host selects and masks it each meta step, and
-// nothing is copied to the device or read back for it.
+// with an f32 (L, L) matrix W, for the output window j = j0 .. j0 + L_out - 1
+// (the square call is the window (0, L)): out is (L_out, rows, 128), its
+// entry jj the output row j0 + jj. One rank of a mesh that holds learners
+// j0 .. j0 + L_out - 1 of the gossip stacks mixes only those, from the
+// stack gathered over the learner axes (repro_torch.sharding.placed). The
+// window's rows of W travel by value in the kernel's parameter space (1 KB
+// at L = 16): the host selects and masks W each meta step, and nothing is
+// copied to the device or read back for it.
 //
 // Bound: device-memory bytes. Every value of the stack is read once and
-// written once (8 L bytes per coordinate in f32, 4 L in bf16) against
-// 2 L^2 flops: at L = 4 that is one flop per byte, far below the card's
-// float32 balance of 20 flops per byte.
+// every value of the window written once (4 (L + L_out) bytes per
+// coordinate in f32, 2 (L + L_out) in bf16) against 2 L L_out flops: at
+// L = 4 that is at most one flop per byte, far below the card's float32
+// balance of 20 flops per byte.
 //
 // Design. One thread owns 4 consecutive coordinates (one 16-byte group of
 // each f32 learner plane, 8 bytes of a bf16 one) per step of a grid-stride
 // loop. It loads the L groups into registers, forms the L outputs, and
 // stores them. Neighbouring threads touch neighbouring groups of each
 // plane, so every load and store is coalesced. L is a template parameter,
-// so the loops over learners unroll and the inputs stay in registers.
+// so the loops over learners unroll and the inputs stay in registers; the
+// loop over the window's outputs unrolls to L and skips jj >= L_out.
 //
 // Numerics: acc = 0; for k = 0..L-1: acc = acc + W_jk * x_k, one rounded
 // multiply (__fmul_rn) and one rounded add (__fadd_rn) per term, in that
 // order, zero weights included (a NaN or Inf anywhere in the column spreads
 // as in a dense product). The plain PyTorch version does the same, so the
-// two agree bitwise. bf16 stacks are widened to f32, mixed in f32 and
-// rounded back to nearest even.
+// two agree bitwise, and a window is bitwise the matching rows of the
+// square call. bf16 stacks are widened to f32, mixed in f32 and rounded
+// back to nearest even.
 //
-// In place: out may be x. A thread reads all L values of its coordinates
-// before it writes any, and no coordinate belongs to two threads.
+// In place: out may be x (or, for a window, its rows j0 .. j0 + L_out - 1).
+// A thread reads all L values of its coordinates before it writes any, and
+// no coordinate belongs to two threads.
 //
 // Indices are 64-bit: the (4, rows, 128) stack of Qwen3-1.7B holds 6.9e9
 // values. The exported function launches on the caller's stream and
@@ -49,7 +58,8 @@ constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;
 
 struct MixMatrix {
-  float w[kMaxLearners * kMaxLearners];  // row-major (L, L), L*L used
+  // row-major (L_out, L): the window's rows of W, L_out * L used
+  float w[kMaxLearners * kMaxLearners];
 };
 
 int grid_for(int64_t work_items) {
@@ -99,7 +109,7 @@ __device__ __forceinline__ void accumulate(float4& acc, float w, float4 x) {
 // groups: 4-value groups per learner plane (rows * 32)
 template <int L, typename T>
 __global__ void __launch_bounds__(kThreads)
-    neighbor_mix_kernel(const T* x, T* out, const MixMatrix m,
+    neighbor_mix_kernel(const T* x, T* out, const MixMatrix m, int l_out,
                         int64_t groups) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -109,24 +119,27 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int k = 0; k < L; ++k) v[k] = load4(x, k * groups + i);
 #pragma unroll
-    for (int j = 0; j < L; ++j) {
-      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int jj = 0; jj < L; ++jj) {
+      if (jj < l_out) {
+        float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
-      for (int k = 0; k < L; ++k) accumulate(acc, m.w[j * L + k], v[k]);
-      store4(out, j * groups + i, acc);
+        for (int k = 0; k < L; ++k) accumulate(acc, m.w[jj * L + k], v[k]);
+        store4(out, jj * groups + i, acc);
+      }
     }
   }
 }
 
 template <typename T>
 int launch_mix(const T* x, T* out, const MixMatrix& m, int num_learners,
-               int64_t groups, cudaStream_t stream) {
+               int l_out, int64_t groups, cudaStream_t stream) {
   const int blocks = grid_for(groups);
   switch (num_learners) {
-#define REPRO_MIX_CASE(n)                                               \
-  case n:                                                               \
-    neighbor_mix_kernel<n, T><<<blocks, kThreads, 0, stream>>>(x, out, m, \
-                                                              groups);  \
+#define REPRO_MIX_CASE(n)                                                 \
+  case n:                                                                 \
+    neighbor_mix_kernel<n, T><<<blocks, kThreads, 0, stream>>>(x, out, m,   \
+                                                              l_out,      \
+                                                              groups);    \
     break;
     REPRO_MIX_CASE(1)
     REPRO_MIX_CASE(2)
@@ -155,27 +168,33 @@ int launch_mix(const T* x, T* out, const MixMatrix& m, int num_learners,
 
 extern "C" {
 
-// x, out: (L, rows, 128) f32 (x_bf16 == 0) or bf16 (x_bf16 == 1), out may
-// be x; w: a HOST pointer to the row-major (L, L) f32 matrix, read here
-// before the launch returns.
+// x: (L, rows, 128) f32 (x_bf16 == 0) or bf16 (x_bf16 == 1); out: the
+// (l_out, rows, 128) window j0 .. j0 + l_out - 1 of the outputs, in x's
+// dtype (it may be x, or x's rows j0 ..); w: a HOST pointer to the
+// row-major (L, L) f32 matrix, read here before the launch returns.
 int repro_neighbor_mix(const void* x, void* out, const float* w,
-                       int num_learners, int64_t rows, int x_bf16,
-                       void* stream) {
+                       int num_learners, int64_t rows, int x_bf16, int j0,
+                       int l_out, void* stream) {
   if (num_learners < 1 || num_learners > kMaxLearners || rows < 1 ||
-      rows % 8 != 0 || w == nullptr) {
+      rows % 8 != 0 || w == nullptr || j0 < 0 || l_out < 1 ||
+      j0 + l_out > num_learners) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   MixMatrix m = {};
-  for (int i = 0; i < num_learners * num_learners; ++i) m.w[i] = w[i];
+  for (int jj = 0; jj < l_out; ++jj) {
+    for (int k = 0; k < num_learners; ++k) {
+      m.w[jj * num_learners + k] = w[(j0 + jj) * num_learners + k];
+    }
+  }
   const int64_t groups = rows * 32;  // 128 values = 32 groups of 4 a row
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16) {
     return launch_mix(static_cast<const __nv_bfloat16*>(x),
                       static_cast<__nv_bfloat16*>(out), m, num_learners,
-                      groups, s);
+                      l_out, groups, s);
   }
   return launch_mix(static_cast<const float*>(x), static_cast<float*>(out),
-                    m, num_learners, groups, s);
+                    m, num_learners, l_out, groups, s);
 }
 
 }  // extern "C"

@@ -164,12 +164,14 @@ def block_momentum_tree(gp, v, avg, *, mu, eta=1.0, nesterov=False):
 mixing_matrix_at = _nm.mixing_matrix_at
 
 
-def neighbor_mix(x, w, *, step=None, out=None):
+def neighbor_mix(x, w, *, step=None, out=None, window=None):
     """Mix one (L, ...) learner stack with the (L, L) matrix ``w``, or
     with entry ``step % T`` of a (T, L, L) stack (the time-varying
     graphs; the stepped kernel entry). ``w`` lies on the host. Returns
     sum_k w_jk x_k in x's dtype, written into ``out`` when given (it may
-    be ``x``: a packed stack is then mixed in place).
+    be ``x``: a packed stack is then mixed in place). ``window=(j0,
+    L_out)``: only the outputs j0 to j0 + L_out - 1, an (L_out, ...)
+    stack bitwise those rows of the square call.
 
     A contiguous (L, rows, 128) stack goes to the kernel as it is; any
     other leaf is padded into a new f32 (L, rows, 128) stack, as JAX's
@@ -183,27 +185,37 @@ def neighbor_mix(x, w, *, step=None, out=None):
                 "(silently using step 0 would freeze the graph)")
         fn = _route(x, _nm.neighbor_mix_stepped_plain,
                     _nm.neighbor_mix_stepped_cuda, _nm.stepped_cost)
-        mix = lambda x3, o: fn(x3, w, step, out=o)  # noqa: E731
+        mix = lambda x3, o: fn(x3, w, step, out=o,  # noqa: E731
+                               window=window)
     else:
         fn = _route(x, _nm.neighbor_mix_plain, _nm.neighbor_mix_cuda,
                     _nm.cost)
-        mix = lambda x3, o: fn(x3, w, out=o)  # noqa: E731
+        mix = lambda x3, o: fn(x3, w, out=o, window=window)  # noqa: E731
     if x.dim() == 3 and is_plane_stack(x):
         return mix(x, out)
     L = x.shape[0]
+    n_out = _nm.window_of(window, L)[1]
     flat = x.to(torch.float32).reshape(L, -1)
     n = flat.shape[1]
     rows, pad = layout(n)
     x3 = F.pad(flat, (0, pad)).view(L, rows, LANES)
-    mixed = mix(x3, x3).reshape(L, -1)[:, :n].reshape(x.shape).to(x.dtype)
+    mixed = mix(x3, x3 if window is None else None).reshape(
+        n_out, -1)[:, :n].reshape((n_out,) + tuple(x.shape[1:])).to(x.dtype)
     return mixed if out is None else out.copy_(mixed)
 
 
-def neighbor_mix_tree(tree, w, *, step=None, in_place=False):
+def neighbor_mix_tree(tree, w, *, step=None, in_place=False, window=None,
+                      out=None):
     """The gossip mix leaf by leaf over a stacked (L, ...) tree; with
-    ``in_place`` every leaf receives its mixed values."""
+    ``in_place`` every leaf receives its mixed values, with ``out`` (a
+    tree of the window's shapes) the window's outputs land there."""
+    kw = {} if window is None else {"window": window}
+    if out is not None:
+        return tree_map(lambda x, o: neighbor_mix(x, w, step=step, out=o,
+                                                  **kw), tree, out)
     return tree_map(
-        lambda x: neighbor_mix(x, w, step=step, out=x if in_place else None),
+        lambda x: neighbor_mix(x, w, step=step, out=x if in_place else None,
+                               **kw),
         tree)
 
 

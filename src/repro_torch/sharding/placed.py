@@ -1,47 +1,54 @@
 """The M-AVG meta step of one rank of a mesh: the state placed by
 ``launch/specs.state_shardings`` as DTensors, the step run on this rank's
 pieces through the port's own ``core/meta.py::meta_step``, and every
-metric the one-process value on every rank.
+metric the one-process value on every rank. Every algorithm, topology
+and comm scheme runs placed, on the packed plane or on per-leaf planes.
 
-What one rank runs (the packed plane: ``mavg``, ``kavg``, ``sync`` and
-``mavg_mlocal``, whose local-momentum plane is placed, gathered and
-taken back as the learners' are):
+What one rank runs:
 
 * its L_loc = L / |learner axes| learners, learners ``off`` to
-  ``off + L_loc - 1`` (the learner dim of the (L, rows, 128) stacks is
-  split over the learner axes), and, where the rows are split over
-  'model', its rows of every plane (``RankView``);
-* the local phase on the whole of each of its learners' planes: where the
-  plane's rows are split over 'model', one all-gather over 'model' brings
-  them in first, the K local steps run on this rank's copy, and its rows
-  are taken back (no communication). JAX's GSPMD does the same with the
-  packed plane: its dry run of the (4, 2) test mesh has no
-  tensor-parallel collective and charges each device one whole learner's
-  flops (``tests/test_torch_dryrun.py`` holds the port to those flops).
-  The payload corruptor (``chaos``, global learner indices) and the
-  finite guard's flags work on those whole planes before the rows are
-  taken back; the flags are gathered over the learner axes, so every rank
-  reads one verdict, and each rank resets its own learners that carry a
-  NaN/Inf;
-* the mix (``PlacedFlat``, ``PlacedHierarchical``):
+  ``off + L_loc - 1`` (the learner dim of the (L, rows, 128) stacks, or
+  of each per-leaf leaf's (L, ...) stack, is split over the learner
+  axes), and, where the packed plane's rows (or a leaf's dim, by the
+  megatron leaf specs) are split over 'model', its piece of every plane
+  (``RankView``);
+* the local phase on the whole of each of its learners: where a plane's
+  rows or a leaf are split over 'model', one all-gather over 'model'
+  brings them in first (``RowGather``), the K local steps run on this
+  rank's copy, and its pieces are taken back (no communication). JAX's
+  GSPMD does the same: its dry run of the (4, 2) test mesh has no
+  tensor-parallel collective in the packed step and charges each device
+  one whole learner's flops (``tests/test_torch_dryrun.py`` holds the
+  port to those flops). The payload corruptor (``chaos``, global learner
+  indices) and the finite guard's flags work on those whole learners
+  before the pieces are taken back; the flags are gathered over the
+  learner axes, so every rank reads one verdict, and each rank resets
+  its own learners that carry a NaN/Inf;
+* the mix (``PlacedFlat``, ``PlacedHierarchical``, ``PlacedGossip``,
+  ``PlacedAsync``):
   - flat, dense: the mean over its learners, completed across the learner
     axes by one all-reduce, then the fused momentum-broadcast kernel on
-    the local planes;
+    the local planes; on per-leaf planes the mean of each leaf's pieces
+    likewise, ``block_momentum`` on each leaf's pieces and the broadcast
+    into the rank's learners;
   - flat, int8/int4 + error feedback: the one-process quantizer on the
     rank's pieces of the learners and the residual (``PieceQuant``):
     ``pack_update`` with the uniforms of its learners (the dither is keyed
     by learner), and the f64 sum of C(delta) over its learners completed
     by one all-reduce (exact sums: the mean is one process's bitwise).
-    Where a chunk of ``chunk_rows`` would straddle two ranks' rows, and
-    for the schemes whose chunks or top-k span a learner's whole plane
-    (fp8, topk, int8_topk), the stack and the residual are gathered whole
-    and the one-process reducer runs on them (``PlacedReducer``);
+    Where a chunk of ``chunk_rows`` would straddle two ranks' rows, on
+    per-leaf planes (a leaf's chunks straddle its 'model' pieces: the
+    one-process ``quantize``/``dequantize``), and for the schemes whose
+    chunks or top-k span a learner's whole plane (fp8, topk, int8_topk),
+    the stack and the residual are gathered whole and the one-process
+    reducer runs on them (``PlacedReducer``);
   - flat, robust: the (L_loc, rows_loc, 128) stack is re-split from
     learners to rows over the learner axes (Shard(0) -> Shard(1)), the
-    partial (L, L) Gram matrices of that layout are summed by one
-    all-reduce (every rank then clips the same learners and advances the
-    same ring), ``robust_reduce`` runs on (L, rows_loc / n, 128) and one
-    all-gather brings the rows back;
+    partial (L, L) Gram matrices of that layout, each formed and summed in
+    f64, are summed by one all-reduce and rounded to f32 once, as one
+    process rounds its f64 sum (every rank then clips the same learners
+    and advances the same ring), ``robust_reduce`` runs on
+    (L, rows_loc / n, 128) and one all-gather brings the rows back;
   - hierarchical with a dense inner level (static or elastic, dense or
     int8 outer): the (G, rows, 128) group stacks stay replicated, as JAX
     places them; a rank forms its groups' averages where it holds whole
@@ -51,30 +58,55 @@ taken back as the learners' are):
     the whole group planes, the outer fused momentum-broadcast (an int8
     outer level as ``PieceQuant``) on the rank's rows of w~, v and the
     group planes, and the learners are reset from their rows;
-  - hierarchical with a compressed inner level (int8 + EF), under robust
-    aggregation, or on a layout that neither holds nor splits groups
-    evenly: the stack is gathered whole and the one-process mix runs on
-    it (``GatheredMix``). JAX's placement replicates the (G, S, rows, 128)
-    inner EF residual, so every rank must end the inner level holding
-    every learner's residual: gathering it moves as many bytes as
-    gathering the learners, and the rank-pieces route would move the
-    partial sums besides;
+  - gossip (ring, exponential, the stepped one_peer_exponential, elastic
+    masking, momentum tracking; dense, or int8/int4 + EF where its chunks
+    line up with the rank's rows): the ``params`` and ``momentum`` stacks
+    are split like the learners, the EF residual is replicated (JAX's
+    placement). The rank compresses its pieces (``pack_compress`` with its
+    learners' uniforms, into its piece of the residual; the new residual
+    is all-gathered into every rank's copy), all-gathers x + C(delta) over
+    the learner axes (the rows stay split: the all-gather GSPMD compiles
+    for JAX's dense contraction over L) and mixes only its own L_loc
+    outputs (``neighbor_mix``'s output window, bitwise the rows of the
+    square call); ``block_momentum`` and the momentum's mix likewise on
+    its pieces; w~, the mean of the params, is one all-reduce;
+  - the async server (mavg and elastic updates, so eamsgd; downpour;
+    elastic membership; the robust clip of each anchor displacement):
+    the clocks, ``pull_update`` and ``updates`` are host tensors every
+    rank replays alike, the ``anchor`` stack is split like the learners.
+    The decayed sum of the fired displacements is formed from the rank's
+    learners in f64 windows (exact) and completed by one all-reduce a
+    window, one process's bitwise; the update and the pulls run on the
+    rank's pieces; the clip's Gram matrix as the flat robust mix's. The
+    degenerate profile takes ``PlacedFlat``;
+  - anything else (per-leaf planes under robust aggregation, in the
+    hierarchical or gossip topologies or in a non-degenerate async
+    server; gossip under robust aggregation or a compressor whose chunks
+    straddle the rows; a hierarchical compressed inner level, robust
+    aggregation, or a layout that neither holds nor splits groups
+    evenly): the stack, the planes and the split topology buffers are
+    gathered whole and the one-process mix runs on them
+    (``GatheredMix``). JAX's placement replicates the hierarchical
+    (G, S, rows, 128) inner EF residual, so every rank must end the inner
+    level holding every learner's residual: gathering it moves as many
+    bytes as gathering the learners, and the rank-pieces route would move
+    the partial sums besides;
 * the metrics: loss and grad-norm weighted by each rank's active local
   steps, loss_spread over every learner, norms and distances as the
   square root of the sums of squares over the axes their operands are
-  split over, and the modeled wire bytes of the global shapes.
+  split over (a per-leaf leaf replicated over 'model' counted once), the
+  wire bytes of the global shapes, and the host numbers (staleness,
+  fired counts, the spectral gap, present learners) as one process's.
 
 Under ``tp_mode="fsdp"`` (JAX's dry run: a learner's local batch split
 over 'model' where it divides) each rank of a learner's 'model' group
-runs the local phase on its slice of the batch, and the gradient plane
-and the loss are averaged over 'model' (one all-reduce each) before every
-local SGD step, so each rank applies the learner's whole-batch step.
+runs the local phase on its slice of the batch, and the gradient and the
+loss are averaged over 'model' (one all-reduce each) before every local
+SGD step, so each rank applies the learner's whole-batch step.
 
 On a mesh of size 1 every step of this is the unplaced step's, op for op:
 no all-gather, no all-reduce, the same kernel launches, the same dither
-(``chip_smoke.py`` phases 19a and 19b hold that). Per-leaf planes,
-gossip and the async server (with ``eamsgd`` and ``downpour``) are
-refused (``check_supported``).
+(``chip_smoke.py`` phases 19a and 19b hold that).
 
 Why the pieces where they are used, and the gathered stack elsewhere:
 ``tests/test_torch_dryrun.py::
@@ -83,21 +115,27 @@ both routes of each configuration at Qwen3-1.7B's full width on a fake
 (4, 2) mesh, L = 8: the flat int8 mix and the dense-inner hierarchical
 mixes on the pieces move and hold a fraction of what the gathered mix
 does; under an int8 + EF inner level the gathered mix moves no more than
-JAX's replicated inner residual alone.
+JAX's replicated inner residual alone. Dense gossip on the pieces moves
+and holds half of the gathered mix or less; with int8 + EF and momentum
+tracking it holds less but moves up to the replicated residual more (a
+halo exchange of the neighbours' planes alone is ROADMAP's).
 
 Memory: a rank's flat int8 mix holds its L_loc learners' uniforms (each
 learner's whole plane: its rows are one draw) and the f64 sum of one
-(rows_loc, 128) plane. The gathered routes hold the whole (L, rows, 128)
-stack, its residual and their uniforms on every rank, as does JAX's
-replicated inner residual of the hierarchical topology (L f32 planes on
-every rank: at Qwen3-1.7B's full width, 6.9 GB a learner, beyond an 80 GB
-card from L = 12; ROADMAP Queue 1).
+(rows_loc, 128) plane; its gossip mix the gathered (L, rows_loc, 128)
+f32 stack. The gathered routes hold the whole (L, rows, 128) stack, its
+residual and their uniforms on every rank, as does JAX's replicated
+inner residual of the hierarchical topology and the gossip residual (L
+f32 planes on every rank: at Qwen3-1.7B's full width, 6.9 GB a learner,
+beyond an 80 GB card from L = 12; ROADMAP Queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from fractions import Fraction
 
 from repro_torch.comm.quant import SCALE_BYTES, VALUE_BYTES, QuantReducer
 from repro_torch.comm.reducer import DenseReducer, ErrorFeedback, dense_bytes
@@ -110,17 +148,27 @@ from repro_torch.core.meta import (
 )
 from repro_torch.kernels.quantize import QMAX, choose_block
 from repro_torch.robust.aggregator import clip_rows, gram64
+from repro_torch.topology.async_server import AsyncServer
 from repro_torch.topology.base import (
     FlatAllReduce,
     Topology,
     block_momentum_update,
     consensus_dist,
+    displacement_norm,
     fused_momentum_broadcast_update,
     stack_dist,
 )
 from repro_torch.topology.elastic import membership_at
+from repro_torch.topology.gossip import Gossip
 from repro_torch.topology.hierarchical import Hierarchical, _put, masked_mean
-from repro_torch.utils.tree import is_dtensor, tree_cast, tree_map, tree_norm
+from repro_torch.utils.tree import (
+    is_dtensor,
+    sq_sum,
+    tree_cast,
+    tree_leaves,
+    tree_map,
+    tree_norm,
+)
 
 
 def _prod(xs) -> int:
@@ -222,6 +270,57 @@ def _redistribute(local, mesh, src, dst, shape):
     return dt.redistribute(mesh, dst).to_local()
 
 
+def _whole(local, dt):
+    """This rank's piece ``local`` of the placed tensor ``dt`` -> the whole
+    tensor (one redistribution; ``local`` itself where it is whole)."""
+    if tuple(local.shape) == tuple(dt.shape):
+        return local
+    from torch.distributed.tensor import Replicate
+
+    return _redistribute(local.contiguous(), dt.device_mesh,
+                         tuple(dt.placements),
+                         tuple(Replicate() for _ in dt.placements),
+                         tuple(dt.shape))
+
+
+def _piece(whole, dt):
+    """This rank's piece of ``whole``, laid out as the placed ``dt`` (a
+    view; ``whole`` itself where the piece is whole)."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    shape, off = compute_local_shape_and_global_offset(
+        dt.shape, dt.device_mesh, dt.placements)
+    if tuple(shape) == tuple(whole.shape):
+        return whole
+    return whole[tuple(slice(o, o + n) for o, n in zip(off, shape))]
+
+
+def _copy_back(piece, whole_piece):
+    """``piece`` <- ``whole_piece`` in place, leaf by leaf, where they are
+    not one storage already (None passes)."""
+    if piece is None:
+        return None
+
+    def put(p, w):
+        if p.data_ptr() != w.data_ptr() or p.shape != w.shape:
+            p.copy_(w)
+        return p
+
+    return tree_map(put, piece, whole_piece)
+
+
+def _split_beyond_learners(dt) -> bool:
+    """Is a dim of ``dt`` other than the learner dim (0) split over a mesh
+    dim of more than one rank?"""
+    from torch.distributed.tensor import Shard
+
+    mesh = dt.device_mesh
+    return any(isinstance(p, Shard) and p.dim >= 1 and mesh.size(i) > 1
+               for i, p in enumerate(dt.placements))
+
+
 class Placement:
     """The mesh of a placed state and its learner axes: the process group
     that completes the learner mean, the groups the telemetry's sums run
@@ -250,12 +349,13 @@ class Placement:
         return _mean_over(x, self.learner_group, self.n_groups)
 
     def grad_mean(self, loss, g):
-        """The loss and, in place, the gradient plane ``g`` averaged over
-        the ranks sharing a learner's batch (``core/meta.py::
-        _local_phase``)."""
+        """The loss and, in place, the gradient ``g`` (a plane, or a tree
+        of per-leaf gradients) averaged over the ranks sharing a learner's
+        batch (``core/meta.py::_local_phase``)."""
         if self.batch_group is None:
             return loss
-        g.copy_(_mean_over(g, self.batch_group, self.n_batch))
+        tree_map(lambda x: x.copy_(_mean_over(x, self.batch_group,
+                                              self.n_batch)), g)
         return _mean_over(loss, self.batch_group, self.n_batch)
 
 
@@ -296,7 +396,7 @@ def local_state(state: MetaState) -> MetaState:
     buffers on the host)."""
     topo = host_topo(state.topo)
     if isinstance(topo, dict):
-        topo = {k: (None if v is None else _local(v)) for k, v in
+        topo = {k: (None if v is None else tree_map(_local, v)) for k, v in
                 topo.items()}
     return dataclasses.replace(state, topo=topo, **{
         f: (None if getattr(state, f) is None
@@ -307,64 +407,94 @@ def local_state(state: MetaState) -> MetaState:
 
 def _placed_topo(old, new):
     """The placed state's ``topo`` after a step that returned ``new`` for
-    its local buffers: a DTensor buffer keeps its place and takes the new
-    value into its local tensor (where the step did not update it in
-    place); a host buffer (``topology.HOST_BUFFERS``) is replaced by the
-    step's host tensor, as in one process."""
+    its local buffers: a DTensor buffer keeps its place (``_rewrap``); a
+    host buffer (``topology.HOST_BUFFERS``) is replaced by the step's host
+    tensor, as in one process."""
     if not isinstance(old, dict) or not isinstance(new, dict):
         return new
     from repro_torch.topology import HOST_BUFFERS
 
     out = dict(new)
     for k, o in old.items():
-        if is_dtensor(o) and k not in HOST_BUFFERS:
-            local = o.to_local()
-            if new[k].data_ptr() != local.data_ptr():
-                local.copy_(new[k])
-            out[k] = o
+        leaves = tree_leaves(o)
+        if k not in HOST_BUFFERS and leaves and is_dtensor(leaves[0]):
+            out[k] = _rewrap(o, new[k])
     return out
 
 
+def _rewrap(old, new):
+    """The placed state's field after a step that returned ``new`` for its
+    local pieces: each DTensor keeps its place, and where the step made a
+    new tensor (a per-leaf leaf's momentum update returns one) it is
+    wrapped as that DTensor's new local tensor, with no copy."""
+    if old is None or new is None:
+        return old
+
+    def one(dt, x):
+        if not is_dtensor(dt) or x.data_ptr() == dt.to_local().data_ptr():
+            return dt
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(x, dt.device_mesh, dt.placements,
+                                  run_check=False, shape=dt.shape,
+                                  stride=dt.stride())
+
+    return tree_map(one, old, new)
+
+
 def _whole_rows(placements):
-    """The learner stack's placements with its row dim (1) whole again."""
+    """A learner stack's placements with every dim but the learner dim
+    (0) whole again: the packed plane's rows, a per-leaf leaf's split
+    dim."""
     from torch.distributed.tensor import Replicate, Shard
 
-    return tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+    return tuple(Replicate() if isinstance(p, Shard) and p.dim >= 1 else p
                  for p in placements)
 
 
 class RowGather:
-    """The local phase's view of a learner stack whose rows are split:
-    ``gather`` all-gathers the rows (a plain tensor of this rank's
-    learners), ``scatter`` takes this rank's rows back into the state.
-    With no split row dim both are the identity (the state's own local
-    tensor, trained in place)."""
+    """The local phase's view of a learner stack (a packed (L, rows, 128)
+    stack or a tree of per-leaf stacks) whose rows or leaf dims are split
+    over 'model': ``gather`` all-gathers them (plain tensors of this
+    rank's learners), ``scatter`` takes this rank's pieces back into the
+    state. Where nothing is split both are the identity (the state's own
+    local tensors, trained in place)."""
 
     def __init__(self, learners):
-        self.dt = learners
-        self.whole = _whole_rows(learners.placements)
+        self.dts = learners
 
     @property
     def split(self) -> bool:
-        mesh = self.dt.device_mesh
-        return any(p != w and mesh.size(i) > 1 for i, (p, w) in enumerate(
-            zip(self.dt.placements, self.whole)))
+        return any(_split_beyond_learners(dt)
+                   for dt in tree_leaves(self.dts))
 
     def gather(self, local):
         if not self.split:
             return local
-        return self.dt.redistribute(self.dt.device_mesh,
-                                    self.whole).to_local()
+
+        def one(dt, x):
+            if not _split_beyond_learners(dt):
+                return x
+            return dt.redistribute(dt.device_mesh,
+                                   _whole_rows(dt.placements)).to_local()
+
+        return tree_map(one, self.dts, local)
 
     def scatter(self, local, full):
         if full is local:
             return local
         from torch.distributed.tensor import DTensor
 
-        whole = DTensor.from_local(full, self.dt.device_mesh, self.whole,
-                                   run_check=False)
-        local.copy_(whole.redistribute(self.dt.device_mesh,
-                                       self.dt.placements).to_local())
+        def one(dt, x, f):
+            if f is x:
+                return x
+            whole = DTensor.from_local(f, dt.device_mesh,
+                                       _whole_rows(dt.placements),
+                                       run_check=False)
+            return x.copy_(whole.redistribute(dt.device_mesh,
+                                              dt.placements).to_local())
+
+        tree_map(one, self.dts, local, full)
         return local
 
 
@@ -375,8 +505,9 @@ class RowGather:
 
 class RankView:
     """This rank's pieces of a placed state: learners ``off`` to ``off +
-    L_loc - 1`` of L, rows ``rs`` of ``rows`` (all of them unless the
-    rows are split over 'model'), and the redistributions and sums that
+    L_loc - 1`` of L, and of the packed plane rows ``rs`` of ``rows`` (all
+    of them unless the rows are split over 'model'), or of each per-leaf
+    leaf the piece its spec gives; and the redistributions and sums that
     take a piece to the whole and a local metric to the global one. Every
     method is the identity where the mesh holds one rank."""
 
@@ -386,47 +517,76 @@ class RankView:
             compute_local_shape_and_global_offset,
         )
 
-        dt = state.learners
         self.placement = placement
+        self.packed = state.spec is not None
+        # the placed tensors every piece is cut as: the learner stacks
+        # (the residual and the local momentum are laid out alike), the
+        # planes (w~, v) and the split topology buffers
+        self.stack_tpl = state.learners
+        self.plane_tpl = state.global_params
+        self.topo_tpl = {k: v for k, v in (state.topo or {}).items()
+                         if v is not None and is_dtensor(tree_leaves(v)[0])}
+        dt = tree_leaves(state.learners)[0]
         self.mesh = dt.device_mesh
-        self.stack_pl = tuple(dt.placements)
         shape, off = compute_local_shape_and_global_offset(
-            dt.shape, self.mesh, self.stack_pl)
-        self.L, self.rows = int(dt.shape[0]), int(dt.shape[1])
-        self.L_loc, self.rows_loc = int(shape[0]), int(shape[1])
-        self.off, self.row_off = int(off[0]), int(off[1])
-        self.rs = slice(self.row_off, self.row_off + self.rows_loc)
+            dt.shape, self.mesh, dt.placements)
+        self.L, self.L_loc, self.off = int(dt.shape[0]), int(shape[0]), \
+            int(off[0])
         if self.L % placement.n_groups:
             raise ValueError(f"{self.L} learners do not split evenly over "
                              f"{placement.n_groups} learner ranks")
-        self.rows_split = self.rows_loc < self.rows
-        rowdim = [isinstance(p, Shard) and p.dim == 1 for p in self.stack_pl]
-        # (rows, 128) planes, and (n, rows, 128) stacks replicated over
-        # the learner axes
-        self.plane_pl = tuple(Shard(0) if r else Replicate() for r in rowdim)
-        self.group_pl = tuple(Shard(1) if r else Replicate() for r in rowdim)
-        self.whole_pl = tuple(Replicate() for _ in rowdim)
+        names = tuple(self.mesh.mesh_dim_names)
+        n_model = self.mesh.size(names.index("model")) if "model" in names \
+            else 1
+        if self.packed:
+            self.rows, self.rows_loc = int(dt.shape[1]), int(shape[1])
+            self.row_off = int(off[1])
+            self.rs = slice(self.row_off, self.row_off + self.rows_loc)
+            self.rows_split = self.rows_loc < self.rows
+            rowdim = [isinstance(p, Shard) and p.dim == 1
+                      for p in dt.placements]
+            # (n, rows, 128) stacks replicated over the learner axes
+            self.group_pl = tuple(Shard(1) if r else Replicate()
+                                  for r in rowdim)
+            self.whole_pl = tuple(Replicate() for _ in rowdim)
+            model_split = self.rows_split
+        else:
+            # a leaf replicated over 'model' is counted in a sum by the
+            # ranks of 'model' coordinate 0 alone
+            mi = names.index("model") if "model" in names else None
+            first = mi is None or self.mesh.get_coordinate()[mi] == 0
+            self.counted = [first or (isinstance(x.placements[mi], Shard)
+                                      and n_model > 1)
+                            for x in tree_leaves(state.learners)]
+            model_split = n_model > 1
         # the sums of a metric over the pieces of a stack and of a plane
-        self.stack_group = (placement.all_group if self.rows_split
+        self.stack_group = (placement.all_group if model_split
                             else placement.learner_group)
-        self.plane_group = placement.model_group if self.rows_split else None
-        self.trivial = placement.learner_group is None and not self.rows_split
+        self.plane_group = placement.model_group if model_split else None
+        self.trivial = placement.learner_group is None and not model_split
+        # the whole learner stack's values over this rank's (wire bytes)
+        self.scale = Fraction(
+            sum(_prod(x.shape) for x in tree_leaves(state.learners)),
+            sum(_prod(x.to_local().shape)
+                for x in tree_leaves(state.learners)))
 
     # -- pieces and wholes ---------------------------------------------
     def whole_stack(self, x):
-        """This rank's (L_loc, rows_loc, 128) piece of a stack placed as
-        the learners -> the whole (L, rows, 128) stack."""
-        if tuple(x.shape) == (self.L, self.rows, 128):
-            return x
-        return _redistribute(x, self.mesh, self.stack_pl, self.whole_pl,
-                             (self.L, self.rows, 128))
+        """This rank's pieces of a stack placed as the learners (a tree of
+        them per leaf) -> the whole (L, ...) stack."""
+        return tree_map(_whole, x, self.stack_tpl)
 
     def whole_plane(self, x):
-        """This rank's (rows_loc, 128) rows of a plane -> (rows, 128)."""
-        if not self.rows_split:
-            return x
-        return _redistribute(x, self.mesh, self.plane_pl, self.whole_pl,
-                             (self.rows, 128))
+        """This rank's pieces of a plane placed as w~ -> the whole."""
+        return tree_map(_whole, x, self.plane_tpl)
+
+    def whole_topo(self, topo):
+        """A ``topo`` dict with its split buffers whole."""
+        if not isinstance(topo, dict):
+            return topo
+        return {k: (tree_map(_whole, v, self.topo_tpl[k])
+                    if k in self.topo_tpl and v is not None else v)
+                for k, v in topo.items()}
 
     def whole_groups(self, x):
         """This rank's rows of an (n, rows, 128) stack replicated over the
@@ -436,11 +596,23 @@ class RankView:
         return _redistribute(x.contiguous(), self.mesh, self.group_pl,
                              self.whole_pl, (x.shape[0], self.rows, 128))
 
+    def gather_learners(self, x):
+        """This rank's (L_loc, ...) piece of a stack placed as the
+        learners -> every learner's (L, ...) at this rank's rows (one
+        all-gather over the learner axes; x itself on one learner rank)."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        lm = self.placement.learner_mesh
+        if lm is None:
+            return x
+        return _redistribute(x.contiguous(), lm, (Shard(0),), (Replicate(),),
+                             (self.L,) + tuple(x.shape[1:]))
+
     def stack_piece(self, whole):
-        return whole[self.off:self.off + self.L_loc, self.rs]
+        return tree_map(_piece, whole, self.stack_tpl)
 
     def plane_piece(self, whole):
-        return whole[self.rs]
+        return tree_map(_piece, whole, self.plane_tpl)
 
     def learner_slice(self, xs):
         """This rank's entries of a per-learner list (None passes)."""
@@ -503,20 +675,62 @@ class RankView:
         return torch.sqrt(_all_reduce(x * x, "sum", group))
 
     def stack_norm(self, x):
-        """A norm of a stack's pieces -> the norm of the whole stack."""
+        """A norm of a packed stack's pieces -> the norm of the whole."""
         return self._norm(x, self.stack_group)
 
     def plane_norm(self, x):
-        """A norm of a plane's rows -> the norm of the whole plane."""
+        """A norm of a packed plane's rows -> the norm of the whole."""
         return self._norm(x, self.plane_group)
+
+    def _leaf_norm(self, a, b, stacked: bool):
+        """The norm of ``a`` (- ``b``) over every rank's pieces of per-leaf
+        trees: each counted leaf's f64 sum of squares (``sq_sum``, of each
+        learner apart where ``stacked``), summed over the ranks."""
+        la = tree_leaves(a)
+        lb = [None] * len(la) if b is None else tree_leaves(b)
+        sq = []
+        for x, y, on in zip(la, lb, self.counted):
+            if not on:
+                continue
+            if stacked:
+                sq += [sq_sum(x[j] if y is None else x[j] - y[j])
+                       for j in range(x.shape[0])]
+            else:
+                sq.append(sq_sum(x if y is None else x - y))
+        total = (torch.stack(sq).sum() if sq else
+                 torch.zeros((), dtype=torch.float64, device=la[0].device))
+        group = self.stack_group if stacked else self.plane_group
+        if group is not None:
+            total = _all_reduce(total, "sum", group)
+        return torch.sqrt(total).to(torch.float32)
+
+    def consensus(self, learners, avg):
+        """``consensus_dist`` of the whole stack from its pieces."""
+        if self.trivial or self.packed:
+            return self.stack_norm(consensus_dist(learners, avg))
+        return self._leaf_norm(learners, tree_map(
+            lambda w, a: a.unsqueeze(0).expand(w.shape), learners, avg),
+            stacked=True)
+
+    def displacement(self, avg, gp):
+        """``displacement_norm`` of the whole planes from their pieces."""
+        if self.trivial or self.packed:
+            return self.plane_norm(displacement_norm(avg, gp))
+        return self._leaf_norm(avg, gp, stacked=False)
+
+    def norm(self, x, stacked: bool):
+        """``tree_norm`` of a whole stack (or plane) from its pieces."""
+        if self.trivial or self.packed:
+            return (self.stack_norm if stacked else self.plane_norm)(
+                tree_norm(x))
+        return self._leaf_norm(x, None, stacked)
 
     def global_bytes(self, metrics: dict) -> dict:
         """A reducer's wire metrics of this rank's pieces scaled to the
         whole stack (the wire is linear in the values and the chunks)."""
-        f = float((self.L // self.L_loc) * (self.rows // self.rows_loc))
         out = dict(metrics)
         for k in ("comm_bytes", "comm_bytes_dense"):
-            out[k] = metrics[k] * f
+            out[k] = float(Fraction(metrics[k]) * self.scale)
         if metrics.get("comm_compression", 1.0) != 1.0:
             out["comm_compression"] = (out["comm_bytes_dense"]
                                        / out["comm_bytes"])
@@ -562,7 +776,7 @@ class RankView:
         lm = self.placement.learner_mesh
         if ok is None or lm is None:
             return ok
-        dev = learners.device
+        dev = tree_leaves(learners)[0].device
         if dev.type == "meta":  # costed: a clean step
             return [True] * self.L
         from torch.distributed.tensor import Replicate, Shard
@@ -584,11 +798,12 @@ def _quant(reducer):
 
 def _aligned(reducer, view: RankView) -> bool:
     """Does ``reducer`` run on this rank's rows: dense, or a packed
-    quantizer whose chunks never straddle two ranks' rows?"""
+    quantizer whose chunks never straddle two ranks' rows? (A per-leaf
+    leaf's chunks straddle its 'model' pieces.)"""
     if isinstance(_base(reducer), DenseReducer):
         return True
     q = _quant(reducer)
-    return q is not None and view.rows_loc % choose_block(
+    return q is not None and view.packed and view.rows_loc % choose_block(
         view.rows, q.chunk_rows) == 0
 
 
@@ -689,8 +904,8 @@ class PlacedReducer:
             view.whole_stack(learners), view.whole_plane(gp), whole_res,
             step=step)
         if residual is not None:
-            residual.copy_(view.stack_piece(new_res))
-        return tree_map(view.plane_piece, avg), residual, m
+            _copy_back(residual, view.stack_piece(new_res))
+        return view.plane_piece(avg), residual, m
 
 
 class PlacedFlat(FlatAllReduce):
@@ -720,11 +935,14 @@ class PlacedFlat(FlatAllReduce):
                 clip_rows(x, anchor, clipped)
         return learners, x, topo, metrics
 
-    def _stack_norm(self, x):
-        return self.view.stack_norm(x)
+    def _consensus(self, learners, avg):
+        return self.view.consensus(learners, avg)
 
-    def _plane_norm(self, x):
-        return self.view.plane_norm(x)
+    def _displacement(self, avg, gp):
+        return self.view.displacement(avg, gp)
+
+    def _v_norm(self, v):
+        return self.view.norm(v, stacked=False)
 
     def mix(self, learners, gp, v, comm_residual, topo, *, step):
         view = self.view
@@ -752,10 +970,11 @@ class PlacedFlat(FlatAllReduce):
 
 class GatheredMix(Topology):
     """Any topology's one-process mix on the whole stack: this rank's
-    pieces of the learners, w~, v and the flat residual are gathered, the
-    ``inner`` topology mixes them as one process does (every rank the
-    same), and each rank keeps its pieces. The ``topo`` buffers are
-    replicated already."""
+    pieces of the learners, w~, v, the residual and the split topology
+    buffers (gossip's params and momentum, the async anchors) are
+    gathered, the ``inner`` topology mixes them as one process does
+    (every rank the same), and each rank keeps its pieces. The other
+    ``topo`` buffers are replicated already."""
 
     def __init__(self, inner: Topology, view: RankView):
         self.inner = inner
@@ -771,16 +990,20 @@ class GatheredMix(Topology):
                      view.whole_plane(v))
         R = None if comm_residual is None else view.whole_stack(
             comm_residual)
-        gw, vw, W, R, topo, metrics = self.inner.mix(W, gw, vw, R, topo,
-                                                     step=step)
-        for piece, whole in ((learners, view.stack_piece(W)),
-                             (gp, view.plane_piece(gw)),
-                             (v, view.plane_piece(vw)),
-                             (comm_residual,
-                              None if R is None else view.stack_piece(R))):
-            if piece is not None and piece.data_ptr() != whole.data_ptr():
-                piece.copy_(whole)
-        return gp, v, learners, comm_residual, topo, metrics
+        gw, vw, W, R, wtopo, metrics = self.inner.mix(
+            W, gw, vw, R, view.whole_topo(topo), step=step)
+        _copy_back(learners, view.stack_piece(W))
+        _copy_back(gp, view.plane_piece(gw))
+        _copy_back(v, view.plane_piece(vw))
+        if R is not None:
+            _copy_back(comm_residual, view.stack_piece(R))
+        if isinstance(wtopo, dict):
+            wtopo = dict(wtopo)
+            for k, tpl in view.topo_tpl.items():
+                if wtopo.get(k) is not None:
+                    wtopo[k] = _copy_back(topo[k], tree_map(
+                        _piece, wtopo[k], tpl))
+        return gp, v, learners, comm_residual, wtopo, metrics
 
 
 class PlacedHierarchical(Hierarchical):
@@ -956,33 +1179,141 @@ class PlacedHierarchical(Hierarchical):
         }
 
 
+class PlacedGossip(Gossip):
+    """``Gossip`` on this rank's pieces (see the module doc): its learners'
+    rows of the split ``params`` and ``momentum`` stacks, its piece of the
+    replicated residual, and the exchange of its own outputs from the
+    stack gathered over the learner axes (``neighbor_mix``'s window)."""
+
+    def __init__(self, cfg: MAvgConfig, view: RankView):
+        super().__init__(cfg)
+        self.view = view
+        self._piece_reducer = _on_pieces(self.reducer, view, view.L, view.off)
+
+    @property
+    def supported(self) -> bool:
+        """The packed plane, no robust clip (its Gram matrix spans every
+        learner: the gathered mix), and a dense exchange or a packed
+        quantizer whose chunks line up with the rank's rows."""
+        return (self.view.packed and self.robust is None
+                and _aligned(self.reducer, self.view))
+
+    def local_steps(self, topo, step):
+        return self.view.learner_slice(super().local_steps(topo, step))
+
+    def _first_learner(self) -> int:
+        return self.view.off
+
+    @property
+    def _compressor(self):
+        return self._piece_reducer
+
+    def _residual_piece(self, res):
+        if res is None:
+            return None
+        piece = self.view.stack_piece(res)
+        return piece if piece.is_contiguous() else piece.contiguous()
+
+    def _residual_whole(self, res, piece):
+        # the residual is replicated (JAX's placement): every rank takes
+        # every rank's new pieces (one all-gather)
+        if res is None or self.view.trivial:
+            return piece
+        return res.copy_(self.view.whole_stack(piece))
+
+    def _gathered(self, x):
+        view = self.view
+        whole = view.gather_learners(x)
+        return whole, (None if whole is x else (view.off, view.L_loc))
+
+    def _stack_norm(self, x):
+        return self.view.stack_norm(x)
+
+    def _mean_into(self, gp, xp):
+        group = self.view.placement.learner_group
+        if group is None:
+            return super()._mean_into(gp, xp)
+        total = _all_reduce(torch.sum(xp, dim=0), "sum", group)
+        return gp.copy_(total.div_(self.view.L))
+
+    def _wire_bytes(self, wire, learners):
+        view, elem = self.view, learners.element_size()
+        return (_wire(self.reducer, view.L, view.rows, elem),
+                float(view.L * view.rows * 128 * elem))
+
+
+class PlacedAsync(AsyncServer):
+    """``AsyncServer`` on this rank's pieces (see the module doc): the
+    degenerate case as ``PlacedFlat``; otherwise the host clocks replayed
+    on every rank, the rank's learners' share of each f64 window of the
+    decayed displacement sum completed by one all-reduce, the update and
+    the pulls on its pieces of w~, v, the learners and their anchors."""
+
+    def __init__(self, cfg: MAvgConfig, view: RankView):
+        super().__init__(cfg)
+        self.view = view
+        self._flat = PlacedFlat(cfg, view)
+
+    @property
+    def supported(self) -> bool:
+        """The degenerate case (``PlacedFlat``), or the packed plane (its
+        telemetry sums and the clip's re-split are a packed stack's)."""
+        return self.degenerate or self.view.packed
+
+    def local_steps(self, topo, step):
+        return self.view.learner_slice(super().local_steps(topo, step))
+
+    def _first_learner(self) -> int:
+        return self.view.off
+
+    def _complete_sum(self, a64):
+        group = self.view.placement.learner_group
+        return a64 if group is None else _all_reduce(a64, "sum", group)
+
+    def _stack_norm(self, x):
+        return self.view.stack_norm(x)
+
+    def _plane_norm(self, x):
+        return self.view.plane_norm(x)
+
+    def _plane_sum(self, sq):
+        group = self.view.plane_group
+        return sq if group is None else _all_reduce(sq, "sum", group)
+
+    def _dense_bytes(self, learners) -> float:
+        return float(Fraction(dense_bytes(learners)) * self.view.scale)
+
+    def _guard(self, learners, topo, base):
+        """The scores and clip factors of every learner's displacement
+        from its base: the stack and the anchors re-split from learners
+        to rows (as ``PlacedFlat._robust``), the partial Gram matrices
+        summed over every rank."""
+        view = self.view
+        x = view.resplit(learners)
+        R = learners.shape[1]
+        a = (view.resplit(base) if base.shape[0] == learners.shape[0]
+             else base[:, view.part_rows(R)])
+        return self.robust.guard(x, topo, anchor=a, gram_fn=view.gram)
+
+
 def placed_topology(cfg: MAvgConfig, view: RankView) -> Topology:
-    """The topology of ``cfg`` on this rank's pieces."""
-    if cfg.topology.kind == "flat":
-        return PlacedFlat(cfg, view)
-    h = PlacedHierarchical(cfg, view)
-    return h if h.supported else GatheredMix(Hierarchical(cfg), view)
-
-
-def check_supported(cfg: MAvgConfig) -> None:
-    """The placed step runs the packed plane of ``mavg``, ``kavg``,
-    ``sync`` and ``mavg_mlocal`` on the flat and hierarchical topologies,
-    with any comm scheme, robust aggregation and the finite guard.
-    Per-leaf planes, gossip and the async server (``eamsgd`` and
-    ``downpour`` with it) on a mesh are ROADMAP Queue 1 item 14's step
-    5."""
-    off = [name for name, on in (
-        ("per-leaf planes (packed=False)", not cfg.packed),
-        (f"topology {cfg.topology.kind!r}",
-         cfg.topology.kind not in ("flat", "hierarchical")),
-        (f"algorithm {cfg.algorithm!r}",
-         cfg.algorithm not in ("mavg", "kavg", "sync", "mavg_mlocal")))
-        if on]
-    if off:
-        raise NotImplementedError(
-            "the placed meta step runs the packed flat and hierarchical "
-            f"meta steps; {', '.join(off)} on a mesh: ROADMAP Queue 1 item "
-            "14, step 5")
+    """The topology of ``cfg`` on this rank's pieces, or the one-process
+    mix on the gathered stack (``GatheredMix``) where no placed route
+    takes it."""
+    kind = cfg.topology.kind
+    if kind == "async" or cfg.algorithm in ("eamsgd", "downpour"):
+        a = PlacedAsync(cfg, view)
+        return a if a.supported else GatheredMix(AsyncServer(cfg), view)
+    if kind == "flat":
+        if view.packed or cfg.robust is None:
+            return PlacedFlat(cfg, view)
+        return GatheredMix(FlatAllReduce(cfg), view)
+    if kind == "gossip":
+        g = PlacedGossip(cfg, view)
+        return g if g.supported else GatheredMix(Gossip(cfg), view)
+    h = PlacedHierarchical(cfg, view) if view.packed else None
+    return h if h is not None and h.supported else GatheredMix(
+        Hierarchical(cfg), view)
 
 
 def _local_cfg(cfg: MAvgConfig, L_loc: int) -> MAvgConfig:
@@ -1004,7 +1335,6 @@ def placed_meta_step(state: MetaState, batches, *, loss_fn, cfg: MAvgConfig,
     ``chaos``: the payload corruptor (``chaos.PayloadCorruptor``) or None.
     Updates the state's pieces in place; returns (state, metrics), every
     metric the one-process value (see the module doc)."""
-    check_supported(cfg)
     view = RankView(state, placement)
     rows = RowGather(state.learners)
     mom_rows = (None if state.local_momentum is None
@@ -1039,9 +1369,10 @@ def placed_meta_step(state: MetaState, batches, *, loss_fn, cfg: MAvgConfig,
             if ok is not None:
                 for j in range(view.L_loc):
                     if not ok[view.off + j]:
-                        learners[j].copy_(loc.global_params)
+                        tree_map(lambda w, g: w[j].copy_(g), learners,
+                                 loc.global_params)
                         if mom is not None:
-                            mom[j].zero_()
+                            tree_map(lambda m: m[j].zero_(), mom)
                 guard["ok"] = ok
         return learners, mom
 
@@ -1057,8 +1388,10 @@ def placed_meta_step(state: MetaState, batches, *, loss_fn, cfg: MAvgConfig,
         metrics["nonfinite_learners"] = torch.tensor(
             float(view.L - sum(guard["ok"])), dtype=torch.float32)
     return dataclasses.replace(state, step=new.step,
-                               topo=_placed_topo(state.topo, new.topo)), \
-        metrics
+                               topo=_placed_topo(state.topo, new.topo), **{
+        f: _rewrap(getattr(state, f), getattr(new, f))
+        for f in ("global_params", "momentum", "learners", "local_momentum",
+                  "comm_residual")}), metrics
 
 
 def placed_phases(loss_fn, cfg: MAvgConfig, placement: Placement):

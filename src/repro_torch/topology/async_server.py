@@ -42,13 +42,18 @@ Where the port differs from JAX in execution, not in math:
   trajectories agree to rounding (rtol 1e-5), not bitwise. The staleness
   p99 is ``numpy.nanpercentile`` (linear), as ``jnp.nanpercentile``.
 * JAX forms (L, rows, 128) temporaries (the displacement stack, its
-  weighted copy, the broadcast center). The port loops over the learners
-  and over windows of ``planes.WINDOW`` values: the weighted
-  displacements accumulate into ONE f32 plane in learner order, the
-  momentum and center update in place window by window, and the fresh
-  center is written into the fired and refreshed learners' slots and
-  anchors. At full width the state is 2 + 2L planes (w~, v, the learners,
-  the anchors) plus that accumulator.
+  weighted copy, the broadcast center). The port loops over windows of
+  ``planes.WINDOW`` values and, in each, over the learners: the weighted
+  f32 displacements accumulate into one f64 window (each sum of L f32
+  values is exact there), rounded into ONE f32 plane; the momentum and
+  center update in place window by window, and the fresh center is
+  written into the fired and refreshed learners' slots and anchors. At
+  full width the state is 2 + 2L planes (w~, v, the learners, the
+  anchors) plus that accumulator. The exact sum does not depend on the
+  order of the learners, so one rank of a mesh adds its own learners and
+  one all-reduce of the f64 window completes the sum
+  (``sharding/placed.py``), one process's bitwise. JAX sums in f32; the
+  two agree to rounding.
 * As in JAX, every learner enters the sum, a learner that does not fire
   with weight 0. 0 * NaN is NaN, so a non-finite learner that is still
   computing poisons the center on a tick it does not fire, unless the
@@ -78,6 +83,7 @@ from repro_torch.topology.base import (
 )
 from repro_torch.topology.elastic import membership_at, membership_schedule
 from repro_torch.utils.tree import (
+    sq_sum,
     tree_broadcast_learners,
     tree_leaves,
     tree_map,
@@ -252,6 +258,32 @@ class AsyncServer(Topology):
         })
         return gp, v, learners, comm_residual, topo, metrics
 
+    # what one rank of a mesh changes (``sharding/placed.py``): its stack
+    # holds learners from ``_first_learner`` on, each f64 window of the
+    # displacement sum is completed over the ranks, the telemetry norms
+    # and the guard's Gram matrix are summed over them, and the wire bytes
+    # are the whole stack's
+    def _first_learner(self) -> int:
+        return 0
+
+    def _complete_sum(self, a64):
+        return a64
+
+    def _stack_norm(self, x):
+        return x
+
+    def _plane_norm(self, x):
+        return x
+
+    def _plane_sum(self, sq):
+        return sq
+
+    def _dense_bytes(self, learners) -> float:
+        return dense_bytes(learners)
+
+    def _guard(self, learners, topo, base):
+        return self.robust.guard(learners, topo, anchor=base)
+
     def mix(self, learners, gp, v, comm_residual, topo, *, step):
         if self.degenerate:
             return self._degenerate_mix(learners, gp, v, comm_residual,
@@ -269,7 +301,7 @@ class AsyncServer(Topology):
         ldt = learner_dtype(learners)
 
         # pre-update consensus: the stack's distance from the center
-        consensus = consensus_dist(learners, gp)
+        consensus = self._stack_norm(consensus_dist(learners, gp))
 
         # the base each displacement is measured against: the anchor a
         # learner pulled (mavg) or the current center (elastic)
@@ -281,25 +313,31 @@ class AsyncServer(Topology):
             # scores and clip factors of every learner's displacement
             # (fired or not: the in-progress ones feed the scores and the
             # ring) before the staleness weighting
-            s, topo, rmetrics = self.robust.guard(learners, topo,
-                                                  anchor=base)
+            s, topo, rmetrics = self._guard(learners, topo, base)
             scale = s.numpy().astype(np.float32)
 
-        # sum_j decay^tau_j (w_j - base_j) in learner order, one f32 plane
-        # a leaf; a learner that did not fire enters with weight 0
+        # sum_j decay^tau_j (w_j - base_j), one f32 plane a leaf, summed
+        # exactly in f64 window by window; a learner that did not fire
+        # enters with weight 0
         applied = []
+        first = self._first_learner()
         for w, b in zip(tree_leaves(learners), tree_leaves(base)):
-            acc = torch.zeros(w.shape[1:], dtype=torch.float32,
+            acc = torch.empty(w.shape[1:], dtype=torch.float32,
                               device=w.device)
             a_flat = acc.view(-1)
-            for j in range(L):
-                wj = w[j].reshape(-1)
-                bj = b[j if b.shape[0] == L else 0].reshape(-1)
-                for sl in windows(wj.numel()):
-                    d = wj[sl].to(torch.float32) - bj[sl].to(torch.float32)
+            for sl in windows(a_flat.numel()):
+                a64 = torch.zeros((sl.stop - sl.start,), dtype=torch.float64,
+                                  device=w.device)
+                for i in range(w.shape[0]):
+                    j = first + i
+                    wi = w[i].reshape(-1)
+                    bi = b[i if b.shape[0] == w.shape[0] else 0].reshape(-1)
+                    d = wi[sl].to(torch.float32) - bi[sl].to(torch.float32)
                     if scale[j] < 1.0:
                         d.mul_(float(scale[j]))
-                    a_flat[sl].add_(d.mul_(float(wgt[j])))
+                    a64.add_(d.mul_(float(wgt[j])))
+                a_flat[sl].copy_(self._complete_sum(a64))
+                del a64
             if mavg:
                 acc.div_(float(max(n_fired, 1)))
             applied.append(acc)
@@ -332,18 +370,22 @@ class AsyncServer(Topology):
             refresh &= np.asarray(membership_at(topo["membership"],
                                                 step)) > 0
         alpha = f32(self.alpha)
+        n_here = tree_leaves(learners)[0].shape[0]
         for j in np.nonzero(fire | refresh)[0].tolist():
+            i = j - first  # this stack's entry of learner j
+            if not 0 <= i < n_here:
+                continue
             relax = bool(fire[j]) and not mavg
             for w, g, a in zip(tree_leaves(learners), tree_leaves(gp),
                                tree_leaves(topo["anchor"])):
                 if relax:
-                    wj, gj = w[j].view(-1), g.view(-1)
-                    for sl in windows(wj.numel()):
-                        d = wj[sl] - gj[sl].to(ldt)
-                        wj[sl].sub_(d.mul_(alpha))
+                    wi, gi = w[i].view(-1), g.view(-1)
+                    for sl in windows(wi.numel()):
+                        d = wi[sl] - gi[sl].to(ldt)
+                        wi[sl].sub_(d.mul_(alpha))
                 else:
-                    w[j].copy_(g.to(ldt))
-                a[j].copy_(g)
+                    w[i].copy_(g.to(ldt))
+                a[i].copy_(g)
         u_new = u0 + int(anyf)
         pull = np.where(fire | refresh, u_new, _ints(topo["pull_update"]))
         topo = dict(topo,
@@ -353,12 +395,12 @@ class AsyncServer(Topology):
 
         # wire model: only the ready learners ship their (dense)
         # displacement plane this tick
-        cb = dense_bytes(learners) / L * n_fired
+        cb = self._dense_bytes(learners) / L * n_fired
         tau_fired = tau * fire.astype(np.float32)
-        disp = torch.sqrt(torch.stack(
-            [torch.linalg.vector_norm(a) ** 2 for a in applied]).sum())
+        disp = torch.sqrt(self._plane_sum(torch.stack(
+            [sq_sum(a) for a in applied]).sum())).to(torch.float32)
         metrics = {
-            "v_norm": tree_norm(v),
+            "v_norm": self._plane_norm(tree_norm(v)),
             "displacement_norm": disp,
             "stale_norm": disp,
             "consensus_dist": consensus,

@@ -159,11 +159,14 @@ class FlatAllReduce(Topology):
 
     # the telemetry norms of the local planes; one rank of a mesh sums
     # them over the ranks (``sharding/placed.py``)
-    def _stack_norm(self, x):
-        return x
+    def _consensus(self, learners, avg):
+        return consensus_dist(learners, avg)
 
-    def _plane_norm(self, x):
-        return x
+    def _displacement(self, avg, gp):
+        return displacement_norm(avg, gp)
+
+    def _v_norm(self, v):
+        return tree_norm(v)
 
     def _update(self, learners, gp, v, avg, metrics):
         """The block-momentum update by the average ``avg`` and the learner
@@ -173,10 +176,8 @@ class FlatAllReduce(Topology):
         avg = tree_cast(avg, getattr(torch, cfg.meta_dtype))
         # both telemetry norms read the pre-update planes, so they are
         # taken before the in-place update below overwrites them
-        metrics["consensus_dist"] = self._stack_norm(
-            consensus_dist(learners, avg))
-        metrics["displacement_norm"] = self._plane_norm(
-            displacement_norm(avg, gp))
+        metrics["consensus_dist"] = self._consensus(learners, avg)
+        metrics["displacement_norm"] = self._displacement(avg, gp)
         if is_packed_plane(gp):
             gp, v, learners = fused_momentum_broadcast_update(
                 gp, v, avg, learners, mu=self.mu, eta=cfg.meta_lr,
@@ -191,5 +192,5 @@ class FlatAllReduce(Topology):
             # learner reset in place: every learner's copy <- w~'
             tree_map(lambda w, g: w.copy_(g.to(ldt).expand_as(w)),
                      learners, gp)
-        metrics["v_norm"] = self._plane_norm(tree_norm(v))
+        metrics["v_norm"] = self._v_norm(v)
         return gp, v, learners

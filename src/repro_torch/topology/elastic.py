@@ -127,6 +127,16 @@ def absent_index(m) -> torch.Tensor | None:
     return idx if idx.numel() else None
 
 
+def local_index(idx, first: int, n: int) -> torch.Tensor | None:
+    """The entries of a stack holding learners ``first`` to ``first + n -
+    1`` (one rank's piece) that ``idx`` names, or None when there are
+    none."""
+    if idx is None:
+        return None
+    mine = idx[(idx >= first) & (idx < first + n)] - first
+    return mine if mine.numel() else None
+
+
 def freeze_rows(tree, idx):
     """Copies of rows ``idx`` of every (L, ...) leaf (None passes)."""
     if tree is None or idx is None:

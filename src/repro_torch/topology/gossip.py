@@ -58,13 +58,14 @@ from repro_torch.topology.base import (
 from repro_torch.topology.elastic import (
     absent_index,
     freeze_rows,
+    local_index,
     mask_mixing_matrix,
     membership_at,
     membership_schedule,
     present_edge_count,
     restore_rows,
 )
-from repro_torch.utils.tree import tree_map, tree_norm
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_norm
 
 # ---------------------------------------------------------------------------
 # mixing matrices (all symmetric -> doubly stochastic; one_peer_exponential
@@ -234,6 +235,39 @@ class Gossip(Topology):
         m = membership_at(topo["membership"], step)
         return [int(self.cfg.k_steps * float(x)) for x in m]
 
+    # what one rank of a mesh changes (``sharding/placed.py``): its stacks
+    # hold learners from ``_first_learner`` on, its compressor draws their
+    # uniforms alone and works on its piece of the (replicated) residual,
+    # the exchange mixes its own outputs from the stack gathered over the
+    # learner axes, and the telemetry sums, the mean and the wire bytes
+    # are the whole stack's
+    def _first_learner(self) -> int:
+        return 0
+
+    @property
+    def _compressor(self):
+        return self.reducer
+
+    def _residual_piece(self, res):
+        return res
+
+    def _residual_whole(self, res, piece):
+        return piece
+
+    def _gathered(self, x):
+        """(the stack the exchange reads, the output window or None)."""
+        return x, None
+
+    def _stack_norm(self, x):
+        return x
+
+    def _mean_into(self, gp, xp):
+        return tree_map(lambda g, x: torch.mean(x, dim=0, out=g), gp, xp)
+
+    def _wire_bytes(self, wire, learners) -> tuple[float, float]:
+        """(the wire bytes of the exchange, its dense bytes)."""
+        return wire, dense_bytes(learners)
+
     # ------------------------------------------------------------------
     def mix(self, learners, gp, v, comm_residual, topo, *, step):
         cfg = self.cfg
@@ -254,8 +288,11 @@ class Gossip(Topology):
             mix_w, mix_step = W, None
             idx = absent_index(mask)
         # absent learners keep params, momentum and residual as they were
-        frozen = {k: freeze_rows(topo[k], idx)
-                  for k in ("params", "momentum", "residual")}
+        here = local_index(idx, self._first_learner(),
+                           tree_leaves(xp)[0].shape[0])
+        frozen = {"params": freeze_rows(xp, here),
+                  "momentum": freeze_rows(vL, here),
+                  "residual": freeze_rows(res, idx)}
 
         # delta_j = w_j - x_j, in the learner stack when it is f32 (it is
         # overwritten by the reset below)
@@ -267,15 +304,18 @@ class Gossip(Topology):
         rmetrics = {}
         if self.robust is not None:
             delta, topo, rmetrics = self.robust.clip_stack(delta, topo)
-        c, res, wire = compress_stack(self.reducer, delta, res, step=step,
-                                      learners=learners)
+        piece = self._residual_piece(res)
+        c, piece, wire = compress_stack(self._compressor, delta, piece,
+                                        step=step, learners=learners)
+        res = self._residual_whole(res, piece)
         # x + C(delta) in C's buffer (the sum commutes bitwise), mixed in
         # place
         x_hat = tree_map(lambda ci, x: ci.add_(x.to(torch.float32)), c, xp)
-        mixed = kops.neighbor_mix_tree(x_hat, mix_w, step=mix_step,
-                                       in_place=True)
+        src, window = self._gathered(x_hat)
+        mixed = kops.neighbor_mix_tree(src, mix_w, step=mix_step, out=x_hat,
+                                       window=window)
         mixed = tree_map(lambda m: m.to(meta_dt), mixed)
-        disp = stack_dist(mixed, xp)
+        disp = self._stack_norm(stack_dist(mixed, xp))
 
         xp, vL = block_momentum_update(xp, vL, mixed, mu=self.mu,
                                        eta=cfg.meta_lr,
@@ -283,16 +323,17 @@ class Gossip(Topology):
         if self.momentum_tracking:
             # mix the momentum buffers with the same W so the momentum
             # consensus follows the param one
-            vL = kops.neighbor_mix_tree(vL, mix_w, step=mix_step,
-                                        in_place=True)
-        xp = restore_rows(xp, idx, frozen["params"])
-        vL = restore_rows(vL, idx, frozen["momentum"])
+            src, window = self._gathered(vL)
+            vL = kops.neighbor_mix_tree(src, mix_w, step=mix_step, out=vL,
+                                        window=window)
+        xp = restore_rows(xp, here, frozen["params"])
+        vL = restore_rows(vL, here, frozen["momentum"])
         res = restore_rows(res, idx, frozen["residual"])
 
         learners = tree_map(lambda w, x: w.copy_(x.to(ldt)), learners, xp)
-        gp_new = tree_map(lambda g, x: torch.mean(x, dim=0, out=g), gp, xp)
+        gp_new = self._mean_into(gp, xp)
 
-        db = dense_bytes(learners)
+        wire, db = self._wire_bytes(wire, learners)
         topo = dict(topo, params=xp, momentum=vL, residual=res)
         edges = present_edge_count(W, torch.ones(L) if mask is None
                                    else mask)
@@ -301,9 +342,9 @@ class Gossip(Topology):
         gap = (spectral_gap(W, mask) if mask is not None
                else self.gap_stack[step % self.period])
         metrics = {
-            "v_norm": tree_norm(vL),
+            "v_norm": self._stack_norm(tree_norm(vL)),
             "displacement_norm": disp,
-            "consensus_dist": consensus_dist(xp, gp_new),
+            "consensus_dist": self._stack_norm(consensus_dist(xp, gp_new)),
             "mixing_spectral_gap": gap,
             "comm_bytes": comm_bytes,
             "comm_bytes_dense": comm_dense,

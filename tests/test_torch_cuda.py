@@ -119,6 +119,26 @@ def test_cuda_topology_kernels_match_plain_bitwise(cuda_device):
     for step in (0, 4):
         assert torch.equal(nm.neighbor_mix_stepped_cuda(x, stack, step),
                            nm.neighbor_mix_stepped_plain(x, stack, step))
+    # the output window: bitwise its plain version and the square call's
+    # rows, a NaN learner spreading as there
+    for n in (2, 4, 8):
+        x = torch.randn(n, QROWS, 128, generator=gen, device=cuda_device)
+        x[1, 3, 5] = float("nan")
+        w = torch.rand(n, n, generator=torch.Generator().manual_seed(n))
+        ws = torch.rand(3, n, n, generator=torch.Generator().manual_seed(n))
+        square = nm.neighbor_mix_cuda(x, w)
+        for j0 in range(n):
+            for m in range(1, n - j0 + 1):
+                got = nm.neighbor_mix_cuda(x, w, window=(j0, m))
+                want = nm.neighbor_mix_plain(x, w, window=(j0, m))
+                assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
+                assert torch.equal(got.nan_to_num(7.0),
+                                   square[j0:j0 + m].nan_to_num(7.0))
+                assert torch.equal(
+                    nm.neighbor_mix_stepped_cuda(x, ws, 1, window=(j0, m))
+                    .nan_to_num(7.0),
+                    nm.neighbor_mix_stepped_plain(x, ws, 1, window=(j0, m))
+                    .nan_to_num(7.0))
     d = torch.randn(L, QROWS, 128, generator=gen, device=cuda_device) * 0.05
     u = torch.rand(L, QROWS, 128, generator=gen, device=cuda_device)
     for block in (8, 16, 32, 64):
@@ -1044,13 +1064,17 @@ def test_cuda_placed_step_on_a_one_gpu_mesh_is_the_unplaced_step(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["int8", "hier_elastic", "robust", "guard"])
+@pytest.mark.parametrize("name", ["int8", "hier_elastic", "robust", "guard",
+                                  "per_leaf", "gossip", "async"])
 def test_cuda_placed_configurations_on_a_one_gpu_mesh(cuda_device, name):
     """``chip_smoke.py`` phase 19b's program at the reduced width for the
     configurations newly placed: int8 + EF (``pack_update``),
     hierarchical elastic with int8 inner (``pack_compress``,
-    ``block_momentum``), robust with a scaled payload (``robust_reduce``)
-    and the finite guard with a NaN learner, on a (1, 1) NCCL DeviceMesh:
+    ``block_momentum``), robust with a scaled payload (``robust_reduce``),
+    the finite guard with a NaN learner, per-leaf planes
+    (``block_momentum`` a leaf), gossip on the ring with momentum
+    tracking and int8 + EF (``pack_compress``, ``neighbor_mix``) and the
+    async server on the profile (1, 1, 2, 4), on a (1, 1) NCCL DeviceMesh:
     planes, residual and topology buffers bitwise the unplaced step's,
     every metric equal, and as many launches of each kernel."""
     import json

@@ -227,6 +227,10 @@ PLACED_MIXES = {
     "hier_int8_ef_inner": dict(topology=B.TopologyConfig(
         kind="hierarchical", groups=2, outer_every=2,
         inner_comm=B.CommConfig(scheme="int8"))),
+    "gossip_dense": dict(topology=B.TopologyConfig(kind="gossip")),
+    "gossip_int8_ef": dict(topology=B.TopologyConfig(
+        kind="gossip", momentum_tracking=True,
+        inner_comm=B.CommConfig(scheme="int8"))),
 }
 
 
@@ -243,7 +247,13 @@ def test_the_placed_mixes_move_and_hold_less_than_the_gathered_ones(
     hold half or less of its peak; with an int8 + EF inner level the
     gathered mix is the one taken, and moves no more than JAX's
     replicated (G, S, rows, 128) inner residual, which a rank-pieces mix
-    would have to gather besides its partial sums."""
+    would have to gather besides its partial sums. Gossip on the pieces
+    gathers each mixed stack over the learner axes (the rows stay split):
+    dense, half the gathered mix's bytes and peak or less; with int8 + EF
+    and momentum tracking it holds less, but moves up to the replicated
+    (L, rows, 128) residual more than the gathered mix, whose ranks each
+    update the whole residual themselves (a halo exchange of the
+    neighbours' planes alone is ROADMAP's)."""
     from repro_torch.sharding.placed import (
         GatheredMix,
         RankView,
@@ -286,7 +296,14 @@ def test_the_placed_mixes_move_and_hold_less_than_the_gathered_ones(
     print(f"{name}: placed {placed.collective_bytes:.0f} collective bytes, "
           f"peak {placed.temp_bytes}")
     assert placed.kernel_calls.keys() == gathered.kernel_calls.keys()
-    assert 3 * placed.collective_bytes <= gathered.collective_bytes
+    if name == "gossip_int8_ef":
+        res = loc.topo["residual"]
+        assert placed.temp_bytes < gathered.temp_bytes
+        assert placed.collective_bytes <= (gathered.collective_bytes
+                                           + res.numel() * res.element_size())
+        return
+    ratio = 2 if name.startswith("gossip") else 3
+    assert ratio * placed.collective_bytes <= gathered.collective_bytes
     assert 2 * placed.temp_bytes <= gathered.temp_bytes
 
 
@@ -592,17 +609,18 @@ def test_a_dtensor_reaches_the_kernels_through_its_local_pieces(fake_group):
 
 
 # ---------------------------------------------------------------------------
-# what the placed step and the Trainer on a mesh take, and what they still
-# refuse (ROADMAP Queue 1 item 14, step 5)
+# every configuration the placed step and the Trainer on a mesh take
 # ---------------------------------------------------------------------------
 
 
 def _runs_placed_on_1x1(mcfg, chaos=None):
     """Two meta steps placed on a (1, 1) mesh equal the unplaced steps
-    bitwise (planes, residual, topology buffers, every metric), and the
-    placed step's ``jit_cost`` is the unplaced step's in flops, bytes and
-    kernel calls, with no collective."""
+    bitwise (planes, residual, topology buffers, every metric), and then
+    the placed step's ``jit_cost`` is the unplaced step's in flops, bytes
+    and kernel calls, with no collective (costed after the two steps: the
+    async server's de-phased clocks may fire no learner on the first)."""
     from repro_torch.topology import host_buffers, make_topology
+    from repro_torch.utils.tree import tree_leaves
 
     cfg = _smoke_cfg()
     ref, batches = _state_and_batches(cfg, mcfg, "cpu")
@@ -616,6 +634,27 @@ def _runs_placed_on_1x1(mcfg, chaos=None):
     placed = lambda s, b: placed_meta_step(s, b, loss_fn=_loss(cfg),
                                            cfg=mcfg, placement=placement,
                                            lr=0.01, chaos=chaos)
+    for _ in range(2):
+        ref, mr = unplaced(ref, batches)
+        st, mp = placed(st, bt)
+        assert set(mp) == set(mr)
+        for k in mr:
+            assert float(mp[k]) == float(mr[k]), k
+
+    def local(x):
+        return x.to_local() if hasattr(x, "to_local") else x
+
+    def same(a, b):
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(
+            torch.equal(local(x), y) for x, y in zip(la, lb))
+
+    for f in ("global_params", "momentum", "learners", "comm_residual"):
+        if getattr(ref, f) is not None:
+            assert same(getattr(st, f), getattr(ref, f)), f
+    for k, v in (ref.topo or {}).items():
+        if v is not None:
+            assert same(st.topo[k], v), k
     want = jit_cost(unplaced, ref, batches, in_place=(0,),
                     host=host_buffers(ref.topo))
     got = D.cost_program(placed, (st, bt), dict(
@@ -625,55 +664,38 @@ def _runs_placed_on_1x1(mcfg, chaos=None):
     assert got.hbm_bytes == want.hbm_bytes
     assert got.kernel_calls == want.kernel_calls
     assert got.collective_bytes == 0 and got.collective_calls == 0
-    for _ in range(2):
-        ref, mr = unplaced(ref, batches)
-        st, mp = placed(st, bt)
-        assert set(mp) == set(mr)
-        for k in mr:
-            assert float(mp[k]) == float(mr[k]), k
-    for f in ("global_params", "momentum", "learners", "comm_residual"):
-        if getattr(ref, f) is not None:
-            assert torch.equal(getattr(st, f).to_local(), getattr(ref, f)), f
-    for k, v in (ref.topo or {}).items():
-        if isinstance(v, torch.Tensor):
-            w = st.topo[k]
-            assert torch.equal(w.to_local() if hasattr(w, "to_local") else w,
-                               v), k
 
 
-@pytest.mark.parametrize("change,runs", [
-    pytest.param(dict(packed=False), False, id="per_leaf"),
-    pytest.param(dict(comm=B.CommConfig(scheme="int8")), True, id="int8_ef"),
+@pytest.mark.parametrize("change", [
+    pytest.param(dict(packed=False), id="per_leaf"),
+    pytest.param(dict(comm=B.CommConfig(scheme="int8")), id="int8_ef"),
     pytest.param(dict(topology=B.TopologyConfig(
         kind="hierarchical", groups=2, outer_every=1,
         inner_comm=B.CommConfig(scheme="int8"),
-        elastic=B.ElasticConfig(drop_frac=0.25, period=2))), True,
+        elastic=B.ElasticConfig(drop_frac=0.25, period=2))),
         id="hierarchical"),
-    pytest.param(dict(topology=B.TopologyConfig(kind="gossip")), False,
-                 id="gossip"),
-    pytest.param(dict(topology=B.TopologyConfig(kind="async")), False,
-                 id="async"),
+    pytest.param(dict(topology=B.TopologyConfig(
+        kind="gossip", momentum_tracking=True, inner_comm=B.CommConfig(
+            scheme="int8", chunk_rows=8))), id="gossip"),
+    pytest.param(dict(topology=B.TopologyConfig(
+        kind="async", server=B.AsyncConfig(staleness=3,
+                                           step_time=(1, 1, 2, 4)))),
+        id="async"),
     pytest.param(dict(robust=B.RobustConfig(estimator="trimmed", trim=1,
                                             clip_mult=3.0, clip_window=1)),
-                 True, id="robust"),
-    pytest.param(dict(finite_guard=True), True, id="finite_guard"),
-    pytest.param(dict(algorithm="eamsgd"), False, id="eamsgd"),
-    pytest.param(dict(algorithm="downpour"), False, id="downpour"),
+                 id="robust"),
+    pytest.param(dict(finite_guard=True), id="finite_guard"),
+    pytest.param(dict(algorithm="eamsgd"), id="eamsgd"),
+    pytest.param(dict(algorithm="downpour"), id="downpour"),
 ])
-def test_placed_step_refuses_what_item_14_steps_4_and_5_port(fake_group,
-                                                             change, runs):
-    """Steps 4 and 5's flat half run placed (each, on a (1, 1) mesh, the
-    unplaced step bitwise and costed alike: ``_runs_placed_on_1x1``);
-    per-leaf planes, gossip, the async server, eamsgd and downpour are
-    still refused, naming item 14's step 5."""
-    from repro_torch.sharding.placed import check_supported
-
+def test_placed_step_on_a_1x1_mesh_is_the_unplaced_step(fake_group, change):
+    """Every configuration runs placed: per-leaf planes, int8 + EF, the
+    hierarchical and gossip topologies (ring, momentum tracking, int8 + EF
+    exchange), the async server (profile (1, 1, 2, 4)), robust
+    aggregation, the finite guard, eamsgd and downpour, each on a (1, 1)
+    mesh the unplaced step bitwise and costed alike
+    (``_runs_placed_on_1x1``)."""
     mcfg = B.MAvgConfig(num_learners=4, k_steps=2, momentum=0.7, **change)
-    if not runs:
-        with pytest.raises(NotImplementedError, match="item 14, step 5"):
-            check_supported(mcfg)
-        return
-    check_supported(mcfg)
     nan = None
     if mcfg.finite_guard:
         def nan(learners, step, offset=0):  # learner 1 NaN at step 1
@@ -685,23 +707,33 @@ def test_placed_step_refuses_what_item_14_steps_4_and_5_port(fake_group,
 
 @pytest.mark.parametrize("algorithm", ["mavg", "kavg", "sync",
                                        "mavg_mlocal"])
-def test_placed_step_takes_the_averaging_algorithms(algorithm):
-    from repro_torch.sharding.placed import check_supported
+def test_placed_step_takes_the_averaging_algorithms(fake_group, algorithm):
+    """The averaging algorithms take the flat mix on the rank's pieces
+    (``PlacedFlat``), not the gathered one."""
+    from repro_torch.sharding.placed import (
+        PlacedFlat,
+        RankView,
+        placed_topology,
+    )
 
-    check_supported(B.MAvgConfig(algorithm=algorithm, num_learners=4,
-                                 k_steps=2))
+    cfg = _smoke_cfg()
+    mcfg = B.MAvgConfig(algorithm=algorithm, num_learners=4, k_steps=2)
+    state, batches = _state_and_batches(cfg, mcfg, "cpu")
+    mesh = D.fake_mesh((1, 1), ("data", "model"))
+    st, _ = _placed(state, batches, cfg, mcfg, mesh)
+    view = RankView(st, Placement(mesh, ("data",)))
+    assert isinstance(placed_topology(mcfg, view), PlacedFlat)
 
 
 @pytest.mark.parametrize("what", ["chaos", "cost_analysis", "attribution",
                                   "robust", "gossip", "per_leaf", "async",
                                   "eamsgd", "downpour"])
-def test_trainer_on_a_mesh_refuses_what_item_14_step_5_ports(fake_group,
-                                                             what):
+def test_trainer_on_a_1x1_mesh_runs_every_configuration(fake_group, what):
     """On a (1, 1) mesh a Trainer with chaos (a payload fault), the cost
-    analysis, the attribution rows or robust aggregation runs its steps
-    (the cost and the rows present); gossip, per-leaf planes, the async
-    server, eamsgd and downpour are still refused, naming item 14's step
-    5."""
+    analysis, the attribution rows, robust aggregation, gossip, per-leaf
+    planes, the async server, eamsgd or downpour runs its steps (the cost
+    and the rows present) and logs the records of the Trainer without a
+    mesh."""
     from repro_torch.chaos import ChaosConfig, FaultSpec
     from repro_torch.core.trainer import Trainer
     from repro_torch.data import lm_batch_fn
@@ -723,20 +755,21 @@ def test_trainer_on_a_mesh_refuses_what_item_14_step_5_ports(fake_group,
                          seq_len=8, meta_steps=2, obs=obs, chaos=chaos)
     mesh = D.fake_mesh((1, 1), ("data", "model"))
 
-    def trainer():
+    def trainer(mesh):
         return Trainer(
             tcfg, _loss(cfg),
             init_params_fn=lambda g: api.init_params(g, cfg, "cpu"),
             batch_fn=lm_batch_fn(cfg, 4, 1, 2, 8, device="cpu"),
             device="cpu", mesh=mesh)
 
-    if what in ("gossip", "per_leaf", "async", "eamsgd", "downpour"):
-        with pytest.raises(NotImplementedError, match="item 14, step 5"):
-            trainer()
-        return
-    tr = trainer()
+    tr = trainer(mesh)
     hist = tr.run(log=None)
     assert len(hist) == 2 and all(h["loss"] == h["loss"] for h in hist)
+    if what in ("gossip", "per_leaf", "async", "eamsgd", "downpour"):
+        skip = ("meta_steps_per_sec", "samples_per_sec", "elapsed_s")
+        one = trainer(None).run(log=None)
+        assert [{k: v for k, v in h.items() if k not in skip} for h in hist] \
+            == [{k: v for k, v in h.items() if k not in skip} for h in one]
     if what == "cost_analysis":
         assert tr.jit_cost is not None and tr.jit_cost.flops > 0
         assert tr.manifest["jit_cost"] is not None

@@ -288,6 +288,57 @@ def test_neighbor_mix_plain_order_and_in_place():
     assert torch.isnan(got[:, 0, 0]).sum() == L - 1  # 0 * inf = nan
 
 
+@pytest.mark.parametrize("L", [2, 4, 8])
+def test_neighbor_mix_window_is_the_rows_of_the_square_call(L):
+    """``window=(j0, L_out)``: the outputs j0 .. j0 + L_out - 1 from all L
+    inputs (one rank of a mesh mixes its own learners of the gathered
+    stack), bitwise the matching rows of the square call for every window,
+    through the plain and the stepped entries, f32 and bf16, into a fresh
+    buffer or the input's rows; a NaN learner spreads to every output
+    whose row weighs it, zero weights included, as in the square call."""
+    x = _stack(10 + L, L, 16)
+    x[1, 3, 5] = np.nan
+    W = gossip.mixing_matrix("ring", L)
+    stack = gossip.mixing_matrix_stack("one_peer_exponential", L)
+    for dt in (torch.float32, torch.bfloat16):
+        tx = torch.from_numpy(x).to(dt)
+        square = nm.neighbor_mix_plain(tx, W)
+        stepped = [nm.neighbor_mix_stepped_plain(tx, stack, t)
+                   for t in range(3)]
+        assert int(torch.isnan(square[:, 3, 5]).sum()) == L
+        for j0 in range(L):
+            for n in range(1, L - j0 + 1):
+                rows = slice(j0, j0 + n)
+                got = nm.neighbor_mix_plain(tx, W, window=(j0, n))
+                assert got.shape == (n, 16, 128) and got.dtype == dt
+                assert torch.equal(got.nan_to_num(7.0),
+                                   square[rows].nan_to_num(7.0))
+                assert torch.equal(torch.isnan(got),
+                                   torch.isnan(square[rows]))
+                for t in range(3):
+                    got = ops.neighbor_mix(tx, stack, step=t,
+                                           window=(j0, n))
+                    assert torch.equal(got.nan_to_num(7.0),
+                                       stepped[t][rows].nan_to_num(7.0))
+                into = tx.clone()
+                out = ops.neighbor_mix(into, W, window=(j0, n),
+                                       out=into[rows])
+                assert torch.equal(out.nan_to_num(7.0),
+                                   square[rows].nan_to_num(7.0))
+    # any leaf shape: the padded route returns the window's rows
+    leaf = torch.from_numpy(_stack(3, L, 1)[:, 0, :100].copy())
+    full = ops.neighbor_mix(leaf, W)
+    assert torch.equal(ops.neighbor_mix(leaf, W, window=(L - 1, 1)),
+                       full[L - 1:])
+    for bad in ((-1, 1), (0, 0), (L - 1, 2)):
+        with pytest.raises(ValueError, match="window"):
+            nm.neighbor_mix_plain(tx, W, window=bad)
+    # the cost: L planes read, L_out written, 2 L L_out flops a coordinate
+    meta = torch.empty((L, 8, 128), device="meta")
+    c = nm.cost(meta, W, window=(0, 1))
+    assert c.nbytes == (L + 1) * 8 * 128 * 4 and c.flops == 2 * L * 8 * 128
+
+
 @pytest.mark.parametrize("shape", [(1000,), (33, 7), (3,)])
 def test_neighbor_mix_any_shape_matches_jax(shape):
     L = 4

@@ -15,8 +15,10 @@ compute (in bf16 a one-ulp difference in the mean's summation order
 moves the next step's bf16 roundings, and the planes part at 1e-3
 within two steps): the telemetry of every rank against one process,
 int8 + EF, the hierarchical topology, robust aggregation, the finite
-guard, top-k and a Trainer with chaos, the cost analysis and the
-attribution rows.
+guard (and the robust step at 1 and 4 threads), top-k, a Trainer with
+chaos, the cost analysis and the attribution rows, per-leaf planes,
+gossip, the async server, eamsgd, downpour, and a Trainer each with
+gossip and with the async server.
 """
 import json
 import os
@@ -462,6 +464,9 @@ def configs():
         return Bc.TopologyConfig(kind="hierarchical", groups=2,
                                  outer_every=2, **t)
 
+    def gossip(**t):
+        return Bc.TopologyConfig(kind="gossip", **t)
+
     elastic = Bc.ElasticConfig(period=4, drop_frac=0.25, seed=1)
     rob = Bc.RobustConfig(estimator="trimmed", trim=1, clip_mult=3.0,
                           clip_window=2)
@@ -484,6 +489,26 @@ def configs():
                  None),
         # the robust run again, one process and each rank on 4 threads
         "robust_t4": (Bc.MAvgConfig(robust=rob, **kw), 4, "scale"),
+        "per_leaf": (Bc.MAvgConfig(packed=False, **kw), 3, None),
+        "per_leaf_int8": (Bc.MAvgConfig(packed=False, comm=Bc.CommConfig(
+            scheme="int8"), **kw), 3, None),
+        "gossip_ring": (Bc.MAvgConfig(topology=gossip(
+            momentum_tracking=True, inner_comm=c8), **kw), 3, None),
+        "gossip_exp": (Bc.MAvgConfig(topology=gossip(
+            graph="one_peer_exponential"), **kw), 3, None),
+        "gossip_elastic": (Bc.MAvgConfig(topology=gossip(
+            inner_comm=c8, elastic=elastic), **kw), 4, None),
+        "async": (Bc.MAvgConfig(topology=Bc.TopologyConfig(
+            kind="async", server=Bc.AsyncConfig(
+                staleness=3, step_time=(1, 1, 2, 4)),
+            elastic=elastic), **kw), 6, None),
+        "async_robust": (Bc.MAvgConfig(topology=Bc.TopologyConfig(
+            kind="async", server=Bc.AsyncConfig(
+                staleness=3, step_time=(1, 1, 2, 4))),
+            robust=dataclasses.replace(rob, estimator="mean"), **kw), 6,
+            "scale"),
+        "eamsgd": (Bc.MAvgConfig(algorithm="eamsgd", **kw), 3, None),
+        "downpour": (Bc.MAvgConfig(algorithm="downpour", **kw), 6, None),
     }
 
 
@@ -524,13 +549,20 @@ def model():
 
 
 def planes(state, whole):
-    out = {f: whole(getattr(state, f)) for f in (
-        "global_params", "momentum", "learners", "comm_residual")
-        if getattr(state, f) is not None}
-    for k, v in sorted((state.topo or {}).items()):
-        if isinstance(v, torch.Tensor) and k not in ("membership",
-                                                     "robust_count"):
-            out["topo/" + k] = whole(v)
+    """Every plane of the state (a per-leaf tree leaf by leaf), whole."""
+    from repro_torch.utils.tree import tree_leaves, tree_paths
+
+    fields = [(f, getattr(state, f)) for f in (
+        "global_params", "momentum", "learners", "comm_residual")]
+    fields += [("topo/" + k, v) for k, v in sorted((state.topo or {}).items())
+               if k not in ("membership", "robust_count")]
+    out = {}
+    for f, tree in fields:
+        if tree is None:
+            continue
+        for path, x in zip(tree_paths(tree), tree_leaves(tree)):
+            if isinstance(x, torch.Tensor):
+                out[f + ("/" + path if path else "")] = whole(x)
     return out
 
 
@@ -567,7 +599,10 @@ def _run(name, mesh):
     hist, quantum = [], 0.0
     for i in range(steps):
         b = bf(seeded_generator("cpu", 7, 1 + i), i)
-        if mesh is None:
+        if mesh is None and not mcfg.packed:
+            state, m = meta_step(state, b, loss_fn=loss, cfg=mcfg,
+                                 topology=topology, chaos=chaos)
+        elif mesh is None:
             spread = []
             mix = topology.mix
 
@@ -636,6 +671,43 @@ def trainer_run(mesh):
             "attribution": [r["op"] for r in tr.attribution]}
 
 
+def trainer_records(kind, mesh=None):
+    """A Trainer's records (the wall-clock rates left out) of 4 meta steps
+    of gossip (ring, momentum tracking, int8 + EF) or 6 ticks of the async
+    server (profile (1, 1, 2, 4), staleness 3), and its final planes."""
+    from repro_torch.configs import base as Bc
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.models import api
+
+    cfg, loss = model()
+    topo = (Bc.TopologyConfig(kind="gossip", momentum_tracking=True,
+                              inner_comm=Bc.CommConfig(scheme="int8",
+                                                       chunk_rows=8))
+            if kind == "gossip" else Bc.TopologyConfig(
+                kind="async", server=Bc.AsyncConfig(
+                    staleness=3, step_time=(1, 1, 2, 4))))
+    mcfg = Bc.MAvgConfig(num_learners=L, k_steps=K, learner_lr=0.5,
+                         momentum=0.6, topology=topo)
+    steps = 4 if kind == "gossip" else 6
+    tcfg = Bc.TrainConfig(model=cfg, mavg=mcfg, batch_per_learner=B,
+                          seq_len=S, meta_steps=steps, log_every=1)
+    tr = Trainer(tcfg, loss,
+                 init_params_fn=lambda g: api.init_params(g, cfg, "cpu"),
+                 batch_fn=lm_batch_fn(cfg, L, K, B, S, device="cpu"),
+                 device="cpu", mesh=mesh)
+    hist = tr.run(log=None)
+    whole = ((lambda t: t) if mesh is None else
+             (lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t))
+    return ([{k: v for k, v in h.items()
+              if k not in ("meta_steps_per_sec", "samples_per_sec",
+                           "elapsed_s")} for h in hist],
+            planes(tr.state, whole))
+
+
+TRAINERS = ("gossip", "async")
+
+
 def rank_main(rank, port, shape, tmp, names):
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -657,6 +729,13 @@ def rank_main(rank, port, shape, tmp, names):
         every = [None] * 4
         dist.all_gather_object(every, tr)
         out["trainer"] = every
+        for kind in TRAINERS:
+            hist, pl = trainer_records(kind, mesh)
+            every = [None] * 4
+            dist.all_gather_object(every, hist)
+            out["trainer_" + kind] = every
+            if rank == 0:
+                torch.save(pl, os.path.join(tmp, f"trainer_{kind}_mesh.pt"))
         if rank == 0:
             with open(os.path.join(tmp, "mesh.json"), "w") as f:
                 json.dump(out, f)
@@ -674,6 +753,10 @@ if __name__ == "__main__":
             hist, pl, q = run(name)
             out[name] = {"hist": hist, "quantum": q}
             torch.save(pl, os.path.join(tmp, f"{name}_single.pt"))
+        for kind in TRAINERS:
+            hist, pl = trainer_records(kind)
+            out["trainer_" + kind] = {"hist": hist}
+            torch.save(pl, os.path.join(tmp, f"trainer_{kind}_single.pt"))
         with open(os.path.join(tmp, "single.json"), "w") as f:
             json.dump(out, f)
     else:
@@ -687,7 +770,31 @@ if __name__ == "__main__":
 
 MIX_MESHES = ("2x2", "4x1")
 MIX_CONFIGS = ("dense", "int8", "int8_c8", "hier_static", "hier_elastic",
-               "hier_elastic_dense", "hier_robust", "robust", "guard", "topk")
+               "hier_elastic_dense", "hier_robust", "robust", "guard", "topk",
+               "per_leaf", "per_leaf_int8", "gossip_ring", "gossip_exp",
+               "gossip_elastic", "async", "async_robust", "eamsgd",
+               "downpour")
+# per-leaf planes, gossip and the async server, and the planes of each
+# that a rank's sum in another order than one process's rounds apart
+# (rtol 1e-5 / atol 1e-6); every other plane is one process's bitwise
+ROUNDED = {
+    # the dense mean's f32 sum completed over the learner ranks moves the
+    # mean, then every plane trained from it
+    "per_leaf": None,
+    # the one-process reducer on the gathered stack
+    "per_leaf_int8": (),
+    # w~ = the mean of the params, completed over the learner ranks (it
+    # feeds no later step)
+    "gossip_ring": ("global_params",),
+    "gossip_exp": ("global_params",),
+    "gossip_elastic": ("global_params",),
+    # the displacement sum is exact in f64, in any order of the ranks (and
+    # the clip's Gram matrix rounds to f32 once)
+    "async": (),
+    "async_robust": (),
+    "eamsgd": (),
+    "downpour": (),
+}
 # the metrics held on every rank to one process at the first meta step
 # (every other one is too)
 TELEMETRY = ("v_norm", "displacement_norm", "consensus_dist", "comm_bytes",
@@ -909,3 +1016,97 @@ def test_trainer_with_chaos_cost_and_attribution_on_a_mesh(mix_runs, mesh):
     assert jc is not None and jc["flops"] > 0 and jc["collective_bytes"] > 0
     assert t["attribution"] == ["phase:step", "phase:local",
                                 "phase:meta_mix"]
+
+
+# ---------------------------------------------------------------------------
+# per-leaf planes, gossip and the async server (eamsgd, downpour) on the
+# mesh (sharding/placed.py)
+# ---------------------------------------------------------------------------
+
+
+def _held(got, want, rounding):
+    """Each plane bitwise one process's, but those named in ``rounding``
+    (every plane where it is None) within rtol 1e-5 / atol 1e-6."""
+    assert set(got) == set(want)
+    for k, w in want.items():
+        if rounding is None or any(k.startswith(r) for r in rounding):
+            torch.testing.assert_close(got[k], w, rtol=1e-5, atol=1e-6)
+        else:
+            assert torch.equal(got[k], w), k
+
+
+def _same_records(got, want):
+    """Per-step records with the same keys, each value within rtol 1e-5
+    of one process's (the host counters, clocks and gaps exactly)."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k, x in w.items():
+            assert g[k] == pytest.approx(x, rel=1e-5, abs=1e-30), (k, g[k], x)
+
+
+@pytest.mark.parametrize("name", list(ROUNDED))
+@pytest.mark.parametrize("mesh", MIX_MESHES)
+def test_per_leaf_gossip_and_async_on_a_mesh_match_one_process(
+        mix_runs, mesh, name):
+    """Per-leaf planes (dense: the mean of each leaf's pieces completed by
+    one all-reduce, block momentum on the pieces; int8 + EF: the
+    one-process quantizer on the gathered stack), gossip (ring with
+    momentum tracking and int8 + EF on the rank's pieces, the stepped
+    one_peer_exponential, elastic masking; each rank mixes its own
+    learners from the stack gathered over the learner axes through the
+    ``neighbor_mix`` window) and the async server (mavg on the profile
+    (1, 1, 2, 4) under elastic membership, the same profile with the
+    robust clip and scores while learner 3's payload is scaled x12,
+    eamsgd, downpour; the decayed displacement sum exact in f64 and
+    completed by one all-reduce), held
+    to one process over 3 or more meta steps (ticks): every rank logs the
+    same records, each within rtol 1e-5 of one process's, and every plane
+    (residual and topology buffers too) is one process's bitwise where
+    the route is order-free, else within rtol 1e-5 / atol 1e-6
+    (``ROUNDED``)."""
+    ranks, single, _ = _mix(mix_runs, mesh, name)
+    assert all(r == ranks[0] for r in ranks), name
+    assert len(single) >= 3
+    _same_records(ranks[0], single)
+    for k in ("fired_count", "staleness_max", "present_count",
+              "mixing_spectral_gap"):
+        if k in single[0]:
+            assert [h[k] for h in ranks[0]] == [h[k] for h in single], k
+    got, want = _planes(mix_runs, mesh, name), _planes(mix_runs, "single",
+                                                      name)
+    _held(got, want, ROUNDED[name])
+    if name.startswith("gossip"):
+        assert "topo/params" in want and "topo/momentum" in want
+    if name == "gossip_ring":
+        assert want["topo/residual"].abs().max() > 0
+    if name.startswith("async"):
+        assert any(h["fired_count"] < 4.0 for h in single)
+        assert max(h["staleness_max"] for h in single) > 0
+    if name == "async_robust":
+        assert any(h["robust_clipped_learners"] for h in single)
+
+
+@pytest.mark.parametrize("kind", ["gossip", "async"])
+@pytest.mark.parametrize("mesh", MIX_MESHES)
+def test_trainer_with_gossip_or_async_on_a_mesh_matches_one_process(
+        mix_runs, mesh, kind):
+    """A Trainer on the mesh with gossip (ring, momentum tracking, int8 +
+    EF; 4 meta steps) or the async server (profile (1, 1, 2, 4),
+    staleness 3; 6 ticks): every rank logs one process's records (the
+    samples counted in completed K-blocks, the staleness and fired
+    counts, each value within rtol 1e-5), and its final planes are one
+    process's (gossip's w~ within rtol 1e-5 / atol 1e-6, every other
+    plane bitwise)."""
+    ranks = mix_runs[mesh][0]["trainer_" + kind]
+    single = mix_runs["single"][0]["trainer_" + kind]["hist"]
+    assert all(r == ranks[0] for r in ranks)
+    _same_records(ranks[0], single)
+    assert [h["samples"] for h in ranks[0]] == [h["samples"] for h in single]
+    if kind == "async":
+        for k in ("staleness_max", "fired_count"):
+            assert [h[k] for h in ranks[0]] == [h[k] for h in single]
+    tag = f"trainer_{kind}"
+    got, want = (torch.load(mix_runs[m][1] / f"{tag}_{t}.pt")
+                 for m, t in ((mesh, "mesh"), ("single", "single")))
+    _held(got, want, ("global_params",) if kind == "gossip" else ())
