@@ -1669,8 +1669,9 @@ def profile_meta_step(torch, trainer, step_ms: float,
 
 def profile_local_step(torch, trainer, cfg, tcfg) -> None:
     """One local step of learner 0 as the local phase runs it (the loss
-    and its backward into the gradient plane, then ``sgd_apply`` on the
-    learner's plane; ``core/meta.py``), timed unprofiled and then under
+    and its backward into the gradient plane, then the gradient's
+    telemetry norm and ``sgd_apply`` on the learner's plane;
+    ``core/meta.py``), timed unprofiled and then under
     torch.profiler. It moves learner 0 off the meta params: the trainer
     is not stepped again."""
     from repro_torch.core import meta
@@ -1689,7 +1690,7 @@ def profile_local_step(torch, trainer, cfg, tcfg) -> None:
     def step():
         meta._grad_into(lambda p, b: api.loss_fn(p, cfg, b), w_tree, batch,
                         grads)
-        meta._sgd_update(w, None, g, mcfg, LR)
+        meta._update(w, None, g, grads, mcfg, LR)
 
     step()
     torch.cuda.synchronize()

@@ -666,8 +666,14 @@ class ObsConfig:
                      trace exports; required for the file sinks
     buffer_capacity  rows of the device metric ring (0 -> sized to
                      max(log_every, 1), the flush cadence)
-    trace            phase span timers (dispatch / host_flush /
-                     checkpoint_io / sink) + Chrome-trace export to
+    trace            phase spans (``obs/trace.py``) on the profiler's
+                     epoch clock: the Trainer's data / dispatch (with
+                     the allocator's retry, alloc and free deltas) /
+                     host_flush / checkpoint_io / sink_append, each
+                     collection (gc), and in the meta step local_phase,
+                     meta_mix and each local step's forward / backward /
+                     update, also as ``<span>.device`` CUDA-event time
+                     on a card; Chrome-trace export to
                      ``run_dir/trace.json`` at the end of each run
     profiler         capture a torch.profiler trace of the run (CPU and,
                      on the card, its kernels) into ``run_dir/torch_trace``

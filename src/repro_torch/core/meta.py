@@ -44,6 +44,7 @@ import torch
 from repro_torch.configs.base import MAvgConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.planes import f32, windows
+from repro_torch.obs.trace import phase
 from repro_torch.pack import PackSpec, make_pack_spec
 from repro_torch.utils.tree import (
     tree_broadcast_learners,
@@ -147,14 +148,27 @@ def _grad_into(loss_fn: LossFn, w, batch, g, grad_mean=None):
         p.grad = gi
         return p
 
-    tree_map(lambda gi: gi.zero_(), g)
-    params = tree_map(leaf, w, g)
-    loss, _aux = loss_fn(params, batch)
-    loss.backward()
-    loss = loss.detach()
-    if grad_mean is not None:
-        loss = grad_mean(loss)
-    return loss, tree_norm(g)
+    with phase("obs.forward", g):
+        tree_map(lambda gi: gi.zero_(), g)
+        params = tree_map(leaf, w, g)
+        loss, _aux = loss_fn(params, batch)
+    with phase("obs.backward", g):
+        loss.backward()
+        loss = loss.detach()
+        if grad_mean is not None:
+            loss = grad_mean(loss)
+    return loss
+
+
+def _update(w, mom, g, grads, cfg: MAvgConfig, lr: float):
+    """The local step's work once its gradient is whole (the
+    ``obs.update`` span): the telemetry norm of the gradient tree
+    ``grads``, then ``_sgd_update`` of ``w`` by ``g`` (the gradient's
+    plane, or the same tree). Returns the norm."""
+    with phase("obs.update", g):
+        gnorm = tree_norm(grads)
+        _sgd_update(w, mom, g, cfg, lr)
+    return gnorm
 
 
 @torch.no_grad()
@@ -218,10 +232,10 @@ def _local_phase(loss_fn: LossFn, learners, local_mom, batches,
             mom = tree_map(torch.zeros_like, w_upd)  # not carried over
         for k in range(counts[j]):
             batch = {key: val[j, k] for key, val in batches.items()}
-            loss, gnorm = _grad_into(
+            loss = _grad_into(
                 loss_fn, w_tree, batch, grads,
                 None if grad_mean is None else partial(grad_mean, g=g_upd))
-            _sgd_update(w_upd, mom, g_upd, cfg, lr)
+            gnorm = _update(w_upd, mom, g_upd, grads, cfg, lr)
             losses.append(loss)
             gnorms.append(gnorm)
     if spec is not None:
@@ -351,8 +365,11 @@ def meta_step(state: MetaState, batches, *, loss_fn: LossFn,
     # the topology may mask trailing local steps per learner (per-group
     # K_g, elastic membership)
     steps = topology.local_steps(state.topo, state.step)
-    # profiler ranges named as the JAX step's named scopes
-    with torch.profiler.record_function("obs.local_phase"):
+    # profiler ranges named as the JAX step's named scopes; under an
+    # enabled Tracer each is also a host span, the parent of the local
+    # steps' phases (``obs.trace``)
+    with torch.profiler.record_function("obs.local_phase"), phase(
+            "obs.local_phase", profiler_range=None):
         learners, local_mom = state.learners, state.local_momentum
         if rows is not None:
             learners, local_mom = rows[0](learners, local_mom)
@@ -379,7 +396,8 @@ def meta_step(state: MetaState, batches, *, loss_fn: LossFn,
                 learners, local_mom, metrics = _finite_guard(
                     learners, local_mom, state.global_params, metrics,
                     cfg.num_learners)
-    with torch.no_grad(), torch.profiler.record_function("obs.meta_mix"):
+    with torch.no_grad(), torch.profiler.record_function("obs.meta_mix"), \
+            phase("obs.meta_mix", profiler_range=None):
         gp, v, learners, comm_res, topo, topo_metrics = topology.mix(
             learners, state.global_params, state.momentum,
             state.comm_residual, state.topo, step=state.step,

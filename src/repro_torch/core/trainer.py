@@ -8,14 +8,16 @@ device, so the host reads no metric between ``log_every`` boundaries: one
 device-to-host read per flush window is the only sync. Flushed records,
 with host-side wall-clock throughput, land in ``self.history`` and, when
 ``TrainConfig.obs`` selects a sink, in a structured run log under a run
-manifest. ``obs.trace`` times the ``obs.*`` phases and exports a Chrome
-trace, ``obs.profiler`` a ``torch.profiler`` trace, ``obs.health``
-watches the flushed windows (a fatal rule saves a resumable checkpoint
-and raises ``HealthHalt``), and ``obs.attribution`` times the step, the
-local phase and the meta mix once before step 0, and
-``obs.cost_analysis`` costs the bare step once before step 0
-(``roofline.cost.jit_cost`` on meta copies of the state) into the
-manifest's ``jit_cost``.
+manifest. ``obs.trace`` times the ``obs.*`` phases (the data draw, the
+dispatch, the flush, the collector's pauses, and inside the step the
+forward, backward and update, on the card also in device time) and
+exports a Chrome trace (``obs/trace.py``), ``obs.profiler`` a
+``torch.profiler`` trace, ``obs.health`` watches the flushed windows (a
+fatal rule saves a resumable checkpoint and raises ``HealthHalt``), and
+``obs.attribution`` times the step, the local phase and the meta mix
+once before step 0, and ``obs.cost_analysis`` costs the bare step once
+before step 0 (``roofline.cost.jit_cost`` on meta copies of the state)
+into the manifest's ``jit_cost``.
 
 With ``TrainConfig.checkpoint_dir`` and ``checkpoint_every`` set, the
 state is saved (``repro_torch.checkpoint``, with the run manifest) after
@@ -221,12 +223,13 @@ class Trainer:
                        for k, v in batches.items()}
             phases = placed_phases(self.loss_fn, self.mcfg, self._placement)
         try:
-            self.attribution = profile_phases(
-                self.loss_fn, self.mcfg, self.state, batches, lr,
-                iters=5, warmup=2,
-                peak_gbps=measured_peak_gbps(device=self.device),
-                phases=phases,
-            )
+            with self.tracer.hooks_paused():
+                self.attribution = profile_phases(
+                    self.loss_fn, self.mcfg, self.state, batches, lr,
+                    iters=5, warmup=2,
+                    peak_gbps=measured_peak_gbps(device=self.device),
+                    phases=phases,
+                )
         except Exception:  # attribution is best-effort telemetry
             self.attribution = []
 
@@ -247,15 +250,16 @@ class Trainer:
         args = (self.state, batches, lr)
         kw = dict(in_place=(0,), host=host_buffers(self.state.topo))
         try:
-            if self.mesh is None:
-                self.jit_cost = jit_cost(step, *args, **kw)
-            else:
-                # one rank's program, its collectives labelled by mesh
-                # axes, as the dry run costs it
-                from repro_torch.launch.dryrun_lib import cost_program
+            with self.tracer.hooks_paused():
+                if self.mesh is None:
+                    self.jit_cost = jit_cost(step, *args, **kw)
+                else:
+                    # one rank's program, its collectives labelled by mesh
+                    # axes, as the dry run costs it
+                    from repro_torch.launch.dryrun_lib import cost_program
 
-                self.jit_cost = cost_program(
-                    step, args, dict(kw, groups=self._placement.labels))
+                    self.jit_cost = cost_program(
+                        step, args, dict(kw, groups=self._placement.labels))
         except Exception:  # cost analysis is best-effort telemetry
             self.jit_cost = None
 
@@ -286,6 +290,8 @@ class Trainer:
                 return
             with self.tracer.span("obs.host_flush"):
                 recs = self._mb.flush()
+            # the read synchronised the stream: the step's device spans
+            self.tracer.resolve()
             now = time.time()
             dt = max(now - self._last_flush_t, 1e-9)
             self._last_flush_t = now
@@ -339,7 +345,10 @@ class Trainer:
             try:
                 for i in range(n):
                     step = start + i
-                    batches = self.batch_fn(self._data_generator(step), step)
+                    self.tracer.step = step
+                    with self.tracer.span("obs.data", profiler_range="op"):
+                        batches = self.batch_fn(self._data_generator(step),
+                                                step)
                     lr = (self.lr_schedule(step) if self.lr_schedule
                           else np.float32(self.mcfg.learner_lr))
                     if self._mb is None and self.obs_cfg.cost_analysis:
@@ -349,7 +358,7 @@ class Trainer:
                     if self._mb is not None and self._mb.full:
                         flush()  # ring smaller than the log window
                         maybe_halt(step - 1)
-                    with self.tracer.span("obs.dispatch"):
+                    with self.tracer.span("obs.dispatch", alloc=self.device):
                         self.state, metrics = self._step_fn(
                             self.state, batches, lr=lr)
                         if self._mb is None:

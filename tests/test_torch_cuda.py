@@ -1104,3 +1104,82 @@ def test_cuda_placed_configurations_on_a_one_gpu_mesh(cuda_device, name):
     assert out["placed"] == out["unplaced"], out
     for kernel in chip_smoke.PLACED_KERNELS[name]:
         assert out["placed"].get(kernel, 0) > 0, (kernel, out)
+
+
+@pytest.mark.cuda
+def test_cuda_traced_run_times_the_local_step_on_the_device(cuda_device):
+    """Reduced Qwen3 on the card with the Tracer on: every local step's
+    forward, backward and update get a ``.device`` span after each flush,
+    in turn on the card, after the host's local phase began; the
+    dispatch spans carry the allocator counters; the profiler sees the
+    phases as host ranges only, with no copy on the card's timeline."""
+    from repro_torch.configs.base import (
+        MAvgConfig,
+        ObsConfig,
+        TrainConfig,
+        get_config,
+    )
+    from repro_torch.core.trainer import Trainer
+    from repro_torch.data import uniform_batch_fn
+    from repro_torch.models import api
+    from repro_torch.obs.trace import ALLOC_COUNTERS
+
+    cfg = get_config("qwen3-1.7b").reduced()
+    nl, k = 2, 2
+
+    def trainer(trace):
+        tcfg = TrainConfig(
+            model=cfg, mavg=MAvgConfig(algorithm="mavg", num_learners=nl,
+                                       k_steps=k),
+            batch_per_learner=2, seq_len=16, meta_steps=3, log_every=1,
+            obs=ObsConfig(trace=trace))
+        return Trainer(
+            tcfg, lambda p, b: api.loss_fn(p, cfg, b),
+            init_params_fn=lambda gen: api.init_params(gen, cfg,
+                                                       cuda_device),
+            batch_fn=uniform_batch_fn(cfg, nl, k, 2, 16),
+            device=cuda_device)
+
+    on, off = trainer(True), trainer(False)
+    off.run(log=None)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        on.run(log=None)
+        torch.cuda.synchronize()
+    assert off.tracer.events == []
+    assert [h["loss"] for h in off.history] == [h["loss"] for h in on.history]
+    t = on.tracer
+    assert t._pending == []
+    rows = [(n, a["step"], t0, d, a) for (n, t0, d), a in zip(t.events,
+                                                              t.args)]
+    for step in range(3):
+        def of(name):
+            return [r for r in rows if r[0] == name and r[1] == step]
+
+        (host_local,) = of("obs.local_phase")
+        names = ("obs.forward", "obs.backward", "obs.update")
+        for name in names:
+            dev, host = of(name + ".device"), of(name)
+            assert len(dev) == len(host) == nl * k, name
+            for d, h in zip(dev, host):
+                assert d[3] > 0 and d[2] >= h[2] - 1e-3, (name, d, h)
+                assert d[4]["parent"] == "obs.local_phase"
+                assert d[2] >= host_local[2] - 1e-3
+        # one stream: the local steps' phases run in turn on the card
+        dev = sorted((r for n in names for r in of(n + ".device")),
+                     key=lambda r: r[2])
+        assert [r[0] for r in dev] == [n + ".device" for n in names] * (nl * k)
+        for a, b in zip(dev, dev[1:]):
+            assert b[2] >= a[2] + a[3] - 1e-4, (a, b)
+        (disp,) = of("obs.dispatch")
+        assert set(ALLOC_COUNTERS) <= set(disp[4])
+        # the local phase and the mix are host spans only
+        assert of("obs.local_phase.device") == of("obs.meta_mix.device") == []
+    on_card = {e.name() for e in prof.profiler.kineto_results.events()
+               if e.device_type() != torch.autograd.DeviceType.CPU}
+    on_host = {e.name() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CPU}
+    phases = {"obs.forward", "obs.backward", "obs.update", "obs.data"}
+    assert phases <= on_host
+    assert not phases & on_card, phases & on_card

@@ -16,10 +16,12 @@ agree to rtol 1e-5 (timing keys excluded), both pass
 """
 import csv
 import functools
+import gc
 import importlib.util
 import json
 import math
 import os
+import time
 
 import numpy as np
 import pytest
@@ -59,6 +61,7 @@ from repro_torch.obs import (  # noqa: E402
     run_manifest,
     write_row,
 )
+from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.obs.sink import _jsonify, _repair_torn_tail  # noqa: E402
 from repro_torch.pack import make_pack_spec  # noqa: E402
 
@@ -423,6 +426,171 @@ def test_obs7_spans_land_in_the_torch_trace(tmp_path):
         assert span in names, span
     summary = tr.tracer.summary()
     assert summary["obs.dispatch"]["count"] == 2
+
+
+# ---------------------------------------------------------------------------
+# OBS10: spans of the local step and the host loop, on the profiler's clock
+# ---------------------------------------------------------------------------
+
+LOCAL_SPANS = ("obs.forward", "obs.backward", "obs.update")
+
+
+def _profiled_ns(prof, name):
+    return sorted(e.start_ns() for e in prof.profiler.kineto_results.events()
+                  if e.name() == name)
+
+
+@pytest.mark.parametrize("how", ["span", "phase"])
+def test_obs10_span_and_profiler_range_start_together(how):
+    """A Tracer span and the ``torch.profiler`` CPU range of its name start
+    within 1 ms of each other: both are epoch nanoseconds."""
+    tr = Tracer(enabled=True)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof, tr.session():
+        for _ in range(3):
+            cm = (tr.span("obs.clock") if how == "span"
+                  else obs_trace.phase("obs.clock"))
+            with cm:
+                torch.ones(64).add_(1.0)
+    ours = [round(t0 * 1e9) for name, t0, _ in tr.events
+            if name == "obs.clock"]
+    theirs = _profiled_ns(prof, "obs.clock")
+    assert len(ours) == len(theirs) == 3
+    for a, b in zip(ours, theirs):
+        assert abs(a - b) < 1_000_000, (a, b)
+
+
+def test_obs10_chrome_exports_share_a_time_base(tmp_path):
+    """``trace.json`` writes ``ts`` on ``torch_trace/trace.json``'s base:
+    each span lies within 1 ms of the torch trace's range of its name."""
+    run_dir = tmp_path / "run"
+    tr = _trainer(tmp_path, sink="memory", run_dir=str(run_dir), trace=True,
+                  profiler=True)
+    tr.run(2, log=None)
+    ours = json.load(open(run_dir / "trace.json"))
+    theirs = json.load(open(run_dir / "torch_trace" / "trace.json"))
+    assert ours["baseTimeNanoseconds"] == theirs["baseTimeNanoseconds"] > 0
+    for name in ("obs.dispatch", "obs.data", "obs.forward", "obs.update"):
+        a = sorted(e["ts"] for e in ours["traceEvents"] if e["name"] == name)
+        b = sorted(e["ts"] for e in theirs["traceEvents"]
+                   if e.get("name") == name and e.get("ph") == "X")
+        assert a and len(a) == len(b), name
+        assert max(abs(x - y) for x, y in zip(a, b)) < 1e3, name  # us
+
+
+def test_obs10_local_step_spans_each_meta_step(tmp_path):
+    """A traced run records L x K each of ``obs.forward``, ``obs.backward``
+    and ``obs.update`` a meta step, inside ``obs.local_phase``, with the
+    step's id; ``obs.data`` once a step; no ``.device`` span on the CPU."""
+    tr = _trainer(tmp_path, sink="memory", trace=True)
+    tr.run(3, log=None)
+    t = tr.tracer
+    assert len(t.events) == len(t.args)
+    assert not [n for n, _, _ in t.events if n.endswith(".device")]
+    assert t._pending == []
+    rows = [(n, a["step"], a.get("parent"), t0, d)
+            for (n, t0, d), a in zip(t.events, t.args)]
+    for step in range(3):
+        for name in LOCAL_SPANS:
+            mine = [r for r in rows if r[0] == name and r[1] == step]
+            assert len(mine) == L * K, (name, step)
+            assert {r[2] for r in mine} == {"obs.local_phase"}
+        (local,) = [r for r in rows
+                    if r[0] == "obs.local_phase" and r[1] == step]
+        assert local[2] == "obs.dispatch"
+        for r in rows:
+            if r[0] in LOCAL_SPANS and r[1] == step:
+                assert local[3] <= r[3] and r[3] + r[4] <= local[3] + local[4]
+        assert [r[2] for r in rows
+                if r[0] == "obs.data" and r[1] == step] == [None]
+    t0s = [t0 for _, t0, _ in t.events if t0]
+    assert abs(min(t0s) - time.time()) < 600  # epoch seconds
+
+
+def test_obs10_cost_analysis_runs_under_trace(tmp_path):
+    """A traced run with ``cost_analysis`` still costs its step (the
+    phase hook is paused for it), and ``phase`` on meta tensors under an
+    active Tracer takes no device pair."""
+    tc = _trainer(tmp_path, sink="memory", trace=True, cost_analysis=True)
+    tc.run(1, log=None)
+    assert tc.jit_cost is not None and tc.manifest["jit_cost"]["flops"] > 0
+    assert tc.jit_cost.kernel_calls == {"sgd_apply": L * K,
+                                        "fused_momentum_broadcast": 1}
+    names = [n for n, _, _ in tc.tracer.events]
+    assert names.count("obs.forward") == L * K
+    tr = Tracer(enabled=True)
+    with tr.session():
+        with obs_trace.phase("obs.forward", torch.empty(4, device="meta")):
+            pass
+        assert tr._pending == []
+    assert [n for n, _, _ in tr.events] == ["obs.forward"]
+
+
+def test_obs10_a_collection_is_a_gc_span():
+    tr = Tracer(enabled=True)
+    tr.step = 7
+    with tr.session():
+        with tr.span("obs.dispatch"):
+            gc.collect()
+    (args,) = [a for (n, _, _), a in zip(tr.events, tr.args)
+               if n == "obs.gc" and a.get("generation") == 2]
+    assert args["step"] == 7 and args["parent"] == "obs.dispatch"
+    assert args["collected"] >= 0
+    n_gc = sum(n == "obs.gc" for n, _, _ in tr.events)
+    gc.collect()  # after the session: not recorded
+    assert sum(n == "obs.gc" for n, _, _ in tr.events) == n_gc
+
+
+def test_obs10_gc_callbacks_restored_on_every_exit():
+    before = list(gc.callbacks)
+    tr = Tracer(enabled=True)
+    with tr.session():
+        assert len(gc.callbacks) == len(before) + 1
+        assert obs_trace._ACTIVE is tr
+    assert gc.callbacks == before and obs_trace._ACTIVE is None
+    with pytest.raises(RuntimeError, match="boom"):
+        with tr.session():
+            with obs_trace.phase("obs.forward"):
+                raise RuntimeError("boom")
+    assert gc.callbacks == before and obs_trace._ACTIVE is None
+    with Tracer(enabled=False).session():
+        assert gc.callbacks == before and obs_trace._ACTIVE is None
+
+
+def test_obs10_trace_off_records_nothing_and_steps_bitwise(tmp_path):
+    """With tracing off the step gets no range, hook or span: the profiler
+    sees no phase of the step, ``phase`` is the shared no-op, nothing is
+    recorded; losses and planes are bitwise a traced run's."""
+    seen = []
+
+    def watch(trainer):
+        inner = trainer.batch_fn
+
+        def batch_fn(gen, step):
+            seen.append((list(gc.callbacks), obs_trace._ACTIVE,
+                         obs_trace.phase("obs.forward")))
+            return inner(gen, step)
+
+        trainer.batch_fn = batch_fn
+        return trainer
+
+    off = watch(_trainer(tmp_path, sink="memory"))
+    on = _trainer(tmp_path, sink="memory", trace=True)
+    before = list(gc.callbacks)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        off.run(3, log=None)
+    on.run(3, log=None)
+    assert off.tracer.events == [] and off.tracer.args == []
+    assert seen and all(cb == before and act is None and ph is obs_trace._NULL
+                        for cb, act, ph in seen)
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert not names & {"obs.forward", "obs.backward", "obs.update",
+                        "obs.data", "obs.gc", "obs.dispatch"}
+    assert "obs.local_phase" in names  # the step's own range, as before
+    assert [h["loss"] for h in off.history] == [h["loss"] for h in on.history]
+    for f in ("global_params", "momentum", "learners"):
+        assert torch.equal(getattr(off.state, f), getattr(on.state, f)), f
 
 
 # ---------------------------------------------------------------------------
