@@ -352,6 +352,12 @@ RR_REPLACES = "src/repro/kernels/robust_reduce.py:57"
 ATTENTION_SOURCE = "src/repro_torch/kernels/csrc/attention_hopper.cu"
 ATTENTION_F32_SOURCE = "src/repro_torch/kernels/csrc/attention_hopper_f32.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention.py:80"
+MOE_SOURCE = "src/repro_torch/kernels/csrc/moe_kernels.cu"
+MOE_REPLACES = "none (XLA's gather and scatter-add, src/repro/models/moe.py)"
+# tokens of a learner's local step in the deepseek-moe-16b-l3.mavg-k4 cell
+# (B = 8 rows of S = 512): with DeepSeekMoE-16B's top-6 of 64 experts at
+# capacity factor 1.25, C = 480
+MOE_CELL_TOKENS = 8 * 512
 # layers (of 28) of the full-width topology runs, of phases 4, 5 and 9
 # (the dense, compressed and robust main paths), 13a (telemetry), and of
 # phase 12 (the checkpoint; 13b takes its configuration): phases 5, 9
@@ -1192,6 +1198,107 @@ def check_robust_reduce(torch, rr, rows, rows_cut) -> dict:
                 bound_by=b_by, library_ms=library_ms)
 
 
+def moe_tables(torch, cfg, T, cf=1.25, dropless=False, tied=False):
+    """The routing tables of T tokens under ``cfg`` at capacity factor
+    ``cf`` (``models/moe.py``'s own): seeded random router probabilities,
+    or with ``tied`` equal ones (experts 0..k-1 take every token, the others
+    none, and past the capacity a token's every slot is dropped). Returns
+    (N = E C, dispatch (N,), slots (T, k))."""
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(cfg, capacity_factor=cf)
+    E, k = cfg.num_experts, cfg.moe_top_k
+    gen = torch.Generator(device="cuda").manual_seed(T + E)
+    probs = (torch.full((T, E), 1.0 / E, device="cuda") if tied else
+             torch.softmax(torch.randn(T, E, generator=gen, device="cuda"),
+                           dim=-1))
+    idx = torch.sort(probs, dim=-1, descending=True,
+                     stable=True).indices[:, :k]
+    _, se, pos, keep, _, C = moe._assign(probs, idx, cfg, dropless)
+    _, dispatch, slots = moe._tables(se, pos, keep, T, k, E, C, "cuda")
+    return E * C, dispatch, slots
+
+
+def check_moe_rows(torch, mr) -> list[dict]:
+    """The MoE gathers at the deepseek-moe-16b-l3.mavg-k4 cell's shapes
+    (T 4,096, top-6 of 64 experts, C 480, d 2,048): bitwise against their
+    plain versions in f32 and bf16, at capacity factors 1.25 and 0.01 and
+    dropless with tied routing (empty experts, wholly dropped tokens),
+    then timed in bf16 on the router's tables beside the plain versions
+    and the ATen paths they replace: ``rows_by_table`` the combine's
+    gather backward (zeros and an accumulating ``index_put_`` of the
+    masked (T k, d) cotangent over the clamped slots), ``sum_by_slots``
+    ``xt_pad[dispatch]``'s backward (zeros and an accumulating
+    ``index_put_`` of the (E C, d) cotangent). The forward ATen paths
+    they replace are printed too."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config("deepseek-moe-16b")
+    T, d, k = MOE_CELL_TOKENS, cfg.d_model, cfg.moe_top_k
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rand(n, dt):
+        return torch.randn(n, d, generator=gen, device="cuda").to(dt)
+
+    err = 0.0
+    for cf, dropless, tied in ((1.25, False, False), (0.01, False, True),
+                               (1.25, True, True)):
+        N, dispatch, slots = moe_tables(torch, cfg, T, cf, dropless, tied)
+        for dt in (torch.float32, torch.bfloat16):
+            x, y = rand(T, dt), rand(N, dt)
+            err = max(err, max_err(torch, mr.rows_by_table_cuda(x, dispatch),
+                                   mr.rows_by_table_plain(x, dispatch)),
+                      max_err(torch, mr.sum_by_slots_cuda(y, slots),
+                              mr.sum_by_slots_plain(y, slots)))
+            del x, y
+        print(f"  moe gathers cf={cf} dropless={dropless} tied={tied} "
+              f"(N = {N}): bitwise equal in f32 and bf16")
+    N, dispatch, slots = moe_tables(torch, cfg, T)
+    bf = torch.bfloat16
+    x, y, g = rand(T, bf), rand(N, bf), rand(T, bf)
+    kept = slots < N
+    idx = slots.clamp(max=N - 1).view(-1)
+    g_rows = torch.where(kept[..., None], g[:, None], 0).view(-1, d)
+
+    def zeros_put(n, index, values):
+        return torch.zeros((n, d), dtype=bf, device="cuda").index_put_(
+            (index,), values, accumulate=True)
+
+    rows = dict(
+        name="moe_rows_by_table", cost=mr.rows_by_table_cost(x, dispatch),
+        kernel=lambda: mr.rows_by_table_cuda(x, dispatch),
+        plain=lambda: mr.rows_by_table_plain(x, dispatch),
+        library=lambda: zeros_put(N, idx, g_rows),
+        forward=lambda: torch.cat([x, x.new_zeros((1, d))])[dispatch])
+    sums = dict(
+        name="moe_sum_by_slots", cost=mr.sum_by_slots_cost(y, slots),
+        kernel=lambda: mr.sum_by_slots_cuda(y, slots),
+        plain=lambda: mr.sum_by_slots_plain(y, slots),
+        library=lambda: zeros_put(T + 1, dispatch, y),
+        forward=lambda: torch.where(kept[..., None], y[idx].view(T, k, d),
+                                    0).sum(dim=1))
+    out = []
+    for r in (rows, sums):
+        # kernel and ATen path in turns, each a median of 10
+        turns = [cuda_ms(torch, fn) for fn in (r["kernel"], r["library"],
+                                               r["library"], r["kernel"])]
+        ms = statistics.median((turns[0], turns[3]))
+        library_ms = statistics.median((turns[1], turns[2]))
+        b_ms, b_by = bound(r["cost"])
+        print(f"  {r['name']} bf16 at the cell's shapes: kernel "
+              f"{turns[0]:.4f}, {turns[3]:.4f} ms ({100 * b_ms / ms:.1f} % "
+              f"of its {b_by} bound {b_ms:.4f} ms); the ATen backward it "
+              f"replaces {turns[1]:.3f}, {turns[2]:.3f} ms; ATen's forward "
+              f"{cuda_ms(torch, r['forward']):.4f} ms")
+        out.append(dict(name=r["name"], replaces=MOE_REPLACES,
+                        max_abs_err=err, ms=ms,
+                        plain_ms=cuda_ms(torch, r["plain"]), bound_ms=b_ms,
+                        bound_by=b_by, library_ms=library_ms))
+    del x, y, g, g_rows
+    free(torch)
+    return out
+
+
 def bhsd(x):
     """(B, S, h, D) -> a (B h, S, D) copy, the plain version's layout."""
     return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[3])
@@ -1422,7 +1529,8 @@ def full_width_training(torch, ops, cfg=None, ops_by_shape=(),
     counts = ops.launch_counts()
     print(f"  launches: {counts}")
     assert counts == dict(NO_LAUNCHES, fused_momentum_broadcast=steps,
-                          sgd_apply=steps * k * L), counts
+                          sgd_apply=steps * k * L,
+                          **moe_launches(cfg, 3 * steps * k * L)), counts
     losses = [h["loss"] for h in history]
     assert all(math.isfinite(x) for x in losses), losses
     ln_v = math.log(cfg.vocab_size)
@@ -1460,7 +1568,17 @@ NO_LAUNCHES = dict(fused_momentum_broadcast=0, block_momentum=0,
                    sgd_apply=0, pack_update=0, quantize=0, dequantize=0,
                    pack_compress=0, neighbor_mix=0, neighbor_mix_stepped=0,
                    robust_reduce=0, flash_attention=0,
-                   flash_attention_f32=0)
+                   flash_attention_f32=0, moe_rows_by_table=0,
+                   moe_sum_by_slots=0)
+
+
+def moe_launches(cfg, passes: int) -> dict:
+    """The MoE gathers' launches of ``passes`` calls of each MoE layer of
+    ``cfg`` (a forward: one of each; a trained local step under full
+    remat, the forward, its recompute and the backward: three)."""
+    n = passes * (cfg.num_layers - cfg.first_dense_layers)
+    n = n if cfg.num_experts else 0
+    return dict(moe_rows_by_table=n, moe_sum_by_slots=n)
 
 
 def compressed_full_width(torch, ops) -> dict:
@@ -1651,7 +1769,8 @@ KERNEL_CLASSES = (
     ("port kernels", ("momentum_kernel", "sgd_kernel", "chunk_quant_kernel",
                       "dequant_kernel", "neighbor_mix_kernel",
                       "robust_reduce_kernel", "flash_hopper_kernel",
-                      "flash_hopper_f32_kernel")),
+                      "flash_hopper_f32_kernel", "rows_by_table_kernel",
+                      "sum_by_slots_kernel")),
     ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
     ("copy/cast", ("copy", "Cat")),
 )
@@ -2435,7 +2554,8 @@ def serving_full_width(torch, ops, arch="qwen3-1.7b",
         counts = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         print(f"  launches: {counts}")
-        assert counts == dict(NO_LAUNCHES, flash_attention=cfg.num_layers)
+        assert counts == dict(NO_LAUNCHES, flash_attention=cfg.num_layers,
+                              **moe_launches(cfg, 1 + new))
         assert tokens.shape == (B, new) and tokens.dtype == torch.int32
 
         prefill_times = []
@@ -4008,8 +4128,15 @@ def examples_on_the_card(torch, ops) -> dict:
                               "llama3-405b", "qwen1.5-110b", "qwen2-7b",
                               "qwen3-1.7b", "xlstm-350m"], sorted(served)
     assert all(t.shape == (2, 12) and t.is_cuda for t in served.values())
-    # use_pallas is not set, as in the reference: no flash launch
-    assert sum(scounts.values()) == 0, scounts
+    # use_pallas is not set, as in the reference: no flash launch. The two
+    # MoE archs launch the MoE gathers in each call of a MoE layer: the
+    # prefill and 12 decode steps
+    from repro_torch.configs.base import get_config
+
+    moe = sum(moe_launches(get_config(a).reduced(), 1 + 12)[
+        "moe_rows_by_table"] for a in ("deepseek-moe-16b", "kimi-k2-1t-a32b"))
+    assert scounts == dict(NO_LAUNCHES, moe_rows_by_table=moe,
+                           moe_sum_by_slots=moe), scounts
     return counts
 
 
@@ -4023,9 +4150,10 @@ MOE_REDUCED = ("deepseek-moe-16b", "kimi-k2-1t-a32b", "hubert-xlarge",
 # until the whole run neared its time limit); at 28 layers one plane
 # alone is 65.5 GB
 MOE_TRAIN_DEPTH = 2
-# the MoE sites, by input shape in a profile: the expert products, the
-# dispatch and combine gathers, and the gate and dispatch tables' scatters
-MOE_OPS = ("aten::bmm", "aten::index", "aten::scatter", "aten::scatter_")
+# the MoE sites, by input shape in a profile: the expert products and the
+# gate and dispatch tables' scatters (the dispatch and combine gathers are
+# the port's kernels, classed with them)
+MOE_OPS = ("aten::bmm", "aten::scatter", "aten::scatter_")
 
 
 def families_card_vs_cpu(torch, ops, archs, meta_archs) -> None:
@@ -4103,7 +4231,8 @@ def families_card_vs_cpu(torch, ops, archs, meta_archs) -> None:
                 torch.cuda.synchronize()
                 assert ops.launch_counts() == dict(
                     NO_LAUNCHES,
-                    flash_attention_f32=cfg.num_layers if flash else 0)
+                    flash_attention_f32=cfg.num_layers if flash else 0,
+                    **moe_launches(cfg, 1))
                 lc, cc = api.prefill(params, cfg, prompt, cache_len,
                                      use_pallas=True)
                 close(f"{arch} prefill", lg, lc, errs, serving)
@@ -4158,7 +4287,8 @@ def families_card_vs_cpu(torch, ops, archs, meta_archs) -> None:
             runs[dev] = (state, losses, ops.launch_counts())
         (sc, lc, _), (sg, lg, counts) = runs["cpu"], runs["cuda"]
         assert counts == dict(NO_LAUNCHES, fused_momentum_broadcast=2,
-                              sgd_apply=2 * 2 * L), counts
+                              sgd_apply=2 * 2 * L,
+                              **moe_launches(cfg, 3 * 2 * 2 * L)), counts
         assert all(math.isclose(a, b, rel_tol=1e-5)
                    for a, b in zip(lg, lc)), (lg, lc)
         errs, tol = [], META_PLANE_TOL.get(arch, training)
@@ -5332,6 +5462,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_meta as fm
     from repro_torch.kernels import local_sgd as sgd
+    from repro_torch.kernels import moe_rows as mr
     from repro_torch.kernels import neighbor_mix as nm
     from repro_torch.kernels import pack_update as pu
     from repro_torch.kernels import quantize as qk
@@ -5431,7 +5562,11 @@ def main() -> int:
     robust_record = check_robust_reduce(torch, rr, rows, rows_cut)
     robust_record["source"] = ROBUST_SOURCE
     flash_records = check_flash_attention(torch, fa)
-    records += comm_records + topo_records + [robust_record] + flash_records
+    moe_records = check_moe_rows(torch, mr)
+    for r in moe_records:
+        r["source"] = MOE_SOURCE
+    records += (comm_records + topo_records + [robust_record] + flash_records
+                + moe_records)
     for r in records:
         print(f"  {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
               f"ms by {r['bound_by']}), plain {r['plain_ms']:.3f} ms, "
@@ -5677,8 +5812,9 @@ def main() -> int:
     # and compressed full-width runs, the reduced per-leaf runs, the gossip
     # run (whose time-varying graph takes the stepped entry), the reduced
     # gossip runs on static or elastic-masked matrices, the robust run, the
-    # full-width serving run (bf16 flash) and one prefill of the
-    # full-width f32 serving run (f32 flash)
+    # full-width serving run (bf16 flash), one prefill of the full-width
+    # f32 serving run (f32 flash) and the full-width MoE training run (the
+    # MoE gathers)
     launches = dict(
         fused_momentum_broadcast=dense_counts["fused_momentum_broadcast"],
         sgd_apply=dense_counts["sgd_apply"],
@@ -5694,7 +5830,9 @@ def main() -> int:
         neighbor_mix_window=placed_counts["gossip"]["neighbor_mix"],
         robust_reduce=robust_counts["robust_reduce"],
         flash_attention=serve_counts["flash_attention"],
-        flash_attention_f32=f32_serve_counts["flash_attention_f32"])
+        flash_attention_f32=f32_serve_counts["flash_attention_f32"],
+        moe_rows_by_table=moe_train_counts["moe_rows_by_table"],
+        moe_sum_by_slots=moe_train_counts["moe_sum_by_slots"])
     for r in records:
         r.update(route="cuda", launches=launches[r["name"]])
         assert r["launches"] > 0, r

@@ -24,7 +24,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "meta_kernels.cu", CSRC / "comm_kernels.cu",
            CSRC / "topology_kernels.cu", CSRC / "robust_kernels.cu",
-           CSRC / "attention_hopper.cu", CSRC / "attention_hopper_f32.cu")
+           CSRC / "attention_hopper.cu", CSRC / "attention_hopper_f32.cu",
+           CSRC / "moe_kernels.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_kernels.so"
 # --fmad=false: no multiply-add contraction anywhere, so the kernels round
@@ -58,6 +59,10 @@ SIGNATURES = {
         _P, _P, _P, _P, *(_I32,) * 6, *(_I64,) * 12, *(_I32,) * 5, _F32, _P),
     "repro_flash_attention_hopper_f32": (
         _P, _P, _P, _P, *(_I32,) * 6, *(_I64,) * 12, *(_I32,) * 5, _F32, _P),
+    # src, table, out; rows, sentinel, row bytes
+    "repro_moe_rows_by_table": (_P, _P, _P, _I64, _I64, _I64, _P),
+    # src, slots, out; tokens, k, sentinel, d, bf16
+    "repro_moe_sum_by_slots": (_P, _P, _P, _I64, _I32, _I64, _I64, _I32, _P),
 }
 
 

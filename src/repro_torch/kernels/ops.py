@@ -21,7 +21,9 @@ The robust reduction (``robust_reduce``) takes any contiguous (L, ...)
 stack as it is, packed plane or per-leaf leaf. Flash attention
 (``flash_attention``) takes the model's (B, S, H, D) projections: the
 kernel reads them through their strides, the plain version through the
-(B H, S, D) copies of JAX's ``kernels/ops.py:347-378``.
+(B H, S, D) copies of JAX's ``kernels/ops.py:347-378``. The MoE layer's
+dispatch and combine (``moe_dispatch``, ``moe_combine``) take its tables
+of one device; a DTensor layer keeps ATen's gathers (``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from repro_torch.kernels import cost as _kcost
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_meta as _fm
 from repro_torch.kernels import local_sgd as _sgd
+from repro_torch.kernels import moe_rows as _mr
 from repro_torch.kernels import neighbor_mix as _nm
 from repro_torch.kernels import pack_update as _pu
 from repro_torch.kernels import quantize as _q
@@ -402,12 +405,41 @@ def flash_attention(q, k, v, *, causal=True, sliding_window=0,
     return _fa.FlashAttentionFn.apply(run, q, k, v)
 
 
+# ---------------------------------------------------------------------------
+# MoE dispatch and combine (models/moe.py)
+# ---------------------------------------------------------------------------
+
+
+def _moe_routes(x):
+    return (_route(x, _mr.rows_by_table_plain, _mr.rows_by_table_cuda,
+                   _mr.rows_by_table_cost),
+            _route(x, _mr.sum_by_slots_plain, _mr.sum_by_slots_cuda,
+                   _mr.sum_by_slots_cost))
+
+
+def moe_dispatch(xt, table, slots):
+    """The (T, d) tokens ``xt`` into the flattened (E C, d) table: row i
+    is token ``table[i]``, zero where it is T (an empty cell). Its backward
+    sums each token's kept ``slots`` (T, k) rows of the cotangent."""
+    rows, sums = _moe_routes(xt)
+    return _mr.Dispatch.apply(rows, sums, xt.contiguous(), table, slots)
+
+
+def moe_combine(y, slots, table):
+    """Each token's kept ``slots`` (T, k) rows of the (E C, d) table ``y``
+    summed in ascending slot order -> (T, d). Its backward gives each
+    table cell its token's cotangent row (``table``), zero if empty."""
+    rows, sums = _moe_routes(y)
+    return _mr.Combine.apply(rows, sums, y.contiguous(), slots, table)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by kernel entry. The neighbor-mix kernel
     counts each launch once, under ``neighbor_mix`` or, when it came
     through the stepped entry, under ``neighbor_mix_stepped``; flash
     attention under ``flash_attention`` (the bf16 Hopper kernel) or
-    ``flash_attention_f32`` (the f32 Hopper kernel, 3xTF32)."""
+    ``flash_attention_f32`` (the f32 Hopper kernel, 3xTF32); the MoE
+    gathers under ``moe_rows_by_table`` and ``moe_sum_by_slots``."""
     return {
         "fused_momentum_broadcast": _fm.LAUNCHES,
         "block_momentum": _bm.LAUNCHES,
@@ -421,6 +453,8 @@ def launch_counts() -> dict[str, int]:
         "robust_reduce": _rr.LAUNCHES,
         "flash_attention": _fa.LAUNCHES,
         "flash_attention_f32": _fa.F32_LAUNCHES,
+        "moe_rows_by_table": _mr.ROWS_LAUNCHES,
+        "moe_sum_by_slots": _mr.SUMS_LAUNCHES,
     }
 
 
@@ -429,3 +463,4 @@ def reset_launch_counts() -> None:
     _q.QUANTIZE_LAUNCHES = _q.DEQUANTIZE_LAUNCHES = 0
     _pu.COMPRESS_LAUNCHES = _nm.LAUNCHES = _nm.STEPPED_LAUNCHES = 0
     _rr.LAUNCHES = _fa.LAUNCHES = _fa.F32_LAUNCHES = 0
+    _mr.ROWS_LAUNCHES = _mr.SUMS_LAUNCHES = 0

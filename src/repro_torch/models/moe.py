@@ -10,7 +10,10 @@ batched matmuls over the (E, C, d) dispatch table, as JAX's einsums are
 (no Pallas kernel reaches them); ``dropless=True`` (the serving paths)
 sizes C for the worst case, C = T. The combine gathers each token's slots
 back and sums them in the order the reference's scatter-add adds them,
-with no atomics, so a run on the card repeats bit for bit.
+with no atomics, so a run on the card repeats bit for bit. Both moves are
+``kernels/ops.py``'s ``moe_dispatch`` and ``moe_combine``, each the
+other's backward (a gather, never an accumulating index_put); a DTensor
+layer (the dry run on a mesh) keeps ATen's gathers.
 
 The expert-parallel placements (``EXPERT_AXIS``, ``SHARD_MAP_MESH``,
 ``set_expert_axis``), on a DeviceMesh where the weights and activations
@@ -33,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import dense_init, init_mlp, swiglu
 from repro_torch.utils.tree import is_dtensor
 
@@ -180,6 +184,23 @@ def _assign(probs, idx, cfg: ModelConfig, dropless: bool = False):
     return gates, slot_expert, pos_clamped, keep, aux, C
 
 
+def _tables(slot_expert, pos_clamped, keep, T: int, k: int, E: int, C: int,
+            device):
+    """Each slot's cell of the flattened (E, C) table, ``flat`` (T*k,),
+    E*C where the slot is dropped; the table of token ids ``dispatch``
+    (E*C,), sentinel T = empty; and each token's cells ascending,
+    ``slots`` (T, k): expert order, the table's, dropped slots last.
+    Dropped slots write to one extra cell past the table, which is cut
+    off: they must not overwrite the slot that fills the capacity."""
+    token_of_slot = torch.arange(T, device=device).repeat_interleave(k)
+    flat = torch.where(keep, slot_expert * C + pos_clamped,
+                       torch.full_like(slot_expert, E * C))
+    dispatch = torch.full((E * C + 1,), T, dtype=torch.long,
+                          device=device).scatter(0, flat, token_of_slot)
+    slots = flat.view(T, k).sort(dim=-1).values
+    return flat, dispatch[:E * C], slots
+
+
 def moe_layer(x, p, cfg: ModelConfig, dropless: bool = False):
     """x: (B, S, d) -> (out (B, S, d), aux loss 0-d f32)."""
     B, S, d = x.shape
@@ -197,15 +218,8 @@ def moe_layer(x, p, cfg: ModelConfig, dropless: bool = False):
             out = out + swiglu(xt, p["shared"])
         return out.reshape(B, S, d), aux
 
-    # the (E, C) dispatch table of token ids, sentinel T = empty. Dropped
-    # (over-capacity) slots write to one extra cell past the table, which
-    # is cut off: they must not overwrite the slot that fills the capacity
-    token_of_slot = torch.arange(T, device=x.device).repeat_interleave(k)
-    flat = torch.where(keep, slot_expert * C + pos_clamped,
-                       torch.full_like(slot_expert, E * C))
-    dispatch = torch.full((E * C + 1,), T, dtype=torch.long,
-                          device=x.device).scatter(0, flat, token_of_slot)
-    dispatch = dispatch[:E * C].view(E, C)
+    flat, dispatch, slots = _tables(slot_expert, pos_clamped, keep, T, k,
+                                    E, C, x.device)
     # the gates laid out like the table, out of place so that autograd
     # carries their gradient to the router
     gate_tab = torch.zeros(E * C + 1, dtype=torch.float32,
@@ -213,8 +227,11 @@ def moe_layer(x, p, cfg: ModelConfig, dropless: bool = False):
                                                     gates.reshape(-1))
     gate_tab = gate_tab[:E * C].view(E, C)
 
-    xt_pad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
-    x_e = _constrain_experts(xt_pad[dispatch])  # (E, C, d)
+    if is_dtensor(xt):
+        xt_pad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
+        x_e = _constrain_experts(xt_pad[dispatch.view(E, C)])  # (E, C, d)
+    else:
+        x_e = kops.moe_dispatch(xt, dispatch, slots).view(E, C, d)
     # each (E, C, ...) table is dropped as soon as the next is formed: a
     # dropless prefill's are 1-1.5 GB each (serving keeps no graph)
     w_in = p["w_in"].to(dt)
@@ -228,12 +245,14 @@ def moe_layer(x, p, cfg: ModelConfig, dropless: bool = False):
     del y_e
     # combine: each token sums its kept slots' rows of the table, in
     # expert order, as the reference's scatter-add visits them (dropped
-    # slots, E*C, sort last and add zero). A gather, not a scatter-add:
+    # slots, E*C, sort last and add nothing). A gather, not a scatter-add:
     # the card adds in a fixed order (index_add's atomics would make one
     # prefill differ from the next, and near-tied router choices after it)
-    slots = flat.view(T, k).sort(dim=-1).values
-    rows = y_w.reshape(E * C, d)[slots.clamp(max=E * C - 1)]
-    out = torch.where((slots < E * C)[..., None], rows, 0).sum(dim=1)
+    if is_dtensor(y_w):
+        rows = y_w.reshape(E * C, d)[slots.clamp(max=E * C - 1)]
+        out = torch.where((slots < E * C)[..., None], rows, 0).sum(dim=1)
+    else:
+        out = kops.moe_combine(y_w.reshape(E * C, d), slots, dispatch)
     if cfg.num_shared_experts:
         out = out + swiglu(xt, p["shared"])
     return _batch_view(out, xt, B, S), aux
@@ -270,12 +289,9 @@ def local_experts(xt, gates, slot_expert, pos_clamped, keep, C, w_in, w_out,
     dt = xt.dtype
     E_loc = w_in.shape[0]
     mine = keep & (slot_expert >= lo) & (slot_expert < lo + E_loc)
-    flat = torch.where(mine, (slot_expert - lo) * C + pos_clamped,
-                       torch.full_like(slot_expert, E_loc * C))
-    token_of_slot = torch.arange(T, device=xt.device).repeat_interleave(k)
-    dispatch = torch.full((E_loc * C + 1,), T, dtype=torch.long,
-                          device=xt.device).scatter(0, flat, token_of_slot)
-    dispatch = dispatch[:E_loc * C].view(E_loc, C)
+    flat, dispatch, slots = _tables(slot_expert - lo, pos_clamped, mine, T,
+                                    k, E_loc, C, xt.device)
+    dispatch = dispatch.view(E_loc, C)
     gate_tab = torch.zeros(E_loc * C + 1, dtype=torch.float32,
                            device=xt.device).scatter(0, flat,
                                                      gates.reshape(-1))
@@ -286,7 +302,6 @@ def local_experts(xt, gates, slot_expert, pos_clamped, keep, C, w_in, w_out,
     h = torch.bmm(x_e, w_in.reshape(E_loc, d, 2 * de)).view(E_loc, C, 2, de)
     h = F.silu(h[..., 0, :]) * h[..., 1, :]
     y_w = torch.bmm(h, w_out.to(dt)) * gate_tab[..., None].to(dt)
-    slots = flat.view(T, k).sort(dim=-1).values
     rows = y_w.reshape(E_loc * C, d)[slots.clamp(max=E_loc * C - 1)]
     part = torch.where((slots < E_loc * C)[..., None], rows, 0).sum(dim=1)
     return part.to(torch.float32)

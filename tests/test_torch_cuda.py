@@ -802,8 +802,9 @@ def _moe_cfg(arch="deepseek-moe-16b"):
 def test_cuda_moe_layer_matches_the_cpu(cuda_device):
     """The MoE layer on the card against the CPU, f32 with TF32 off, with
     capacity dropping and dropless: the routing integers equal, the output,
-    aux loss and gradients within rtol 1e-5 / atol 1e-6 (the combine's
-    ``index_add`` is atomic on the card, so not bitwise)."""
+    aux loss and gradients within rtol 1e-5 / atol 1e-6 (the expert
+    matmuls and the router's reductions add in another order on the card,
+    so not bitwise; the dispatch and combine gathers add in one order)."""
     import dataclasses
 
     from repro_torch.models import moe
@@ -836,6 +837,118 @@ def test_cuda_moe_layer_matches_the_cpu(cuda_device):
             for a, b in zip(pc, pg):
                 torch.testing.assert_close(b.grad.cpu(), a.grad,
                                            rtol=1e-5, atol=1e-5)
+
+
+def _moe_tables(cfg, T, cf, dropless, tied, device):
+    """The routing tables of T tokens under ``cfg`` at capacity factor
+    ``cf``: seeded random router probabilities, or with ``tied`` equal ones
+    (every token picks experts 0..k-1, the others get no slot, and past
+    the capacity a token's every slot is dropped). Returns (N = E C,
+    dispatch (N,), slots (T, k))."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(cfg, capacity_factor=cf)
+    E, k = cfg.num_experts, cfg.moe_top_k
+    gen = torch.Generator(device=device).manual_seed(T + E)
+    probs = (torch.full((T, E), 1.0 / E, device=device) if tied else
+             torch.softmax(torch.randn(T, E, generator=gen, device=device),
+                           dim=-1))
+    idx = torch.sort(probs, dim=-1, descending=True,
+                     stable=True).indices[:, :k]
+    _, se, pos, keep, _, C = moe._assign(probs, idx, cfg, dropless)
+    _, dispatch, slots = moe._tables(se, pos, keep, T, k, E, C, device)
+    return E * C, dispatch, slots
+
+
+# (label, config, tokens): the reduced configs' shapes, and the
+# deepseek-moe-16b-l3.mavg-k4 cell's (T = 8 x 512, k 6, E 64, C 480 at
+# capacity factor 1.25, d 2,048)
+MOE_SHAPES = [("deepseek-moe-16b-reduced", "deepseek-moe-16b", True, 32),
+              ("kimi-k2-1t-a32b-reduced", "kimi-k2-1t-a32b", True, 32),
+              ("deepseek-moe-16b-cell", "deepseek-moe-16b", False, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,arch,reduced,T", MOE_SHAPES,
+                         ids=[m[0] for m in MOE_SHAPES])
+def test_cuda_moe_gathers_match_plain_bitwise(cuda_device, label, arch,
+                                              reduced, T):
+    """On the card: ``rows_by_table`` and ``sum_by_slots`` bitwise equal to
+    their plain versions in f32 and bf16, at capacity factors 1.25 and 0.01
+    and dropless, with router and tied routing (an expert with no slot, a
+    token whose every slot is dropped). Rows that are not whole 16-byte
+    chunks, or an address off 16 bytes, are refused."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import moe_rows as mr
+
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if reduced else cfg
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    d = cfg.d_model
+    for cf, dropless in ((1.25, False), (0.01, False), (1.25, True)):
+        for tied in (False, True):
+            N, dispatch, slots = _moe_tables(cfg, T, cf, dropless, tied,
+                                             cuda_device)
+            kept = slots < N
+            if tied:
+                assert (dispatch.view(cfg.num_experts, -1)[
+                    cfg.moe_top_k:] == T).all()
+                if cf == 0.01:
+                    assert (~kept).all(dim=1).any()
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn(T, d, generator=gen, device=cuda_device).to(dt)
+                y = torch.randn(N, d, generator=gen, device=cuda_device).to(dt)
+                assert torch.equal(mr.rows_by_table_cuda(x, dispatch),
+                                   mr.rows_by_table_plain(x, dispatch))
+                assert torch.equal(mr.sum_by_slots_cuda(y, slots),
+                                   mr.sum_by_slots_plain(y, slots))
+                narrow = x[:, :d - 2].contiguous()
+                shifted = x.view(-1)[2:2 + (T - 1) * d].view(T - 1, d)
+                for bad in (narrow, shifted):
+                    with pytest.raises(ValueError):
+                        mr.rows_by_table_cuda(bad, dispatch)
+                    with pytest.raises(ValueError):
+                        mr.sum_by_slots_cuda(bad, slots)
+                del x, y
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_moe_layer_launches_the_gathers_and_no_index_backward(
+        cuda_device):
+    """One bf16 ``moe_layer`` forward and backward on the card under
+    ``torch.profiler``: no ``indexing_backward_kernel``, and each gather
+    kernel as often as the launch counts say (the dispatch and the
+    combine, forward and backward: two of each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import moe
+    from repro_torch.utils.tree import tree_map
+
+    cfg = _moe_cfg()
+    p = tree_map(lambda t: t.to(cuda_device),
+                 moe.init_moe(torch.Generator().manual_seed(0), cfg, "cpu"))
+    x = torch.randn((4, 64, cfg.d_model), device=cuda_device).to(
+        torch.bfloat16).requires_grad_(True)
+    moe.moe_layer(x, p, cfg)[0].float().square().sum().backward()  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out, aux = moe.moe_layer(x, p, cfg)
+        (out.float().square().sum() + aux).backward()
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["moe_rows_by_table"] == counts["moe_sum_by_slots"] == 2
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")}
+    assert kernels, "the profiler saw no device activity"
+    assert not [k for k in kernels if "indexing_backward_kernel" in k]
+    for name, key in (("rows_by_table_kernel", "moe_rows_by_table"),
+                      ("sum_by_slots_kernel", "moe_sum_by_slots")):
+        assert sum(c for k, c in kernels.items() if name in k) == counts[key]
 
 
 @pytest.mark.cuda

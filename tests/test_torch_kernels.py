@@ -237,6 +237,8 @@ def test_launch_counter_counts_kernel_launches_only():
     ops.robust_reduce(torch.stack([x, x, x]), trim=1)
     qkv = torch.rand(1, 16, 2, 64)
     ops.flash_attention(qkv, qkv, qkv)
+    table, slots = torch.tensor([0, 2, 1, 3]), torch.tensor([[0, 4], [1, 2]])
+    ops.moe_combine(ops.moe_dispatch(x[:3], table, slots), slots, table)
     assert ops.launch_counts() == {"fused_momentum_broadcast": 0,
                                    "block_momentum": 0, "sgd_apply": 0,
                                    "pack_update": 0, "quantize": 0,
@@ -245,7 +247,9 @@ def test_launch_counter_counts_kernel_launches_only():
                                    "neighbor_mix_stepped": 0,
                                    "robust_reduce": 0,
                                    "flash_attention": 0,
-                                   "flash_attention_f32": 0}
+                                   "flash_attention_f32": 0,
+                                   "moe_rows_by_table": 0,
+                                   "moe_sum_by_slots": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -263,3 +263,98 @@ def test_moe_aux_loss_balanced_router():
     np.testing.assert_array_equal(se.numpy(), np.asarray(jse))
     np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos))
     np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep))
+
+
+# ---------------------------------------------------------------------------
+# the dispatch and combine (kernels/moe_rows.py's plain versions on the
+# CPU) against autograd through the index formulation they replace
+# ---------------------------------------------------------------------------
+
+
+def _tables(cf, dropless, routing, T=64):
+    """The routing tables of T tokens through ``_BASE``'s router, or with
+    ``routing="tied"`` a zero router: every token picks experts 0..k-1, the
+    others get no slot, and past the capacity a token's every slot is
+    dropped."""
+    cfg = dataclasses.replace(_BASE, capacity_factor=cf)
+    p = _PARAMS if routing == "router" else dict(
+        _PARAMS, router=torch.zeros_like(_PARAMS["router"]))
+    _, se, pos, keep, _, C = moe._route(_x(5, (T, cfg.d_model)), p, cfg,
+                                        dropless)
+    E, k = cfg.num_experts, cfg.moe_top_k
+    flat, dispatch, slots = moe._tables(se, pos, keep, T, k, E, C, "cpu")
+    if cf == 0.01 and not dropless:
+        assert not keep.all()  # dropped slots
+    else:
+        assert (dispatch == T).any()  # empty cells
+    if routing == "tied":
+        assert (dispatch.view(E, C)[k:] == T).all()
+        if not dropless and cf == 0.01:
+            assert (slots == E * C).all(dim=1).any()  # all slots dropped
+    return cfg, E * C, dispatch, slots
+
+
+@pytest.mark.parametrize("routing", ["router", "tied"])
+@pytest.mark.parametrize("cf,dropless", CASES, ids=CASE_IDS)
+def test_dispatch_and_combine_equal_the_index_formulation(cf, dropless,
+                                                          routing):
+    """f64: ``ops.moe_dispatch`` equals ``cat([x, 0])[dispatch]`` and
+    ``ops.moe_combine`` the clamped gather, ``where`` and ``sum``, forward
+    and gradient, bitwise."""
+    from repro_torch.kernels import ops
+
+    cfg, N, dispatch, slots = _tables(cf, dropless, routing)
+    T, d = slots.shape[0], cfg.d_model
+    gen = torch.Generator().manual_seed(7)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float64)
+
+    x = rand(T, d)
+    got_x, want_x = (x.clone().requires_grad_(True) for _ in range(2))
+    got = ops.moe_dispatch(got_x, dispatch, slots)
+    want = torch.cat([want_x, want_x.new_zeros((1, d))])[dispatch]
+    assert torch.equal(got, want)
+    g = rand(N, d)
+    got.backward(g)
+    want.backward(g)
+    assert torch.equal(got_x.grad, want_x.grad)
+
+    y = rand(N, d)
+    got_y, want_y = (y.clone().requires_grad_(True) for _ in range(2))
+    got = ops.moe_combine(got_y, slots, dispatch)
+    rows = want_y[slots.clamp(max=N - 1)]
+    want = torch.where((slots < N)[..., None], rows, 0).sum(dim=1)
+    assert torch.equal(got, want)
+    g = rand(T, d)
+    got.backward(g)
+    want.backward(g)
+    assert torch.equal(got_y.grad, want_y.grad)
+
+
+def test_dispatch_and_combine_charge_their_kernels_on_meta():
+    """On the meta device (the cost model) each move charges its kernel's
+    declared bytes, forward and backward, and no flops."""
+    from repro_torch.kernels import moe_rows, ops
+    from repro_torch.roofline.cost import jit_cost
+
+    cfg, N, dispatch, slots = _tables(1.25, False, "router")
+    T, d = slots.shape[0], cfg.d_model
+    x = torch.empty((T, d), device="meta", requires_grad=True)
+    y = torch.empty((N, d), device="meta", requires_grad=True)
+    table, sl = dispatch.to("meta"), slots.to("meta")
+
+    def moves(x, y, table, sl):
+        out = (ops.moe_dispatch(x, table, sl).sum()
+               + ops.moe_combine(y, sl, table).sum())
+        return torch.autograd.grad(out, (x, y))
+
+    jc = jit_cost(moves, x, y, table, sl)
+    assert jc.kernel_calls == {"moe_rows_by_table": 2, "moe_sum_by_slots": 2}
+    assert jc.flops == 0
+    declared = (moe_rows.rows_by_table_cost(x, table).nbytes
+                + moe_rows.sum_by_slots_cost(y, sl).nbytes)
+    k = slots.shape[1]
+    assert declared == (8 * N + 4 * d * (min(T, N) + N)
+                        + 8 * T * k + 4 * d * (min(N, T * k) + T))
+    assert jc.hbm_bytes >= 2 * declared
